@@ -1,0 +1,326 @@
+"""Paged KV cache: the refcounted block pool and the radix prefix index.
+
+Port of ``ray_tpu/inference/cache.py``'s ``BlockPool``, ``_TrieNode``
+and ``RadixIndex``.  The pool is preallocated and handed out in
+fixed-size token blocks (``[n_layers, n_blocks + 1, n_heads, block_size,
+head_dim]`` x2); a request's block table maps positions to blocks, and
+per-block refcounts let requests share blocks (prefix reuse) with
+copy-on-write before a shared block is written.  Block id 0 is a
+reserved scratch block: masked rows and out-of-range writes land there
+so no write needs a branch.
+
+Where the JAX package donated the pool buffers to a jitted update, the
+port updates the pool tensors in place (``index_put_``/``copy_``).
+
+``RadixIndex`` is a trie over block-sized token chunks (plus partial
+tail leaves): a prompt whose head matches a cached prefix adopts those
+blocks by refcount instead of re-running prefill.  Unreferenced cached
+prefixes are LRU-evicted under pool pressure.
+"""
+
+from __future__ import annotations
+
+import heapq
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.models.gpt import GPTConfig
+
+
+class BlockPool:
+    """Refcounted fixed-size token-block pool (the paged KV cache).
+
+    ``alloc()`` returns a block with refcount 1; every additional holder
+    (a sharing request, the prefix trie) ``incref``s; ``decref`` frees
+    the block at zero.  A holder about to write a block must own it
+    alone (refcount 1), or copy-on-write first (``copy_block``).
+
+    alloc/incref/decref and the tensor updates happen on the engine loop
+    thread; ``stats()`` may be read from any thread (the lock guards the
+    free list and refcounts)."""
+
+    def __init__(self, cfg: GPTConfig, n_blocks: int, block_size: int,
+                 max_seq: Optional[int] = None, dtype=None, device=None):
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.block_size = int(block_size)
+        self.max_seq = int(max_seq or cfg.max_seq)
+        if self.max_seq > cfg.max_seq:
+            raise ValueError(
+                f"cache max_seq {self.max_seq} exceeds model max_seq "
+                f"{cfg.max_seq} (wpe table bound)")
+        # block-table width: enough blocks to cover one max_seq sequence
+        self.blocks_per_seq = -(-self.max_seq // self.block_size)
+        if n_blocks < self.blocks_per_seq:
+            raise ValueError(
+                f"n_blocks {n_blocks} cannot hold one max_seq={self.max_seq} "
+                f"sequence ({self.blocks_per_seq} blocks of {block_size})")
+        self.n_blocks = int(n_blocks)             # usable (excludes scratch)
+        self.dtype = dtype or cfg.dtype
+        self._shape = (cfg.n_layers, self.n_blocks + 1, cfg.n_heads,
+                       self.block_size, cfg.head_dim)
+        self.k = self._zeros()
+        self.v = self._zeros()
+        self._lock = threading.Lock()
+        # pop() -> block 1 first; id 0 (scratch) is never in the list
+        self._free = list(range(self.n_blocks, 0, -1))
+        self._rc = [0] * (self.n_blocks + 1)
+
+    def _zeros(self) -> torch.Tensor:
+        return torch.zeros(self._shape, dtype=self.dtype, device=self.device)
+
+    # ------------------------------------------------------------- blocks
+
+    def alloc(self) -> Optional[int]:
+        """Hand out a block (refcount 1), or None when the pool is dry
+        (the caller evicts cached prefixes, preempts, or queues)."""
+        with self._lock:
+            if not self._free:
+                return None
+            bid = self._free.pop()
+            self._rc[bid] = 1
+            return bid
+
+    def incref(self, bid: int) -> None:
+        with self._lock:
+            if self._rc[bid] < 1:
+                raise ValueError(f"block {bid} is not allocated")
+            self._rc[bid] += 1
+
+    def decref(self, bid: int) -> int:
+        """Drop one reference; frees the block at zero.  Returns the
+        remaining count."""
+        with self._lock:
+            if self._rc[bid] < 1:
+                raise ValueError(f"block {bid} is not allocated "
+                                 "(double free or never alloc'd)")
+            self._rc[bid] -= 1
+            rc = self._rc[bid]
+            if rc == 0:
+                self._free.append(bid)
+            return rc
+
+    def refcount(self, bid: int) -> int:
+        with self._lock:
+            return self._rc[bid]
+
+    @property
+    def n_free(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    # ------------------------------------------------------------- tensors
+
+    def copy_block(self, src: int, dst: int) -> None:
+        """Copy-on-write: duplicate src's K/V into dst, in place in both
+        pools."""
+        self.k[:, dst].copy_(self.k[:, src])
+        self.v[:, dst].copy_(self.v[:, src])
+
+    def write_prefill(self, table, k_new: torch.Tensor,
+                      v_new: torch.Tensor) -> None:
+        """Seed a request's blocks from a full prefill (``[L, h, S, hd]``
+        each): the sequence, zero-padded to the table span, scatters
+        through the block table in place.  Unowned table entries point
+        at the scratch block, whose content the kv-length masks hide
+        (duplicate scratch writes collide harmlessly)."""
+        span = self.blocks_per_seq * self.block_size
+        L, h, s, hd = k_new.shape
+        T = self.blocks_per_seq
+        t = torch.as_tensor(np.asarray(table), dtype=torch.long,
+                            device=self.device)
+        for pool, new in ((self.k, k_new), (self.v, v_new)):
+            if s < span:
+                new = torch.nn.functional.pad(new, (0, 0, 0, span - s))
+            blocks = new.reshape(L, h, T, self.block_size, hd) \
+                .permute(0, 2, 1, 3, 4)
+            pool[:, t] = blocks.to(pool.dtype)       # in-place index_put_
+
+    def reset(self) -> None:
+        """Zero the pool and drop every reference, after a failed step
+        left the pool's content in doubt.  The caller fails all in-flight
+        requests and clears the prefix index (cached prefixes would
+        otherwise point at zeroed blocks)."""
+        self.k.zero_()
+        self.v.zero_()
+        with self._lock:
+            self._free = list(range(self.n_blocks, 0, -1))
+            self._rc = [0] * (self.n_blocks + 1)
+
+    # ------------------------------------------------------------- stats
+
+    def bytes_total(self) -> int:
+        return 2 * self.k.numel() * self.k.element_size()
+
+    def stats(self) -> dict:
+        with self._lock:
+            free = len(self._free)
+        return {
+            "block_size": self.block_size,
+            "blocks_total": self.n_blocks,
+            "blocks_free": free,
+            "blocks_used": self.n_blocks - free,
+            "max_seq": self.max_seq,
+            "bytes_total": self.bytes_total(),
+        }
+
+
+# ---------------------------------------------------------------------------
+# radix prefix index
+
+
+class _TrieNode:
+    __slots__ = ("key", "block", "n_valid", "children", "parent", "lru")
+
+    def __init__(self, key, block, n_valid, parent):
+        self.key = key            # tuple of tokens (len == block_size for
+        #                           interior/full nodes, < for tail leaves)
+        self.block = block        # pool block id holding these tokens' KV
+        self.n_valid = n_valid    # valid token count in the block
+        self.children: dict = {}
+        self.parent = parent
+        self.lru = 0
+
+
+class RadixIndex:
+    """Trie over cached prompt prefixes, keyed on block-sized token
+    chunks; holds one pool reference per cached block.
+
+    * ``insert(tokens, block_ids)`` caches a request's prefix chain: full
+      blocks become interior nodes, a partial tail a leaf.  Chunks
+      already cached dedupe to the existing node.
+    * ``match(prompt)`` returns the longest cached chain that prefixes
+      the prompt, capped at ``len(prompt) - 1`` tokens so at least one
+      token runs prefill.  Matched blocks are increfed for the caller.
+    * ``evict(n)`` drops unreferenced leaves LRU-first.
+
+    Single-threaded: called only from the engine loop thread."""
+
+    def __init__(self, pool: BlockPool):
+        self.pool = pool
+        self.bs = pool.block_size
+        self.root = _TrieNode((), 0, 0, None)
+        self._clock = 0
+        self._nodes = 0
+
+    def _touch(self, node: _TrieNode) -> None:
+        self._clock += 1
+        while node is not None and node is not self.root:
+            node.lru = self._clock
+            node = node.parent
+
+    @property
+    def cached_blocks(self) -> int:
+        return self._nodes
+
+    def match(self, prompt: np.ndarray) -> tuple:
+        """(block_ids, n_tokens): the adopted chain, blocks increfed.
+        The caller decrefs each id when done (release or CoW)."""
+        bs = self.bs
+        n = len(prompt)
+        node, ids, matched = self.root, [], 0
+        while matched + bs < n:        # full block AND >= 1 token left over
+            key = tuple(int(t) for t in prompt[matched:matched + bs])
+            child = node.children.get(key)
+            if child is None or child.n_valid != bs:
+                break
+            ids.append(child.block)
+            matched += bs
+            node = child
+        # partial tail leaves: the longest whose whole content prefixes
+        # the rest of the prompt (still leaving >= 1 token for prefill)
+        best = None
+        for key, child in node.children.items():
+            m = len(key)
+            if m >= bs or m >= n - matched:
+                continue
+            if tuple(int(t) for t in prompt[matched:matched + m]) != key:
+                continue
+            if best is None or m > len(best.key):
+                best = child
+        if best is not None:
+            ids.append(best.block)
+            matched += len(best.key)
+            node = best
+        for bid in ids:
+            self.pool.incref(bid)
+        if node is not self.root:
+            self._touch(node)
+        return ids, matched
+
+    def insert(self, tokens: np.ndarray, block_ids: list) -> None:
+        """Cache the chain for ``tokens`` backed by ``block_ids`` (the
+        request's table, in order).  Kept blocks gain a trie reference;
+        chunks already cached dedupe and the caller's copy is not kept."""
+        bs = self.bs
+        n = len(tokens)
+        node = self.root
+        for i in range(n // bs):
+            key = tuple(int(t) for t in tokens[i * bs:(i + 1) * bs])
+            child = node.children.get(key)
+            if child is None:
+                bid = block_ids[i]
+                child = _TrieNode(key, bid, bs, node)
+                node.children[key] = child
+                self.pool.incref(bid)
+                self._nodes += 1
+            node = child
+        j = n % bs
+        if j:
+            key = tuple(int(t) for t in tokens[n - j:])
+            if key not in node.children:
+                bid = block_ids[n // bs]
+                leaf = _TrieNode(key, bid, j, node)
+                node.children[key] = leaf
+                self.pool.incref(bid)
+                self._nodes += 1
+                node = leaf
+        self._touch(node)
+
+    def _leaves(self) -> list:
+        out, stack = [], [self.root]
+        while stack:
+            node = stack.pop()
+            kids = list(node.children.values())
+            if not kids and node is not self.root:
+                out.append(node)
+            stack.extend(kids)
+        return out
+
+    def evict(self, n: int) -> int:
+        """Free up to ``n`` blocks by dropping unreferenced cached
+        prefixes, LRU-first, leaves-up; returns the blocks freed.  One
+        trie walk seeds a heap of evictable leaves, and evicting a leaf
+        pushes its parent when that exposes it."""
+        freed = 0
+        heap = [(leaf.lru, id(leaf), leaf) for leaf in self._leaves()
+                if self.pool.refcount(leaf.block) == 1]
+        heapq.heapify(heap)
+        while heap and freed < n:
+            _, _, node = heapq.heappop(heap)
+            # an entry may be stale (re-referenced since the walk)
+            if (node.children
+                    or node.parent.children.get(node.key) is not node
+                    or self.pool.refcount(node.block) != 1):
+                continue
+            del node.parent.children[node.key]
+            self.pool.decref(node.block)
+            self._nodes -= 1
+            freed += 1
+            p = node.parent
+            if (p is not self.root and not p.children
+                    and self.pool.refcount(p.block) == 1):
+                heapq.heappush(heap, (p.lru, id(p), p))
+        return freed
+
+    def clear(self) -> None:
+        """Drop the whole index without touching refcounts; used only
+        after ``BlockPool.reset()``, which already zeroed them."""
+        self.root = _TrieNode((), 0, 0, None)
+        self._nodes = 0

@@ -1,0 +1,285 @@
+"""GPT: decoder-only transformer, the port of ``ray_tpu/models/gpt.py``.
+
+Dense models on one device.  Params are a plain dict in the JAX
+package's stacked layout (``PARAM_AXES``: every per-layer leaf has a
+leading ``[n_layers]`` dim), so the bridge in ``models/convert.py`` needs
+no renaming; the layer loop is a Python loop where JAX had ``lax.scan``.
+Activations run in ``cfg.dtype``, params and the layer-norm / softmax /
+logits math in f32.  Attention goes through ``ops.attention``, which
+picks the Hopper flash kernel for tile-friendly CUDA inputs.
+
+Not ported yet: MoE (``n_experts > 0`` raises), meshes, ring attention,
+remat, ``loss_fn`` and the pipelined forward.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.ops.flash_attention import flash_attention_with_lse
+
+
+@dataclass(frozen=True)
+class GPTConfig:
+    vocab_size: int = 50304          # gpt-2 vocab padded to a multiple of 128
+    max_seq: int = 1024
+    d_model: int = 768
+    n_heads: int = 12
+    n_layers: int = 12
+    d_ff: int = 3072
+    dropout: float = 0.0
+    dtype: torch.dtype = torch.bfloat16      # activation dtype
+    param_dtype: torch.dtype = torch.float32
+    remat: bool = True
+    remat_policy: Optional[str] = None
+    tie_embeddings: bool = True
+    attn_impl: Optional[str] = None  # None=auto, "flash", "reference"
+    # the JAX package's TPU flash tile sizes; the CUDA kernel picks its
+    # own tiles, the plain flash version on the CPU honours these
+    attn_block_q: int = 512
+    attn_block_k: int = 512
+    pp_microbatches: Optional[int] = None
+    n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01
+
+    def __post_init__(self):
+        if self.remat_policy not in (None, "dots", "dots_flash"):
+            raise ValueError(
+                f"unknown remat_policy {self.remat_policy!r}; expected "
+                "None, 'dots', or 'dots_flash'")
+        if self.n_experts:
+            raise NotImplementedError(
+                "mixture-of-experts GPT is not ported yet (n_experts="
+                f"{self.n_experts}); use a dense config")
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_heads == 0
+        return self.d_model // self.n_heads
+
+    @staticmethod
+    def gpt2_124m(**kw) -> "GPTConfig":
+        return GPTConfig(**{**dict(d_model=768, n_heads=12, n_layers=12,
+                                   d_ff=3072, max_seq=1024), **kw})
+
+    @staticmethod
+    def tiny(**kw) -> "GPTConfig":
+        """Test-sized config."""
+        return GPTConfig(**{**dict(vocab_size=512, max_seq=128, d_model=64,
+                                   n_heads=4, n_layers=2, d_ff=128,
+                                   remat=False), **kw})
+
+
+# -- params ----------------------------------------------------------------
+
+# the JAX package's leaf names and logical axes; "layers" leaves carry a
+# leading [n_layers] dim
+PARAM_AXES = {
+    "wte": ("vocab", "embed"),
+    "wpe": (None, "embed"),
+    "ln_f_scale": ("embed",),
+    "ln_f_bias": ("embed",),
+    "layers": {
+        "ln1_scale": ("layers", "embed"),
+        "ln1_bias": ("layers", "embed"),
+        "wqkv": ("layers", "embed", "qkv"),
+        "wo": ("layers", "heads", "embed"),
+        "bo": ("layers", "embed"),
+        "ln2_scale": ("layers", "embed"),
+        "ln2_bias": ("layers", "embed"),
+        "w_up": ("layers", "embed", "mlp"),
+        "b_up": ("layers", "mlp"),
+        "w_down": ("layers", "mlp", "embed"),
+        "b_down": ("layers", "embed"),
+    },
+}
+
+
+def init_params(cfg: GPTConfig, seed: int = 0, *, device=None,
+                generator: Optional[torch.Generator] = None) -> dict:
+    """GPT-2 style init: N(0, 0.02), residual projections scaled by
+    1/sqrt(2*n_layers), drawn from a ``torch.Generator`` on the target
+    device (seeded with ``seed`` unless one is passed).  The draws differ
+    from ``jax.random``'s; parity tests bridge one set of weights."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(int(seed))
+    d, L, f = cfg.d_model, cfg.n_layers, cfg.d_ff
+    std = 0.02
+    res_std = std / math.sqrt(2 * L)
+    pd = cfg.param_dtype
+
+    def norm(shape, s=std):
+        t = torch.randn(shape, generator=generator, device=dev,
+                        dtype=torch.float32)
+        return (t * s).to(pd)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=pd, device=dev)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=pd, device=dev)
+
+    params = {
+        "wte": norm((cfg.vocab_size, d)),
+        "wpe": norm((cfg.max_seq, d), 0.01),
+        "ln_f_scale": ones((d,)),
+        "ln_f_bias": zeros((d,)),
+        "layers": {
+            "ln1_scale": ones((L, d)),
+            "ln1_bias": zeros((L, d)),
+            "wqkv": norm((L, d, 3 * d)),
+            "wo": norm((L, d, d), res_std),
+            "bo": zeros((L, d)),
+            "ln2_scale": ones((L, d)),
+            "ln2_bias": zeros((L, d)),
+            "w_up": norm((L, d, f)),
+            "b_up": zeros((L, f)),
+            "w_down": norm((L, f, d), res_std),
+            "b_down": zeros((L, d)),
+        },
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = norm((d, cfg.vocab_size))
+    return params
+
+
+def layer_params(params, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked ``params["layers"]``."""
+    return {name: t[i] for name, t in params["layers"].items()}
+
+
+# -- forward ---------------------------------------------------------------
+
+def _layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)   # population var
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
+
+
+def _attend(q, k, v, cfg: GPTConfig):
+    """[b, h, s, hd] causal attention, with the JAX package's dispatch:
+    "dots_flash" takes the lse-returning flash variant on the device
+    where the JAX package takes it on the TPU."""
+    if cfg.remat_policy == "dots_flash":
+        tile_ok = (q.shape[-2] % 128 == 0 and k.shape[-2] % 128 == 0
+                   and q.shape[-1] in (64, 128, 256))
+        if q.is_cuda and tile_ok and cfg.attn_impl in (None, "flash"):
+            out, _lse = flash_attention_with_lse(
+                q, k, v, causal=True,
+                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+            return out
+    return attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                     block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
+
+
+def _mlp(y, lp, cfg: GPTConfig):
+    u = y @ lp["w_up"].to(cfg.dtype) + lp["b_up"].to(cfg.dtype)
+    u = F.gelu(u, approximate="tanh")      # jax.nn.gelu's default
+    return u @ lp["w_down"].to(cfg.dtype) + lp["b_down"].to(cfg.dtype)
+
+
+def _transformer_layer(x, lp, cfg: GPTConfig, return_kv: bool = False):
+    """One pre-LN block; x [b, s, d], lp = one layer's params.  With
+    ``return_kv`` also the per-head K/V ([b, h, s, hd] each), the seed of
+    an incremental-decode cache."""
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+
+    y = _layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
+    qkv = y @ lp["wqkv"].to(cfg.dtype)
+    q, k, v = qkv.split(cfg.d_model, dim=-1)
+
+    def heads(t):  # [b, s, d] -> [b, h, s, hd] (a strided view)
+        return t.reshape(b, s, h, hd).transpose(1, 2)
+
+    kh, vh = heads(k), heads(v)
+    o = _attend(heads(q), kh, vh, cfg)
+    o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
+    o = o @ lp["wo"].to(cfg.dtype) + lp["bo"].to(cfg.dtype)
+    x = x + o
+    y = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
+    x = x + _mlp(y, lp, cfg)
+    if return_kv:
+        return x, (kh, vh)
+    return x
+
+
+def _embed(params, tokens, cfg: GPTConfig):
+    s = tokens.shape[1]
+    x = params["wte"][tokens] + params["wpe"][:s][None, :, :]
+    return x.to(cfg.dtype)
+
+
+def _head(params, x, cfg: GPTConfig):
+    x = _layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    w_out = params["wte"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ w_out.to(cfg.dtype)).float()
+
+
+def forward(params, tokens, cfg: GPTConfig, *, return_kv: bool = False):
+    """tokens [b, s] int -> logits [b, s, vocab] f32.  ``return_kv`` also
+    returns ``(k, v)``, each [L, b, h, s, hd]: the prefill half of the
+    incremental-decode path."""
+    x = _embed(params, tokens, cfg)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if return_kv:
+            x, (kh, vh) = _transformer_layer(x, lp, cfg, return_kv=True)
+            ks.append(kh)
+            vs.append(vh)
+        else:
+            x = _transformer_layer(x, lp, cfg)
+    logits = _head(params, x, cfg)
+    if return_kv:
+        return logits, (torch.stack(ks), torch.stack(vs))
+    return logits
+
+
+def sample_token(logits, *, temperature: float = 1.0,
+                 generator: Optional[torch.Generator] = None):
+    """logits [..., vocab] f32 -> token ids [...] int64, shared by
+    ``generate`` and the engine.  temperature 0.0 is exact argmax (ties
+    break to the lowest index); otherwise softmax sampling from
+    ``generator`` (required; it lives on the logits' device)."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    if generator is None:
+        raise ValueError("temperature > 0 sampling requires a generator")
+    probs = torch.softmax(logits.float() / temperature, dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    out = torch.multinomial(flat, 1, generator=generator)
+    return out.reshape(probs.shape[:-1])
+
+
+@torch.no_grad()
+def generate(params, cfg: GPTConfig, prompt, max_new: int, *,
+             generator: Optional[torch.Generator] = None,
+             temperature: float = 1.0):
+    """Full-recompute decode, the oracle the engine's greedy output is
+    held token-exact against.  prompt [b, s0] int; returns [b, s0+max_new].
+    Every step re-runs the whole fixed-width sequence, as the JAX
+    package's scan does."""
+    b, s0 = prompt.shape
+    total = s0 + max_new
+    if total > cfg.max_seq:
+        raise ValueError(f"{total} exceeds max_seq {cfg.max_seq}")
+    toks = torch.zeros((b, total), dtype=torch.long, device=prompt.device)
+    toks[:, :s0] = prompt
+    for i in range(s0, total):
+        logits = forward(params, toks, cfg)[:, i - 1, :]
+        toks[:, i] = sample_token(logits, temperature=temperature,
+                                  generator=generator)
+    return toks
