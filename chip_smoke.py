@@ -12,16 +12,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at the serving path's shape and at cross-length, ragged, strided,
    non-causal and wider-head shapes, in bf16 and f32; prints the
    kernel's, the plain version's and SDPA's times and the bound;
-3. the serving slice in f32: GPTServer at GPT-2 124M width from seeded
+3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
+   versions on the card: f32 and bf16, causal and not, head dims 64, 128
+   and 256, ragged, cross-length and key-less rows, strided qkv views and
+   a non-contiguous cotangent; autograd through the flash op against
+   autograd through plain attention; times at the training shape
+   [16, 12, 1024, 64] bf16 causal beside the bound, the plain versions
+   and SDPA's backward;
+4. the serving slice in f32: GPTServer at GPT-2 124M width from seeded
    random weights answers a cold 600-token prompt (full-width prefill on
    the flash kernel) and three short ones (two share a 48-token head);
    every reply must be token-exact against the port's ``generate``, the
    kernel must have launched n_layers times per full-width prefill, and
    the prefix cache must have hit;
-4. the same requests served in bf16 (the served configuration): the
+5. the same requests served in bf16 (the served configuration): the
    full-width prefill's last-position logits are held against a prefill
    on plain attention, and each request's tokens, TTFT and tokens/s are
-   printed.
+   printed;
+6. the training slice: GPT-2 124M at full width and depth, b16 s1024
+   bf16, five make_train_step steps of AdamW(3e-4, weight_decay=0.1) on
+   one repeated batch under remat_policy "dots" and then "dots_flash".
+   Every step must launch the flash forward 24 / 12 times and each
+   backward kernel 12 times, loss and grad_norm must be finite, the loss
+   must fall, and step 1 must agree with the same step on plain
+   attention; prints step time, tokens/s and MFU (bench.py's
+   flops-per-token over 989e12).
 
 The line before the last is the kernels' JSON record; the last is
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +47,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -94,16 +110,33 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def visible_pairs(sq, skv, causal):
+    """(row, key) pairs attention computes for one head."""
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    return sum(min(skv, max(0, i + off + 1)) for i in range(sq))
+
+
 def attention_work(b, h, sq, skv, d, causal, itemsize):
     """(bytes, FLOPs) the attention forward needs: q, k, v read once and
     o written once; QK^T and PV over the visible (row, key) pairs."""
-    off = skv - sq
-    if causal:
-        vis = sum(min(skv, max(0, i + off + 1)) for i in range(sq))
-    else:
-        vis = sq * skv
     return (b * h * (2 * sq + 2 * skv) * d * itemsize,
-            4 * b * h * vis * d)
+            4 * b * h * visible_pairs(sq, skv, causal) * d)
+
+
+def backward_work(kernel, b, h, sq, skv, d, causal, itemsize):
+    """(bytes, FLOPs) a backward kernel needs.  Both read q, do, k, v
+    once and lse, delta (f32) once; flash_bwd_kv writes dk, dv and does
+    four products over the visible pairs (QK^T, dO V^T, P^T dO, dS^T Q),
+    flash_bwd_dq writes dq and does three (QK^T, dO V^T, dS K)."""
+    reads = (2 * sq + 2 * skv) * d * itemsize + 2 * sq * 4
+    if kernel == "flash_bwd_kv":
+        writes, products = 2 * skv * d * itemsize, 4
+    else:
+        writes, products = sq * d * itemsize, 3
+    return (b * h * (reads + writes),
+            2 * products * b * h * visible_pairs(sq, skv, causal) * d)
 
 
 def phase_environment():
@@ -121,9 +154,22 @@ def phase_environment():
     print(f"[env] built {sorted(built) or 'nothing new'} in "
           f"{time.perf_counter() - t0:.1f} s")
     for kname, (secs, log) in built.items():
+        entry = kname
         for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln:
-                print(f"[env] {kname} ptxas: {ln.strip()}")
+            # e.g. ...19flash_bwd_kv_kernelI13__nv_bfloat16Li64EE...
+            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel)"
+                          r"I(f|13__nv_bfloat16)Li(\d+)E", ln)
+            if "Compiling entry function" in ln and m:
+                entry = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, "
+                         f"{m[3]}>")
+            elif "registers" in ln or "spill" in ln or "error" in ln:
+                print(f"[env] {entry} ptxas: {ln.strip()}")
+    lib = importlib.import_module(
+        "ray_tpu_torch.ops.flash_attention")._bwd_lib()
+    for d in (64, 128, 256):
+        print(f"[env] dynamic shared memory per CTA at d={d}: flash_bwd_kv "
+              f"{lib.flash_bwd_smem_bytes(0, d)} B, flash_bwd_dq "
+              f"{lib.flash_bwd_smem_bytes(1, d)} B")
     return name, line
 
 
@@ -333,17 +379,319 @@ def phase_serving_bf16(card: str) -> int:
     return launches
 
 
+def grad_err(got, ref, dtype):
+    """(max abs error, whether it is within the dtype's bound).  f32:
+    max |got - ref| <= 1e-4 (1 + max |ref|).  bf16: tests/test_ops.py's
+    grad bounds, mean abs error < 1e-3 and |got - ref| <= 0.1 + 0.1 |ref|
+    everywhere."""
+    got, ref = got.float(), ref.float()
+    diff = (got - ref).abs()
+    err = diff.max().item()
+    if dtype == torch.float32:
+        return err, err <= 1e-4 * (1 + ref.abs().max().item())
+    return err, (diff.mean().item() < 1e-3
+                 and bool((diff <= 0.1 + 0.1 * ref.abs()).all()))
+
+
+def phase_backward_kernels(name: str, card: str) -> list:
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.attention import mha_reference
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    def grads(q, k, v, do, causal):
+        """Both kernels and both plain versions on the same inputs: the
+        forward kernel's out and lse, and delta from them."""
+        s = q.shape[-1] ** -0.5
+        out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+        delta = fa._delta(out, do)
+        dk, dv = fa._launch_bwd_kv(q, k, v, do, lse, delta, s, causal)
+        dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, s, causal)
+        torch.cuda.synchronize()
+        rk, rv = fa._bwd_kv_reference(q, k, v, do, lse, delta, s, causal,
+                                      512, 512)
+        rq = fa._bwd_dq_reference(q, k, v, do, lse, delta, s, causal,
+                                  512, 512)
+        return (dq, dk, dv), (rq, rk, rv)
+
+    def held(label, dtype, got, ref):
+        errs = [grad_err(g, r, dtype) for g, r in zip(got, ref)]
+        for kname, pair in (("flash_bwd_dq", errs[:1]),
+                            ("flash_bwd_kv", errs[1:])):
+            err = max(e for e, _ in pair)
+            ok = all(o for _, o in pair)
+            print(f"[kernel] {kname} {label} {str(dtype).split('.')[-1]} "
+                  f"max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+            check(ok, f"{kname} {label} {dtype}: outside its bound "
+                      f"(max abs error {err})")
+        return max(e for e, _ in errs[1:]), errs[0][0]
+
+    cases = [  # (label, b, h, sq, skv, d, causal)
+        ("path", 16, 12, 1024, 1024, 64, True),
+        ("non-causal", 1, 12, 1024, 1024, 64, False),
+        ("cross q128/kv384", 1, 12, 128, 384, 64, True),
+        ("ragged q96/kv200", 1, 12, 96, 200, 64, True),
+        ("ragged non-causal", 2, 3, 96, 200, 64, False),
+        ("rows without keys q200/kv96", 1, 4, 200, 96, 64, True),
+        ("d128", 1, 8, 512, 512, 128, True),
+        ("d128 ragged", 1, 8, 130, 300, 128, True),
+        ("d256", 1, 4, 256, 256, 256, True),
+        ("d256 ragged non-causal", 1, 4, 100, 130, 256, False),
+    ]
+    path_err = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, b, h, sq, skv, d, causal in cases:
+            q, do = (rand((b, h, sq, d), dtype) for _ in range(2))
+            k, v = (rand((b, h, skv, d), dtype) for _ in range(2))
+            got, ref = grads(q, k, v, do, causal)
+            check(all(bool(torch.isfinite(g).all()) for g in got),
+                  f"non-finite backward output, {label} {dtype}")
+            e_kv, e_dq = held(f"{label} [{b},{h},{sq}/{skv},{d}] "
+                              f"causal={causal}", dtype, got, ref)
+            if label == "path" and dtype == torch.bfloat16:
+                path_err = {"flash_bwd_kv": e_kv, "flash_bwd_dq": e_dq}
+
+    # as the model hands them over: q, k, v strided views of one qkv
+    # projection; do a transposed view of a [b, s, h, d] gradient, and
+    # one whose head dim is not contiguous
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = rand((2, 1024, 3 * 768), dtype)
+        q, k, v = (t.reshape(2, 1024, 12, 64).transpose(1, 2)
+                   for t in qkv.split(768, dim=-1))
+        for label, do in (
+                ("strided qkv, transposed do",
+                 rand((2, 1024, 12, 64), dtype).transpose(1, 2)),
+                ("strided qkv, do head dim not contiguous",
+                 rand((2, 12, 64, 1024), dtype).transpose(-1, -2))):
+            check(not do.is_contiguous(), "do should be non-contiguous")
+            held(label, dtype, *grads(q, k, v, do, True))
+
+    # the op's autograd against autograd through plain attention, f32
+    q, k, v, w = (rand((2, 4, 256, 64), torch.float32) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    g_flash = torch.autograd.grad(
+        (fa.flash_attention(*leaves, causal=True) * w).sum(), leaves)
+    g_plain = torch.autograd.grad(
+        (mha_reference(*leaves, causal=True) * w).sum(), leaves)
+    for nm, g, r in zip("qkv", g_flash, g_plain):
+        err, ok = grad_err(g, r, torch.float32)
+        print(f"[kernel] autograd d{nm} through the flash op vs plain "
+              f"attention f32 max_abs_err {err:.3e} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"autograd d{nm} differs from plain attention by {err}")
+
+    # times at the training shape, [16, 12, 1024, 64] bf16 causal
+    b, h, s, d = 16, 12, 1024, 64
+    q, k, v, do = (rand((b, h, s, d), torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    delta = fa._delta(out, do)
+    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                     reps=5, inner=3)
+    fwd_plain_ms = time_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=True), reps=3, inner=2)
+    ms = {"flash_bwd_kv": time_ms(lambda: fa._launch_bwd_kv(
+              q, k, v, do, lse, delta, scale, True), reps=5, inner=3),
+          "flash_bwd_dq": time_ms(lambda: fa._launch_bwd_dq(
+              q, k, v, do, lse, delta, scale, True), reps=5, inner=3)}
+    plain_ms = {
+        "flash_bwd_kv": time_ms(lambda: fa._bwd_kv_reference(
+            q, k, v, do, lse, delta, scale, True, 512, 512), reps=3, inner=2),
+        "flash_bwd_dq": time_ms(lambda: fa._bwd_dq_reference(
+            q, k, v, do, lse, delta, scale, True, 512, 512), reps=3, inner=2)}
+    # SDPA's backward: its forward + backward minus its forward
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True)
+
+    sdpa_fwd = time_ms(lambda: sdpa().detach(), reps=5, inner=3)
+    sdpa_both = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do),
+                        reps=5, inner=3)
+    lib_ms = sdpa_both - sdpa_fwd
+    bw, flops = rates(name)
+    fb, ff = attention_work(b, h, s, s, d, True, 2)
+    print(f"[kernel] flash_fwd [16,12,1024,64] bf16 causal on {card}: "
+          f"kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, SDPA "
+          f"{sdpa_fwd:.4f} ms, bound {max(fb / bw, ff / flops) * 1e3:.5f} ms"
+          f" ({'bytes' if fb / bw >= ff / flops else 'operations'})")
+    entries = []
+    for kname, line in (("flash_bwd_kv", 192), ("flash_bwd_dq", 238)):
+        nbytes, nflop = backward_work(kname, b, h, s, s, d, True, 2)
+        t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"[kernel] {kname} [16,12,1024,64] bf16 causal on {card}: "
+              f"kernel {ms[kname]:.4f} ms, plain {plain_ms[kname]:.4f} ms,"
+              f" SDPA backward {lib_ms:.4f} ms (fwd+bwd {sdpa_both:.4f} - "
+              f"fwd {sdpa_fwd:.4f}), bound {bound:.5f} ms "
+              f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
+              f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms)")
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": path_err[kname],
+            "ms": ms[kname], "plain_ms": plain_ms[kname], "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms})
+    return entries
+
+
+def train_run(cfg, params, batch, steps, timed=0):
+    """``steps`` make_train_step steps on one batch from a copy of
+    ``params``, then ``timed`` more and one under torch.profiler.  The
+    launch counters are zeroed just before the first step and read after
+    each of the ``steps``.  Returns (losses, grad norms, step ms from
+    CUDA events over all steps, per-step launches of (flash_fwd,
+    flash_bwd_kv, flash_bwd_dq), {kernel: device ms in the profiled step}
+    with "all kernels" for the sum over every kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    init_fn, step_fn = make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg),
+                                       adamw(3e-4, weight_decay=0.1))
+    state = init_fn(params)
+    n = steps + timed
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    metrics, counts = [], []
+    torch.cuda.synchronize()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    seen = (0, 0, 0)
+    events[0].record()
+    for i in range(n):
+        state, m = step_fn(state, batch)
+        events[i + 1].record()
+        if i < steps:
+            now = (fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches)
+            counts.append(tuple(a - b for a, b in zip(now, seen)))
+            seen = now
+            metrics.append(m)
+    torch.cuda.synchronize()
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(n)]
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    kernel_ms = {}
+    if timed:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step_fn(state, batch)
+            torch.cuda.synchronize()
+        cuda = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernel_ms["all kernels"] = sum(
+            e.self_device_time_total for e in cuda) / 1e3
+        for kname in ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq"):
+            kernel_ms[kname] = sum(e.self_device_time_total for e in cuda
+                                   if f"{kname}_kernel<" in e.key) / 1e3
+        top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:8]
+        print(f"[train {cfg.remat_policy}] profiled step, top kernels by "
+              f"device ms: " + "; ".join(
+                  f"{e.key[:70]} x{e.count} "
+                  f"{e.self_device_time_total / 1e3:.3f}" for e in top))
+    del state
+    torch.cuda.empty_cache()
+    return losses, norms, step_ms, counts, kernel_ms
+
+
+def phase_training(name: str, card: str) -> dict:
+    from ray_tpu_torch.models import gpt
+
+    base = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L, batch_n, seq, steps = base.n_layers, 16, 1024, 5
+    params = gpt.init_params(base, SEED)
+    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+        t.numel() for k, t in params.items() if k != "layers")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    batch = {"tokens": torch.randint(0, base.vocab_size, (batch_n, seq + 1),
+                                     generator=gen, device="cuda")}
+    # bench.py's training flops per token: 6N + the attention term
+    flops_per_token = 6 * n_params + 12 * L * base.d_model * seq
+    peak = rates(name)[1]
+    launches = {}
+    first = {}
+    for policy, fwd_per_step in (("dots", 2 * L), ("dots_flash", L)):
+        cfg = dataclasses.replace(base, remat_policy=policy)
+        losses, norms, step_ms, counts, kernel_ms = train_run(
+            cfg, params, batch, steps, timed=10)
+        steady = statistics.median(step_ms[steps:])
+        tps = batch_n * seq / (steady / 1e3)
+        print(f"[train {policy}] GPT-2 124M ({n_params} params) b{batch_n} "
+              f"s{seq} bf16 on {card}: losses "
+              f"{[round(x, 5) for x in losses]}, grad norms "
+              f"{[round(x, 5) for x in norms]}")
+        print(f"[train {policy}] step ms {[round(x, 3) for x in step_ms]}; "
+              f"steady step (median of the last 10) {steady:.3f} ms, "
+              f"{tps:.1f} tokens/s, MFU {flops_per_token * tps / peak:.4f} "
+              f"(of {peak:.3g} FLOP/s)")
+        print(f"[train {policy}] one profiled step, device ms per kernel "
+              f"and share of the steady step: " + (", ".join(
+                  f"{k} {v:.3f} ({v / steady:.3f})"
+                  for k, v in kernel_ms.items())
+                  if kernel_ms["all kernels"] > 0 else "not measured "
+                  "(the profiler saw no device time)"))
+        print(f"[train {policy}] launches per step (flash_fwd, "
+              f"flash_bwd_kv, flash_bwd_dq): {counts}")
+        for c in counts:
+            check(c == (fwd_per_step, L, L),
+                  f"{policy}: a step launched {c}, expected "
+                  f"({fwd_per_step}, {L}, {L})")
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+              f"{policy}: non-finite loss or grad norm")
+        check(losses[-1] < losses[0], f"{policy}: loss did not fall over "
+              f"{steps} steps on one batch: {losses}")
+        first[policy] = (losses[0], norms[0])
+        launches[policy] = [sum(c[i] for c in counts) for i in range(3)]
+
+    # step 1 on plain attention, the same params and batch.  bf16 bound:
+    # activations are bf16 on both sides and round at different points
+    # (the plain path rounds probabilities and dP to bf16, the kernels
+    # keep them in f32), so loss within 5e-3 relative, grad_norm 5e-2
+    ref_cfg = dataclasses.replace(base, attn_impl="reference")
+    losses, norms, _, counts, _ = train_run(ref_cfg, params, batch, 1)
+    check(counts == [(0, 0, 0)], f"plain attention launched {counts}")
+    for policy, (loss, norm) in first.items():
+        dl = abs(loss - losses[0]) / abs(losses[0])
+        dn = abs(norm - norms[0]) / abs(norms[0])
+        ok = dl <= 5e-3 and dn <= 5e-2
+        print(f"[train {policy}] step 1 vs plain attention: loss "
+              f"{loss:.6f} vs {losses[0]:.6f} (rel {dl:.2e}, bound 5e-3), "
+              f"grad_norm {norm:.6f} vs {norms[0]:.6f} (rel {dn:.2e}, "
+              f"bound 5e-2) {'ok' if ok else 'FAIL'}")
+        check(ok, f"{policy}: step 1 disagrees with plain attention")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
     name, card = phase_environment()
-    kernel = phase_kernels(name, card)
+    kernels = [phase_kernels(name, card)]
+    kernels += phase_backward_kernels(name, card)
     phase_serving_f32(card)
-    kernel["launches"] = phase_serving_bf16(card)
+    serve_launches = phase_serving_bf16(card)
+    train_launches = phase_training(name, card)
+    # launches on each main path's run: the bf16 serving requests and the
+    # five training steps under each remat policy
+    for i, k in enumerate(kernels):
+        paths = {f"train_{p}": n[i] for p, n in train_launches.items()}
+        if k["name"] == "flash_fwd":
+            paths = {"serve_bf16": serve_launches, **paths}
+        k["launches"] = sum(paths.values())
+        k["launches_by_path"] = paths
     print(f"[done] {time.perf_counter() - t0:.1f} s on {card}")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

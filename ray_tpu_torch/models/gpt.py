@@ -6,24 +6,32 @@ leading ``[n_layers]`` dim), so the bridge in ``models/convert.py`` needs
 no renaming; the layer loop is a Python loop where JAX had ``lax.scan``.
 Activations run in ``cfg.dtype``, params and the layer-norm / softmax /
 logits math in f32.  Attention goes through ``ops.attention``, which
-picks the Hopper flash kernel for tile-friendly CUDA inputs.
+picks the Hopper flash kernels for tile-friendly CUDA inputs.
 
-Not ported yet: MoE (``n_experts > 0`` raises), meshes, ring attention,
-remat, ``loss_fn`` and the pipelined forward.
+Training: ``loss_fn`` is next-token cross-entropy, and with ``cfg.remat``
+each layer runs under ``torch.utils.checkpoint`` with the JAX package's
+policies (``_remat_context``).
+
+Not ported yet: MoE (``n_experts > 0`` raises), meshes, ring attention
+and the pipelined forward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts,
+                                    noop_context_fn)
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.attention import attention
-from ray_tpu_torch.ops.flash_attention import flash_attention_with_lse
+from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 
 
 @dataclass(frozen=True)
@@ -168,22 +176,6 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (y * scale + bias).to(x.dtype)
 
 
-def _attend(q, k, v, cfg: GPTConfig):
-    """[b, h, s, hd] causal attention, with the JAX package's dispatch:
-    "dots_flash" takes the lse-returning flash variant on the device
-    where the JAX package takes it on the TPU."""
-    if cfg.remat_policy == "dots_flash":
-        tile_ok = (q.shape[-2] % 128 == 0 and k.shape[-2] % 128 == 0
-                   and q.shape[-1] in (64, 128, 256))
-        if q.is_cuda and tile_ok and cfg.attn_impl in (None, "flash"):
-            out, _lse = flash_attention_with_lse(
-                q, k, v, causal=True,
-                block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-            return out
-    return attention(q, k, v, causal=True, impl=cfg.attn_impl,
-                     block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
-
-
 def _mlp(y, lp, cfg: GPTConfig):
     u = y @ lp["w_up"].to(cfg.dtype) + lp["b_up"].to(cfg.dtype)
     u = F.gelu(u, approximate="tanh")      # jax.nn.gelu's default
@@ -205,7 +197,8 @@ def _transformer_layer(x, lp, cfg: GPTConfig, return_kv: bool = False):
         return t.reshape(b, s, h, hd).transpose(1, 2)
 
     kh, vh = heads(k), heads(v)
-    o = _attend(heads(q), kh, vh, cfg)
+    o = attention(heads(q), kh, vh, causal=True, impl=cfg.attn_impl,
+                  block_q=cfg.attn_block_q, block_k=cfg.attn_block_k)
     o = o.transpose(1, 2).reshape(b, s, cfg.d_model)
     o = o @ lp["wo"].to(cfg.dtype) + lp["bo"].to(cfg.dtype)
     x = x + o
@@ -228,24 +221,71 @@ def _head(params, x, cfg: GPTConfig):
     return (x @ w_out.to(cfg.dtype)).float()
 
 
+# what each remat policy keeps from a layer's forward for its backward;
+# everything else is recomputed.  "dots" is the counterpart of
+# dots_with_no_batch_dims_saveable: the 2-D projections (mm/addmm), not
+# the batched attention products and not the flash forward.  "dots_flash"
+# also keeps the flash forward's (out, lse), so the backward never
+# re-runs its kernel.  The JAX package needs an lse-returning flash
+# variant with named outputs for that; here the flash forward is one op
+# whichever function calls it, and the policy names the op.
+_SAVED_OPS = {
+    "dots": [torch.ops.aten.mm.default, torch.ops.aten.addmm.default],
+    "dots_flash": [torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   FLASH_FWD_OP],
+}
+
+
+def _remat_context(cfg: GPTConfig):
+    """The checkpoint's ``context_fn`` for ``cfg.remat_policy``."""
+    ops = _SAVED_OPS.get(cfg.remat_policy)
+    if ops is None:
+        return noop_context_fn          # full recompute
+    return functools.partial(create_selective_checkpoint_contexts, ops)
+
+
 def forward(params, tokens, cfg: GPTConfig, *, return_kv: bool = False):
     """tokens [b, s] int -> logits [b, s, vocab] f32.  ``return_kv`` also
     returns ``(k, v)``, each [L, b, h, s, hd]: the prefill half of the
-    incremental-decode path."""
+    incremental-decode path.  With ``cfg.remat``, and a gradient to
+    take, each layer is rematerialised in the backward pass as its
+    ``remat_policy`` says."""
     x = _embed(params, tokens, cfg)
+    # one unbind per stacked leaf: its backward stacks the per-layer
+    # grads in one op
+    layers = {name: t.unbind(0) for name, t in params["layers"].items()}
+    remat = cfg.remat and torch.is_grad_enabled()
     ks, vs = [], []
     for i in range(cfg.n_layers):
-        lp = layer_params(params, i)
+        lp = {name: ts[i] for name, ts in layers.items()}
         if return_kv:
             x, (kh, vh) = _transformer_layer(x, lp, cfg, return_kv=True)
             ks.append(kh)
             vs.append(vh)
+        elif remat:
+            x = checkpoint(_transformer_layer, x, lp, cfg,
+                           use_reentrant=False,
+                           context_fn=_remat_context(cfg))
         else:
             x = _transformer_layer(x, lp, cfg)
     logits = _head(params, x, cfg)
     if return_kv:
         return logits, (torch.stack(ks), torch.stack(vs))
     return logits
+
+
+def loss_fn(params, batch, cfg: GPTConfig):
+    """Next-token cross-entropy, the mean of logsumexp - gold over f32
+    logits.  batch = {"tokens": [b, s+1] int} or {"tokens": [b, s],
+    "targets": [b, s]}."""
+    tokens = batch["tokens"]
+    if "targets" in batch:
+        inp, tgt = tokens, batch["targets"]
+    else:
+        inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    logits = forward(params, inp, cfg)
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           tgt.reshape(-1).long())
 
 
 def sample_token(logits, *, temperature: float = 1.0,
@@ -283,3 +323,19 @@ def generate(params, cfg: GPTConfig, prompt, max_new: int, *,
         toks[:, i] = sample_token(logits, temperature=temperature,
                                   generator=generator)
     return toks
+
+
+class GPT:
+    """OO convenience wrapper over the functional API."""
+
+    def __init__(self, cfg: GPTConfig):
+        self.cfg = cfg
+
+    def init(self, seed: int = 0, *, device=None):
+        return init_params(self.cfg, seed, device=device)
+
+    def apply(self, params, tokens, **kw):
+        return forward(params, tokens, self.cfg, **kw)
+
+    def loss(self, params, batch):
+        return loss_fn(params, batch, self.cfg)

@@ -25,7 +25,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 # kernel name -> source file under csrc/
-SOURCES = {"flash_fwd": "flash_fwd.cu"}
+SOURCES = {"flash_fwd": "flash_fwd.cu", "flash_bwd": "flash_bwd.cu"}
 
 _loaded: dict = {}
 

@@ -1,20 +1,33 @@
-"""Flash attention forward: the hand-written Hopper kernel and its plain
-version.
+"""Flash attention, forward and backward: the hand-written Hopper kernels
+and their plain versions.
 
 Counterpart of ``ray_tpu/ops/flash_attention.py`` (``_flash_fwd``,
-``flash_attention``, ``flash_attention_with_lse``).  On a CUDA tensor
-the wrapper launches ``csrc/flash_fwd.cu`` (the port of the Pallas
-``_fwd_kernel``) or raises; on a CPU tensor it runs
-``flash_attention_reference``, the same blocked online softmax written in
-torch.  There is no fallback from one to the other.
+``_bwd_rule``/``_bwd_pallas``, ``flash_attention``,
+``flash_attention_with_lse``).  The forward and the backward are
+``torch.library`` custom ops, ``ray_tpu_torch::flash_fwd`` and
+``ray_tpu_torch::flash_bwd``, tied together with ``register_autograd``
+(the counterpart of the JAX package's ``custom_vjp``).  Being ops, they
+are what a selective-checkpoint policy sees: ``models/gpt.py`` saves or
+recomputes the forward's ``(out, lse)`` by the op's name.
+
+On CUDA tensors the forward launches ``csrc/flash_fwd.cu`` (the port of
+the Pallas ``_fwd_kernel``) and the backward launches
+``csrc/flash_bwd.cu``: ``flash_bwd_kv`` (of ``_bwd_kv_kernel``) then
+``flash_bwd_dq`` (of ``_bwd_dq_kernel``), after ``delta = rowsum(do * o)``
+as a torch reduction, which the JAX package also computes outside its
+kernels.  On CPU tensors the ops run the plain versions,
+``flash_attention_reference`` and ``flash_attention_backward_reference``:
+the same blocked recompute written in torch.  There is no route from one
+to the other: a CUDA input launches or raises.
 
 Layout is the JAX package's: ``[batch, heads, seq, head_dim]``.  Causal
 rows sit at the tail of kv (offset ``kv_len - q_len``), as in
-``mha_reference``.  The lse is returned as ``[batch, heads, q_len]`` f32
-(the Pallas kernel's ``[bh, sq, 128]`` lane broadcast was a TPU layout).
-
-Backward through the CUDA path raises ``NotImplementedError``: the two
-backward kernels are ported with the training slice.
+``mha_reference``.  The lse is ``[batch, heads, q_len]`` f32 (the Pallas
+kernel's ``[bh, sq, 128]`` lane broadcast was a TPU layout); a row that
+sees no key has lse -inf (the JAX kernel writes -1e30) and gets zero
+output and zero gradient.  Every shape takes the same kernels: ragged
+lengths are masked inside them, where the JAX package sends shapes off
+its 128-aligned tiles to a plain scan.
 """
 
 from __future__ import annotations
@@ -23,10 +36,14 @@ import ctypes
 from typing import Optional
 
 import torch
+from torch import Tensor
 
-# kernel launches on CUDA tensors since the count was last reset; the
-# smoke run zeroes it before driving the serving path and reads it after
+# kernel launches on CUDA tensors since the count was last reset, one
+# counter per kernel; the smoke run zeroes them before driving a path and
+# reads them after.  ``launches`` counts the forward kernel.
 launches = 0
+bwd_kv_launches = 0
+bwd_dq_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
@@ -87,11 +104,114 @@ def flash_attention_reference(q, k, v, *, scale: Optional[float] = None,
     return out.to(q.dtype), lse
 
 
-def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
-    """Check the inputs, allocate the outputs, launch the kernel once."""
-    global launches
-    from ray_tpu_torch.ops import _build
+# -- backward: plain versions ------------------------------------------------
 
+def _delta(out, do):
+    """delta = rowsum(do * o) in f32, [b, h, sq]: the JAX package's
+    preprocess outside the backward kernels."""
+    return (do.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _recompute_p_ds(qb, dob, kb, vb, lse_b, delta_b, rows, cols, scale,
+                    causal, dtype):
+    """p and ds for one (q block, kv block) pair, both rounded to the
+    input dtype (and held in f32) as the kernels round them before their
+    products.  ``rows`` are the block's global rows plus the causal
+    offset, ``cols`` its global key positions."""
+    s = (qb @ kb.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse_b[..., None])
+    if causal:
+        # a row that sees no key (lse -inf) is masked whole, so the
+        # exp(+inf) there is never kept
+        p = p.masked_fill(cols[None, :] > rows[:, None], 0.0)
+    dp = dob @ vb.transpose(-1, -2)
+    ds = (p * (dp - delta_b[..., None])) * scale
+    return p.to(dtype).float(), ds.to(dtype).float()
+
+
+def _bwd_kv_reference(q, k, v, do, lse, delta, scale, causal, block_q,
+                      block_k):
+    """Plain version of ``flash_bwd_kv``: dk, dv in the input dtype, f32
+    accumulation over q blocks from the first that reaches the diagonal."""
+    b, h, sq, d = q.shape
+    kv_len = k.shape[2]
+    bq, bk = min(block_q, sq), min(block_k, kv_len)
+    off = kv_len - sq
+    qf, dof, kf, vf = q.float(), do.float(), k.float(), v.float()
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    for k0 in range(0, kv_len, bk):
+        kb, vb = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+        cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+        acc_k = torch.zeros(kb.shape, device=q.device)
+        acc_v = torch.zeros(kb.shape, device=q.device)
+        first = max(0, (k0 - off) // bq) if causal else 0
+        for q0 in range(first * bq, sq, bq):
+            qb, dob = qf[:, :, q0:q0 + bq], dof[:, :, q0:q0 + bq]
+            rows = torch.arange(q0, q0 + qb.shape[2], device=q.device) + off
+            p, ds = _recompute_p_ds(qb, dob, kb, vb, lse[:, :, q0:q0 + bq],
+                                    delta[:, :, q0:q0 + bq], rows, cols,
+                                    scale, causal, q.dtype)
+            acc_v += p.transpose(-1, -2) @ dob
+            acc_k += ds.transpose(-1, -2) @ qb
+        dk[:, :, k0:k0 + bk] = acc_k.to(k.dtype)
+        dv[:, :, k0:k0 + bk] = acc_v.to(v.dtype)
+    return dk, dv
+
+
+def _bwd_dq_reference(q, k, v, do, lse, delta, scale, causal, block_q,
+                      block_k):
+    """Plain version of ``flash_bwd_dq``: dq in the input dtype, f32
+    accumulation over kv blocks up to the diagonal."""
+    b, h, sq, d = q.shape
+    kv_len = k.shape[2]
+    bq, bk = min(block_q, sq), min(block_k, kv_len)
+    off = kv_len - sq
+    qf, dof, kf, vf = q.float(), do.float(), k.float(), v.float()
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    for q0 in range(0, sq, bq):
+        qb, dob = qf[:, :, q0:q0 + bq], dof[:, :, q0:q0 + bq]
+        nq = qb.shape[2]
+        rows = torch.arange(q0, q0 + nq, device=q.device) + off
+        n_tiles = -(-kv_len // bk)
+        if causal:
+            last = q0 + nq - 1 + off
+            n_tiles = min(n_tiles, 0 if last < 0 else last // bk + 1)
+        acc = torch.zeros(qb.shape, device=q.device)
+        for j in range(n_tiles):
+            k0 = j * bk
+            kb, vb = kf[:, :, k0:k0 + bk], vf[:, :, k0:k0 + bk]
+            cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)
+            _, ds = _recompute_p_ds(qb, dob, kb, vb, lse[:, :, q0:q0 + bq],
+                                    delta[:, :, q0:q0 + bq], rows, cols,
+                                    scale, causal, q.dtype)
+            acc += ds @ kb
+        dq[:, :, q0:q0 + nq] = acc.to(q.dtype)
+    return dq
+
+
+def flash_attention_backward_reference(q, k, v, out, lse, do, *,
+                                       scale: Optional[float] = None,
+                                       causal: bool = True,
+                                       block_q: int = 512,
+                                       block_k: int = 512):
+    """The backward kernels' plain version: ``_bwd_rule``'s blocked
+    recompute in torch.  ``out`` and ``lse`` are the forward's, ``do``
+    the output's cotangent.  Returns ``(dq, dk, dv)`` in the inputs'
+    dtypes."""
+    s = _scale_for(q, scale)
+    delta = _delta(out, do)
+    dk, dv = _bwd_kv_reference(q, k, v, do, lse, delta, s, causal, block_q,
+                               block_k)
+    dq = _bwd_dq_reference(q, k, v, do, lse, delta, s, causal, block_q,
+                           block_k)
+    return dq, dk, dv
+
+
+# -- the CUDA kernels ----------------------------------------------------------
+
+def _check(q, k, v):
+    """Raise unless q, k, v are what the kernels take."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash kernel inputs must all be CUDA tensors")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
@@ -112,27 +232,63 @@ def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
                          f"{_HEAD_DIMS}, got {d}")
     if sq == 0 or kv_len == 0:
         raise ValueError("flash kernel needs q_len >= 1 and kv_len >= 1")
-    # the kernel indexes rows by (batch, head, row) strides and needs
-    # only the head dim contiguous: q/k/v split out of one qkv
-    # projection go in without a copy
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+
+
+def _check_grad_inputs(q, do, lse, delta):
+    """Raise unless do, lse and delta fit q for the backward kernels."""
+    if not (do.is_cuda and lse.is_cuda and delta.is_cuda):
+        raise ValueError("flash kernel inputs must all be CUDA tensors")
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do must match q: got {tuple(do.shape)} "
+                         f"{do.dtype} for {tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != q.shape[:3] or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous float32 "
+                             f"{tuple(q.shape[:3])}, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+
+
+def _row_major(*ts):
+    """The kernels index rows by (batch, head, row) strides and need only
+    the head dim contiguous: q/k/v split out of one qkv projection, and
+    the cotangent autograd hands over, go in without a copy."""
+    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+
+
+def _strides(*ts):
+    return (ctypes.c_longlong * (3 * len(ts)))(
+        *(st for t in ts for st in t.stride()[:3]))
+
+
+def _ptr(t):
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
+    """Check the inputs, allocate the outputs, launch the forward kernel
+    once."""
+    global launches
+    from ray_tpu_torch.ops import _build
+
+    _check(q, k, v)
+    b, h, sq, d = q.shape
+    q, k, v = _row_major(q, k, v)
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)
-    strides = (ctypes.c_longlong * 9)(*(st for t in (q, k, v)
-                                        for st in t.stride()[:3]))
     lib = _build.load("flash_fwd")
     if lib.flash_fwd.argtypes is None:
-        _bind(lib)
+        _bind_fwd(lib)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.flash_fwd(
-            _DTYPE_CODES[q.dtype], d, ctypes.c_void_p(q.data_ptr()),
-            ctypes.c_void_p(k.data_ptr()), ctypes.c_void_p(v.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(lse.data_ptr() if lse is not None else None),
-            b, h, sq, kv_len, strides, ctypes.c_float(scale), int(causal),
-            ctypes.c_void_p(stream))
+            _DTYPE_CODES[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+            _ptr(lse), b, h, sq, k.shape[2], _strides(q, k, v),
+            ctypes.c_float(scale), int(causal), _stream(q))
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed ({rc}): "
                            f"{lib.flash_fwd_error_string(rc).decode()}")
@@ -140,7 +296,63 @@ def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
     return out, lse
 
 
-def _bind(lib) -> None:
+def _bwd_lib():
+    from ray_tpu_torch.ops import _build
+
+    lib = _build.load("flash_bwd")
+    if lib.flash_bwd_kv.argtypes is None:
+        _bind_bwd(lib)
+    return lib
+
+
+def _launch_bwd_kv(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """Launch ``flash_bwd_kv`` once; returns ``(dk, dv)``, contiguous, in
+    the inputs' dtype."""
+    global bwd_kv_launches
+    _check(q, k, v)
+    _check_grad_inputs(q, do, lse, delta)
+    b, h, sq, d = q.shape
+    q, k, v, do = _row_major(q, k, v, do)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_kv(
+            _DTYPE_CODES[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+            _ptr(lse), _ptr(delta), _ptr(dk), _ptr(dv), b, h, sq,
+            k.shape[2], _strides(q, k, v, do), ctypes.c_float(scale),
+            int(causal), _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_kv launch failed ({rc}): "
+                           f"{lib.flash_bwd_error_string(rc).decode()}")
+    bwd_kv_launches += 1
+    return dk, dv
+
+
+def _launch_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
+    """Launch ``flash_bwd_dq`` once; returns dq, contiguous, in the
+    inputs' dtype."""
+    global bwd_dq_launches
+    _check(q, k, v)
+    _check_grad_inputs(q, do, lse, delta)
+    b, h, sq, d = q.shape
+    q, k, v, do = _row_major(q, k, v, do)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _bwd_lib()
+    with torch.cuda.device(q.device):
+        rc = lib.flash_bwd_dq(
+            _DTYPE_CODES[q.dtype], d, _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+            _ptr(lse), _ptr(delta), _ptr(dq), b, h, sq, k.shape[2],
+            _strides(q, k, v, do), ctypes.c_float(scale), int(causal),
+            _stream(q))
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed ({rc}): "
+                           f"{lib.flash_bwd_error_string(rc).decode()}")
+    bwd_dq_launches += 1
+    return dq
+
+
+def _bind_fwd(lib) -> None:
     lib.flash_fwd.restype = ctypes.c_int
     lib.flash_fwd.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
@@ -152,41 +364,93 @@ def _bind(lib) -> None:
     lib.flash_fwd_error_string.argtypes = [ctypes.c_int]
 
 
-class _FlashFwd(torch.autograd.Function):
-    """The CUDA kernel as an autograd node whose backward is not ported
-    yet (``_bwd_kv_kernel``/``_bwd_dq_kernel`` come with training)."""
+def _bind_bwd(lib) -> None:
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    tail = [i32, i32, i32, i32, ctypes.POINTER(ctypes.c_longlong),
+            ctypes.c_float, i32, ptr]
+    lib.flash_bwd_kv.restype = i32
+    lib.flash_bwd_kv.argtypes = [i32, i32] + [ptr] * 8 + tail
+    lib.flash_bwd_dq.restype = i32
+    lib.flash_bwd_dq.argtypes = [i32, i32] + [ptr] * 7 + tail
+    lib.flash_bwd_error_string.restype = ctypes.c_char_p
+    lib.flash_bwd_error_string.argtypes = [i32]
+    lib.flash_bwd_smem_bytes.restype = i32
+    lib.flash_bwd_smem_bytes.argtypes = [i32, i32]
 
-    @staticmethod
-    def forward(ctx, q, k, v, scale, causal, need_lse):
+
+# -- the ops -----------------------------------------------------------------
+
+def _one_device(*ts):
+    if any(t.is_cuda for t in ts):
+        raise ValueError("flash attention inputs must lie on one device")
+
+
+@torch.library.custom_op("ray_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: Tensor, k: Tensor, v: Tensor, scale: float,
+                  causal: bool, block_q: int, block_k: int,
+                  need_lse: bool) -> tuple[Tensor, Tensor]:
+    """``(out, lse)``; on CUDA without ``need_lse`` the kernel writes no
+    lse and the second output is empty."""
+    if q.is_cuda:
         out, lse = _launch(q, k, v, scale, causal, need_lse)
-        if lse is not None:
-            ctx.mark_non_differentiable(lse)
-        return out, lse
+        return out, (lse if lse is not None
+                     else torch.empty(0, device=q.device))
+    _one_device(k, v)
+    return flash_attention_reference(q, k, v, scale=scale, causal=causal,
+                                     block_q=block_q, block_k=block_k)
 
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "flash attention backward on CUDA is not ported yet; train "
-            "with attn_impl='reference' until the backward kernels land")
+
+@torch.library.custom_op("ray_tpu_torch::flash_bwd", mutates_args=())
+def _flash_bwd_op(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
+                  do: Tensor, scale: float, causal: bool, block_q: int,
+                  block_k: int) -> tuple[Tensor, Tensor, Tensor]:
+    """``(dq, dk, dv)`` from the forward's inputs, ``out`` and ``lse``."""
+    if q.is_cuda:
+        delta = _delta(out, do)
+        dk, dv = _launch_bwd_kv(q, k, v, do, lse, delta, scale, causal)
+        return _launch_bwd_dq(q, k, v, do, lse, delta, scale, causal), dk, dv
+    _one_device(k, v, out, lse, do)
+    return flash_attention_backward_reference(
+        q, k, v, out, lse, do, scale=scale, causal=causal, block_q=block_q,
+        block_k=block_k)
+
+
+def _fwd_setup(ctx, inputs, output):
+    q, k, v, scale, causal, block_q, block_k, _ = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.args = (scale, causal, block_q, block_k)
+
+
+def _fwd_backward(ctx, d_out, _d_lse):
+    # lse is an auxiliary output (stop_gradient in the JAX package); its
+    # cotangent is not used
+    q, k, v, out, lse = ctx.saved_tensors
+    dq, dk, dv = torch.ops.ray_tpu_torch.flash_bwd(q, k, v, out, lse, d_out,
+                                                   *ctx.args)
+    return dq, dk, dv, None, None, None, None, None
+
+
+torch.library.register_autograd("ray_tpu_torch::flash_fwd", _fwd_backward,
+                                setup_context=_fwd_setup)
+
+# what a checkpoint policy names to keep the forward's outputs
+FLASH_FWD_OP = torch.ops.ray_tpu_torch.flash_fwd.default
 
 
 def _flash_fwd(q, k, v, scale, causal, block_q, block_k, need_lse):
-    s = _scale_for(q, scale)
-    if q.is_cuda:
-        return _FlashFwd.apply(q, k, v, s, causal, need_lse)
-    if k.is_cuda or v.is_cuda:
-        raise ValueError("q, k and v must lie on one device")
-    out, lse = flash_attention_reference(q, k, v, scale=s, causal=causal,
-                                         block_q=block_q, block_k=block_k)
-    return out, (lse if need_lse else None)
+    # the backward needs the lse whenever a gradient will flow
+    need_lse = need_lse or (torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v)))
+    return torch.ops.ray_tpu_torch.flash_fwd(
+        q, k, v, _scale_for(q, scale), causal, block_q, block_k, need_lse)
 
 
 def flash_attention(q, k, v, *, scale: Optional[float] = None,
                     causal: bool = True, block_q: int = 512,
                     block_k: int = 512):
-    """Fused attention, [batch, heads, seq, head_dim] layout.  The CUDA
-    kernel picks its own tiles (64 x 64); ``block_q``/``block_k`` shape
-    the plain version's tiles on the CPU."""
+    """Fused attention, [batch, heads, seq, head_dim] layout, with a
+    gradient.  The CUDA kernels pick their own tiles; ``block_q``/
+    ``block_k`` shape the plain versions' tiles on the CPU."""
     return _flash_fwd(q, k, v, scale, causal, block_q, block_k, False)[0]
 
 
