@@ -8,10 +8,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: a CUDA card must be present; prints the card's name and
    power limit, builds every Hopper kernel from ops/csrc (one nvcc per
    source, started together) and prints the build time and ptxas report;
+   the bf16 forward (the tensor-core route) must hold HMMA instructions
+   at every head dim (cuobjdump -sass of the built library) and spill
+   nothing at d = 64;
 2. kernels against their plain versions on the card: the flash forward
-   at the serving path's shape and at cross-length, ragged, strided,
-   non-causal and wider-head shapes, in bf16 and f32; prints the
-   kernel's, the plain version's and SDPA's times and the bound;
+   at the serving path's shape and at cross-length, ragged (kv 77 too),
+   decode-like (q 1 / kv 1000), key-less-row (q 300 / kv 100: output 0,
+   lse -inf), strided, misaligned (a view at a 1-element offset, which
+   the bf16 route copies), non-causal and wider-head shapes, in bf16 and
+   f32; prints the kernel's, the plain version's and SDPA's times and
+   the bound (device time, and time per call);
 3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
    and 256, ragged, cross-length and key-less rows, strided qkv views and
@@ -47,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import importlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -110,6 +117,40 @@ def time_ms(fn, reps: int = 15, inner: int = 10) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int = 10, windows: int = 3) -> float:
+    """Device time per call: the median over ``windows`` of CUDA-event
+    time over ``reps`` calls queued behind a spinning kernel
+    (``torch.cuda._sleep``) that outlasts their enqueueing, so the card
+    runs them back to back.  Unlike ``time_ms`` it leaves out the host's
+    time between launches, which sets a fast kernel's CUDA-event time
+    when one call dispatches in more time than its kernel runs.  ``fn``
+    must not wait on the card."""
+    fn()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(10 ** 6)
+    b.record()
+    b.synchronize()
+    cycles_per_ms = 10 ** 6 / a.elapsed_time(b)
+    sleep_ms, per_call = 5.0, []
+    while len(per_call) < windows:
+        check(sleep_ms < 60e3, "the host cannot queue the calls ahead")
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        if queued_ms < 0.8 * sleep_ms:  # the card never waited on the host
+            per_call.append(a.elapsed_time(b) / reps)
+        else:
+            sleep_ms *= 2
+    return statistics.median(per_call)
+
+
 def visible_pairs(sq, skv, causal):
     """(row, key) pairs attention computes for one head."""
     if not causal:
@@ -153,17 +194,28 @@ def phase_environment():
     built = _build.build()
     print(f"[env] built {sorted(built) or 'nothing new'} in "
           f"{time.perf_counter() - t0:.1f} s")
-    for kname, (secs, log) in built.items():
+    spills = {}
+    for kname in _build.SOURCES:
         entry = kname
-        for ln in log.splitlines():
-            # e.g. ...19flash_bwd_kv_kernelI13__nv_bfloat16Li64EE...
-            m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel)"
-                          r"I(f|13__nv_bfloat16)Li(\d+)E", ln)
+        for ln in _build.build_log(kname).splitlines():
+            m = kernel_entry(ln)
             if "Compiling entry function" in ln and m:
-                entry = (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, "
-                         f"{m[3]}>")
+                entry = m
             elif "registers" in ln or "spill" in ln or "error" in ln:
                 print(f"[env] {entry} ptxas: {ln.strip()}")
+                if "spill" in ln:
+                    spills[entry] = ln.strip()
+    # the bf16 forward: no spills on the path's head dim, and tensor-core
+    # products in every instantiation
+    d64 = spills.get("flash_fwd_kernel<bf16, 64>", "not reported")
+    check("0 bytes spill stores, 0 bytes spill loads" in d64,
+          f"flash_fwd_kernel<bf16, 64> spills: {d64}")
+    hmma = sass_hmma_counts(_build._target("flash_fwd")[1])
+    print(f"[env] HMMA instructions per flash_fwd instantiation "
+          f"(cuobjdump -sass): {hmma}")
+    for d in (64, 128, 256):
+        check(hmma.get(f"flash_fwd_kernel<bf16, {d}>", 0) > 0,
+              f"flash_fwd_kernel<bf16, {d}> holds no HMMA instruction")
     lib = importlib.import_module(
         "ray_tpu_torch.ops.flash_attention")._bwd_lib()
     for d in (64, 128, 256):
@@ -173,12 +225,42 @@ def phase_environment():
     return name, line
 
 
+def kernel_entry(text: str):
+    """``flash_fwd_kernel<bf16, 64>`` for a line naming that kernel's
+    mangled symbol (...16flash_fwd_kernelI13__nv_bfloat16Li64EE...),
+    else None."""
+    m = re.search(r"(flash_(?:fwd|bwd_kv|bwd_dq)_kernel)"
+                  r"I(f|13__nv_bfloat16)Li(\d+)E", text)
+    return (f"{m[1]}<{'f32' if m[2] == 'f' else 'bf16'}, {m[3]}>"
+            if m else None)
+
+
+def sass_hmma_counts(lib_path: str) -> dict:
+    """{kernel instantiation: number of HMMA (tensor-core) instructions}
+    in the SASS of a built library, from the toolkit's cuobjdump."""
+    from ray_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, entry = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            entry = kernel_entry(ln)
+            if entry:
+                counts[entry] = 0
+        elif entry and "HMMA" in ln:
+            counts[entry] += 1
+    return counts
+
+
 def phase_kernels(name: str, card: str) -> dict:
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.flash_attention import (
         flash_attention, flash_attention_reference, flash_attention_with_lse)
 
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def rand(shape, dtype):
@@ -194,6 +276,11 @@ def phase_kernels(name: str, card: str) -> dict:
         ("ragged non-causal", 2, 3, 96, 200, 64, False, False),
         ("d128", 1, 8, 512, 512, 128, True, True),
         ("d256", 1, 4, 256, 256, 256, True, True),
+        ("decode-like q1/kv1000", 1, 12, 1, 1000, 64, True, True),
+        ("rows without keys q300/kv100", 1, 12, 300, 100, 64, True, True),
+        ("ragged kv77", 1, 12, 77, 77, 64, True, True),
+        ("ragged kv77 non-causal", 2, 3, 40, 77, 64, False, True),
+        ("training shape", 16, 12, 1024, 1024, 64, True, True),
     ]
     path_err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -205,12 +292,7 @@ def phase_kernels(name: str, card: str) -> dict:
             else:
                 out, got_lse = flash_attention(q, k, v, causal=causal), None
             torch.cuda.synchronize()
-            # the plain version on the same values, upcast exactly to f32
-            ref, ref_lse = flash_attention_reference(
-                q.float(), k.float(), v.float(), causal=causal)
-            err = (out.float() - ref).abs().max().item()
-            if got_lse is not None:
-                err = max(err, (got_lse - ref_lse).abs().max().item())
+            err = forward_err(label, out, got_lse, q, k, v, causal)
             ok = err <= TOL[dtype]
             print(f"[kernel] flash_fwd {label} [{b},{h},{sq}/{skv},{d}] "
                   f"{str(dtype).split('.')[-1]} causal={causal} "
@@ -225,6 +307,8 @@ def phase_kernels(name: str, card: str) -> dict:
     qkv = rand((1, 1024, 3 * 768), torch.bfloat16)
     q, k, v = (t.reshape(1, 1024, 12, 64).transpose(1, 2)
                for t in qkv.split(768, dim=-1))
+    check(all(fa._cp_async_aligned(t) for t in (q, k, v)),
+          "the model's qkv views should need no alignment copy")
     out = flash_attention(q, k, v, causal=True)
     ref, _ = flash_attention_reference(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item()
@@ -232,25 +316,55 @@ def phase_kernels(name: str, card: str) -> dict:
           f"{err:.3e} (bound {TOL[torch.bfloat16]:g})")
     check(err <= TOL[torch.bfloat16], f"strided case error {err}")
 
+    # q, k, v contiguous at a 1-element offset: not 16-byte aligned, so
+    # the bf16 route copies them (the f32 route reads them as they are)
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (1, 12, 200, 64)
+        q, k, v = (rand((int(np.prod(shape)) + 1,), dtype)[1:].view(shape)
+                   for _ in range(3))
+        check(not fa._cp_async_aligned(q), "a 1-element offset view "
+              "should not pass the alignment check")
+        n0 = fa.launches
+        out, got_lse = flash_attention_with_lse(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        err = forward_err("offset", out, got_lse, q, k, v, True)
+        ok = err <= TOL[dtype] and fa.launches == n0 + 1
+        print(f"[kernel] flash_fwd 1-element offset views [1,12,200,64] "
+              f"{str(dtype).split('.')[-1]} max_abs_err {err:.3e} (bound "
+              f"{TOL[dtype]:g}), launches {fa.launches - n0} "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"offset-view case {dtype}: error {err}, "
+                  f"{fa.launches - n0} launches")
+
     # times at the serving path's shape, [1, 12, 1024, 64] bf16 causal
+    # (device time; CUDA-event time per call beside it)
     q, k, v = (rand((1, 12, 1024, 64), torch.bfloat16) for _ in range(3))
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain_ms = time_ms(lambda: flash_attention_reference(q, k, v,
-                                                         causal=True),
-                       reps=5, inner=3)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+
+    def kernel():
+        return flash_attention(q, k, v, causal=True)
+
+    def plain():
+        return flash_attention_reference(q, k, v, causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True)
+
+    ms, call_ms = device_ms(kernel), time_ms(kernel)
+    plain_ms, plain_call = device_ms(plain, 3), time_ms(plain, 5, 3)
+    lib_ms, lib_call = device_ms(sdpa), time_ms(sdpa)
     bw, flops = rates(name)
     nbytes, nflop = attention_work(1, 12, 1024, 1024, 64, True, 2)
     t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
     bound = max(t_bytes, t_ops)
     q32, k32, v32 = (t.float() for t in (q, k, v))
-    ms32 = time_ms(lambda: flash_attention(q32, k32, v32, causal=True))
+    ms32 = device_ms(lambda: flash_attention(q32, k32, v32, causal=True))
     b32, f32 = attention_work(1, 12, 1024, 1024, 64, True, 4)
     bound32 = max(b32 / bw, f32 / F32_FLOPS) * 1e3
     print(f"[kernel] flash_fwd [1,12,1024,64] bf16 causal on {card}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{lib_ms:.4f} ms, bound {bound:.5f} ms "
+          f"kernel {ms:.4f} ms ({nflop / ms / 1e9:.1f} TFLOP/s; per call "
+          f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms (per call "
+          f"{plain_call:.4f}), SDPA {lib_ms:.4f} ms (per call "
+          f"{lib_call:.4f}), bound {bound:.5f} ms "
           f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
           f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms); f32 kernel "
           f"{ms32:.4f} ms vs f32 bound {bound32:.5f} ms")
@@ -261,6 +375,32 @@ def phase_kernels(name: str, card: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms}
+
+
+def forward_err(label, out, lse, q, k, v, causal) -> float:
+    """Max abs error of the forward kernel's out (and lse, when given)
+    against the plain version on the same values upcast exactly to f32.
+    A row that sees no key must give out 0 and lse -inf where the plain
+    version does, never NaN; the lse error is over the other rows."""
+    from ray_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    ref, ref_lse = flash_attention_reference(q.float(), k.float(), v.float(),
+                                             causal=causal)
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    err = (out.float() - ref).abs().max().item()
+    dead = ref_lse == float("-inf")
+    if dead.any():
+        check(bool((out[dead] == 0).all()), f"{label}: a row without keys "
+              f"has non-zero output")
+        print(f"[kernel] {label}: {int(dead.sum())} rows without keys give "
+              f"output 0" + ("" if lse is None else " and lse -inf"))
+    if lse is not None:
+        check(not bool(torch.isnan(lse).any()), f"{label}: NaN in lse")
+        check(torch.equal(lse == float("-inf"), dead),
+              f"{label}: lse is -inf on other rows than the plain version's")
+        if (~dead).any():
+            err = max(err, (lse - ref_lse)[~dead].abs().max().item())
+    return err
 
 
 def requests(vocab: int, seed: int = SEED) -> list:
@@ -493,8 +633,9 @@ def phase_backward_kernels(name: str, card: str) -> list:
     scale = d ** -0.5
     out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
     delta = fa._delta(out, do)
-    fwd_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
-                     reps=5, inner=3)
+    fwd_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    fwd_call = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+                       reps=5, inner=3)
     fwd_plain_ms = time_ms(lambda: fa.flash_attention_reference(
         q, k, v, causal=True), reps=3, inner=2)
     ms = {"flash_bwd_kv": time_ms(lambda: fa._launch_bwd_kv(
@@ -512,15 +653,17 @@ def phase_backward_kernels(name: str, card: str) -> list:
     def sdpa():
         return F.scaled_dot_product_attention(*leaves, is_causal=True)
 
-    sdpa_fwd = time_ms(lambda: sdpa().detach(), reps=5, inner=3)
-    sdpa_both = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do),
-                        reps=5, inner=3)
+    sdpa_call = time_ms(lambda: sdpa().detach(), reps=5, inner=3)
+    sdpa_fwd = device_ms(lambda: sdpa().detach())
+    sdpa_both = device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do))
     lib_ms = sdpa_both - sdpa_fwd
     bw, flops = rates(name)
     fb, ff = attention_work(b, h, s, s, d, True, 2)
     print(f"[kernel] flash_fwd [16,12,1024,64] bf16 causal on {card}: "
-          f"kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, SDPA "
-          f"{sdpa_fwd:.4f} ms, bound {max(fb / bw, ff / flops) * 1e3:.5f} ms"
+          f"kernel {fwd_ms:.4f} ms ({ff / fwd_ms / 1e9:.1f} TFLOP/s; per "
+          f"call {fwd_call:.4f} ms), plain {fwd_plain_ms:.4f} ms, SDPA "
+          f"{sdpa_fwd:.4f} ms (per call {sdpa_call:.4f}), bound "
+          f"{max(fb / bw, ff / flops) * 1e3:.5f} ms"
           f" ({'bytes' if fb / bw >= ff / flops else 'operations'})")
     entries = []
     for kname, line in (("flash_bwd_kv", 192), ("flash_bwd_dq", 238)):
@@ -529,8 +672,8 @@ def phase_backward_kernels(name: str, card: str) -> list:
         bound = max(t_bytes, t_ops)
         print(f"[kernel] {kname} [16,12,1024,64] bf16 causal on {card}: "
               f"kernel {ms[kname]:.4f} ms, plain {plain_ms[kname]:.4f} ms,"
-              f" SDPA backward {lib_ms:.4f} ms (fwd+bwd {sdpa_both:.4f} - "
-              f"fwd {sdpa_fwd:.4f}), bound {bound:.5f} ms "
+              f" SDPA backward {lib_ms:.4f} ms (device time, fwd+bwd "
+              f"{sdpa_both:.4f} - fwd {sdpa_fwd:.4f}), bound {bound:.5f} ms "
               f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
               f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms)")
         entries.append({

@@ -311,11 +311,15 @@ def generate(params, cfg: GPTConfig, prompt, max_new: int, *,
     """Full-recompute decode, the oracle the engine's greedy output is
     held token-exact against.  prompt [b, s0] int; returns [b, s0+max_new].
     Every step re-runs the whole fixed-width sequence, as the JAX
-    package's scan does."""
+    package's scan does.  Sampling (temperature > 0) without a
+    ``generator`` draws from one seeded with 0 on the prompt's device, as
+    the JAX package defaults to ``PRNGKey(0)``."""
     b, s0 = prompt.shape
     total = s0 + max_new
     if total > cfg.max_seq:
         raise ValueError(f"{total} exceeds max_seq {cfg.max_seq}")
+    if generator is None and temperature > 0.0:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
     toks = torch.zeros((b, total), dtype=torch.long, device=prompt.device)
     toks[:, :s0] = prompt
     for i in range(s0, total):

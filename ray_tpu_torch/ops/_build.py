@@ -51,7 +51,8 @@ def build(names: Optional[Iterable[str]] = None) -> dict:
     """Compile the named kernels (all by default) that are not built yet,
     every ``nvcc`` started at once.  Returns ``{name: (seconds, log)}``
     for the ones compiled here; ``log`` holds ptxas's register and
-    shared-memory report.  Raises with the compiler's output on failure."""
+    shared-memory report, also kept beside the library for
+    ``build_log``.  Raises with the compiler's output on failure."""
     names = list(names or SOURCES)
     os.makedirs(BUILD_DIR, exist_ok=True)
     procs = {}
@@ -71,9 +72,19 @@ def build(names: Optional[Iterable[str]] = None) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {SOURCES[name]} "
                                f"(exit {proc.returncode}):\n{log}")
+        with open(f"{lib}.log", "w") as f:
+            f.write(log)
         os.replace(tmp, lib)      # atomic: a reader never sees half a file
         out[name] = (time.perf_counter() - t0, log)
     return out
+
+
+def build_log(name: str) -> str:
+    """The compiler's output (ptxas's report) from the build of kernel
+    ``name``'s current source; builds it first if needed."""
+    build([name])
+    with open(f"{_target(name)[1]}.log") as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -11,7 +11,8 @@ are what a selective-checkpoint policy sees: ``models/gpt.py`` saves or
 recomputes the forward's ``(out, lse)`` by the op's name.
 
 On CUDA tensors the forward launches ``csrc/flash_fwd.cu`` (the port of
-the Pallas ``_fwd_kernel``) and the backward launches
+the Pallas ``_fwd_kernel``: bf16 on the tensor cores, f32 on a scalar
+kernel that keeps full f32 precision) and the backward launches
 ``csrc/flash_bwd.cu``: ``flash_bwd_kv`` (of ``_bwd_kv_kernel``) then
 ``flash_bwd_dq`` (of ``_bwd_dq_kernel``), after ``delta = rowsum(do * o)``
 as a torch reduction, which the JAX package also computes outside its
@@ -256,6 +257,26 @@ def _row_major(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
 
 
+def _cp_async_aligned(t) -> bool:
+    """Whether the bf16 forward kernel's 16-byte ``cp.async`` copies can
+    read ``t`` in place: a 16-byte-aligned base, a contiguous head dim and
+    (batch, head, row) strides that are whole 16-byte chunks.  The model's
+    q, k, v (strided views split from one qkv projection) qualify."""
+    per_chunk = 16 // t.element_size()
+    return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+            and all(st % per_chunk == 0 for st in t.stride()[:3]))
+
+
+def _aligned(*ts):
+    """The inputs as the bf16 forward kernel reads them: each one that
+    ``_cp_async_aligned`` refuses is copied into a fresh contiguous
+    tensor (``clone``, not ``contiguous``: a contiguous view at an odd
+    offset would come back from ``contiguous`` as it was)."""
+    return tuple(t if _cp_async_aligned(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
+
+
 def _strides(*ts):
     return (ctypes.c_longlong * (3 * len(ts)))(
         *(st for t in ts for st in t.stride()[:3]))
@@ -277,7 +298,9 @@ def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
 
     _check(q, k, v)
     b, h, sq, d = q.shape
-    q, k, v = _row_major(q, k, v)
+    # f32 runs the scalar kernel, which needs only a contiguous head dim;
+    # bf16 runs the tensor-core kernel and its 16-byte copies
+    q, k, v = (_aligned if q.dtype == torch.bfloat16 else _row_major)(q, k, v)
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)

@@ -131,6 +131,20 @@ def test_greedy_generate_is_token_exact(cfgs, weights):
     assert got.tolist() == np.asarray(want).tolist()
 
 
+def test_generate_samples_on_its_defaults(cfgs, weights):
+    # temperature 1.0 and no generator: a generator seeded with 0, as the
+    # JAX package defaults to PRNGKey(0); tokens are not compared with
+    # JAX, whose random stream differs by design
+    _, tcfg = cfgs
+    _, _, params = weights
+    prompt = torch.from_numpy(_tokens(11, 2, 5, tcfg.vocab_size)).long()
+    got = tgpt.generate(params, tcfg, prompt, 4)
+    assert got.shape == (2, 9)
+    assert torch.equal(got[:, :5], prompt)
+    assert bool(((got[:, 5:] >= 0) & (got[:, 5:] < tcfg.vocab_size)).all())
+    assert torch.equal(tgpt.generate(params, tcfg, prompt, 4), got)
+
+
 def test_moe_config_is_not_ported():
     with pytest.raises(NotImplementedError):
         tgpt.GPTConfig.tiny(n_experts=4)

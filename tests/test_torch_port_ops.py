@@ -200,6 +200,29 @@ def test_device_none_raises_without_a_card(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_cp_async_alignment_helper():
+    # the bf16 forward kernel's 16-byte copies read the model's q, k, v
+    # (strided views split from one qkv projection) in place
+    b, s, h, hd = 2, 16, 2, 64
+    qkv = torch.zeros((b, s, 3 * h * hd), dtype=torch.bfloat16)
+    views = [t.reshape(b, s, h, hd).transpose(1, 2)
+             for t in qkv.split(h * hd, dim=-1)]
+    assert all(port_flash._cp_async_aligned(t) for t in views)
+    assert all(port_flash._aligned(*views)[i] is views[i] for i in range(3))
+    # a contiguous view at a 1-element offset is not 16-byte aligned
+    flat = torch.zeros(b * h * s * hd + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(b, h, s, hd)
+    assert shifted.is_contiguous()
+    assert not port_flash._cp_async_aligned(shifted)
+    copied = port_flash._aligned(shifted)[0]
+    assert port_flash._cp_async_aligned(copied)
+    assert torch.equal(copied, shifted)
+    # a row stride that is not a whole number of 16-byte chunks
+    wide = torch.zeros((b, h, s, hd + 4), dtype=torch.bfloat16)[..., :hd]
+    assert wide.stride(2) == hd + 4
+    assert not port_flash._cp_async_aligned(wide)
+
+
 def test_flash_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 1, 64, 64))
     with pytest.raises(ValueError, match="CUDA"):
