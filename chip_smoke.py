@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: a CUDA card must be present; prints the card's name and
    power limit, builds every Hopper kernel from ops/csrc (one nvcc per
    source, started together) and prints the build time and ptxas report;
-   the bf16 forward (the tensor-core route) must hold HMMA instructions
-   at every head dim (cuobjdump -sass of the built library) and spill
-   nothing at d = 64;
+   the bf16 forward and both bf16 backward kernels (the tensor-core
+   routes) must hold HMMA instructions at every head dim, and the f32
+   backward kernels (the scalar route) none (cuobjdump -sass of the built
+   libraries); the bf16 d = 64 instantiations of all three spill nothing;
 2. kernels against their plain versions on the card: the flash forward
    at the serving path's shape and at cross-length, ragged (kv 77 too),
    decode-like (q 1 / kv 1000), key-less-row (q 300 / kv 100: output 0,
@@ -20,10 +21,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the bound (device time, and time per call);
 3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
-   and 256, ragged, cross-length and key-less rows, strided qkv views and
-   a non-contiguous cotangent; autograd through the flash op against
-   autograd through plain attention; times at the training shape
-   [16, 12, 1024, 64] bf16 causal beside the bound, the plain versions
+   and 256, ragged (kv 77 too), cross-length, decode-like (q 1 / kv
+   1000) and key-less rows, strided qkv views, a non-contiguous
+   cotangent and 1-element-offset views (which the bf16 route copies);
+   autograd through the flash op against autograd through plain
+   attention; times at the training shape [16, 12, 1024, 64] bf16 causal
+   (device time, and time per call) beside the bound, the plain versions
    and SDPA's backward;
 4. the serving slice in f32: GPTServer at GPT-2 124M width from seeded
    random weights answers a cold 600-token prompt (full-width prefill on
@@ -205,23 +208,34 @@ def phase_environment():
                 print(f"[env] {entry} ptxas: {ln.strip()}")
                 if "spill" in ln:
                     spills[entry] = ln.strip()
-    # the bf16 forward: no spills on the path's head dim, and tensor-core
-    # products in every instantiation
-    d64 = spills.get("flash_fwd_kernel<bf16, 64>", "not reported")
-    check("0 bytes spill stores, 0 bytes spill loads" in d64,
-          f"flash_fwd_kernel<bf16, 64> spills: {d64}")
-    hmma = sass_hmma_counts(_build._target("flash_fwd")[1])
-    print(f"[env] HMMA instructions per flash_fwd instantiation "
-          f"(cuobjdump -sass): {hmma}")
-    for d in (64, 128, 256):
-        check(hmma.get(f"flash_fwd_kernel<bf16, {d}>", 0) > 0,
-              f"flash_fwd_kernel<bf16, {d}> holds no HMMA instruction")
+    # the bf16 kernels: no spills on the path's head dim, and tensor-core
+    # products in every instantiation; the f32 backward stays scalar
+    for kern in ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq"):
+        d64 = spills.get(f"{kern}_kernel<bf16, 64>", "not reported")
+        check("0 bytes spill stores, 0 bytes spill loads" in d64,
+              f"{kern}_kernel<bf16, 64> spills: {d64}")
+    for lib_name, kerns in (("flash_fwd", ("flash_fwd",)),
+                            ("flash_bwd", ("flash_bwd_kv", "flash_bwd_dq"))):
+        hmma = sass_hmma_counts(_build._target(lib_name)[1])
+        print(f"[env] HMMA instructions per {lib_name} instantiation "
+              f"(cuobjdump -sass): {hmma}")
+        for kern in kerns:
+            for d in (64, 128, 256):
+                check(hmma.get(f"{kern}_kernel<bf16, {d}>", 0) > 0,
+                      f"{kern}_kernel<bf16, {d}> holds no HMMA instruction")
+                if lib_name == "flash_bwd":
+                    check(hmma.get(f"{kern}_kernel<f32, {d}>") == 0,
+                          f"{kern}_kernel<f32, {d}>: "
+                          f"{hmma.get(f'{kern}_kernel<f32, {d}>')} HMMA "
+                          f"instructions, expected the scalar route's 0")
     lib = importlib.import_module(
         "ray_tpu_torch.ops.flash_attention")._bwd_lib()
     for d in (64, 128, 256):
         print(f"[env] dynamic shared memory per CTA at d={d}: flash_bwd_kv "
-              f"{lib.flash_bwd_smem_bytes(0, d)} B, flash_bwd_dq "
-              f"{lib.flash_bwd_smem_bytes(1, d)} B")
+              f"{lib.flash_bwd_smem_bytes(0, d)} B (f32), "
+              f"{lib.flash_bwd_smem_bytes(2, d)} B (bf16); flash_bwd_dq "
+              f"{lib.flash_bwd_smem_bytes(1, d)} B (f32), "
+              f"{lib.flash_bwd_smem_bytes(3, d)} B (bf16)")
     return name, line
 
 
@@ -584,6 +598,9 @@ def phase_backward_kernels(name: str, card: str) -> list:
         ("d128 ragged", 1, 8, 130, 300, 128, True),
         ("d256", 1, 4, 256, 256, 256, True),
         ("d256 ragged non-causal", 1, 4, 100, 130, 256, False),
+        ("decode-like q1/kv1000", 1, 12, 1, 1000, 64, True),
+        ("ragged kv77", 1, 12, 77, 77, 64, True),
+        ("ragged kv77 non-causal", 2, 3, 40, 77, 64, False),
     ]
     path_err = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -613,6 +630,21 @@ def phase_backward_kernels(name: str, card: str) -> list:
             check(not do.is_contiguous(), "do should be non-contiguous")
             held(label, dtype, *grads(q, k, v, do, True))
 
+    # q, k, v and do contiguous at a 1-element offset: not 16-byte
+    # aligned, so the bf16 route copies them (the f32 route reads them as
+    # they are); each kernel still launches once
+    for dtype in (torch.bfloat16, torch.float32):
+        shape = (1, 12, 200, 64)
+        q, k, v, do = (rand((int(np.prod(shape)) + 1,), dtype)[1:].view(shape)
+                       for _ in range(4))
+        check(not fa._cp_async_aligned(do), "a 1-element offset view "
+              "should not pass the alignment check")
+        n0 = (fa.bwd_kv_launches, fa.bwd_dq_launches)
+        held("1-element offset views [1,12,200,64] causal=True", dtype,
+             *grads(q, k, v, do, True))
+        n1 = (fa.bwd_kv_launches - n0[0], fa.bwd_dq_launches - n0[1])
+        check(n1 == (1, 1), f"offset views {dtype}: launches {n1}")
+
     # the op's autograd against autograd through plain attention, f32
     q, k, v, w = (rand((2, 4, 256, 64), torch.float32) for _ in range(4))
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -638,10 +670,13 @@ def phase_backward_kernels(name: str, card: str) -> list:
                        reps=5, inner=3)
     fwd_plain_ms = time_ms(lambda: fa.flash_attention_reference(
         q, k, v, causal=True), reps=3, inner=2)
-    ms = {"flash_bwd_kv": time_ms(lambda: fa._launch_bwd_kv(
-              q, k, v, do, lse, delta, scale, True), reps=5, inner=3),
-          "flash_bwd_dq": time_ms(lambda: fa._launch_bwd_dq(
-              q, k, v, do, lse, delta, scale, True), reps=5, inner=3)}
+    calls = {"flash_bwd_kv": lambda: fa._launch_bwd_kv(
+                 q, k, v, do, lse, delta, scale, True),
+             "flash_bwd_dq": lambda: fa._launch_bwd_dq(
+                 q, k, v, do, lse, delta, scale, True)}
+    ms = {kname: device_ms(fn) for kname, fn in calls.items()}
+    call_ms = {kname: time_ms(fn, reps=5, inner=3)
+               for kname, fn in calls.items()}
     plain_ms = {
         "flash_bwd_kv": time_ms(lambda: fa._bwd_kv_reference(
             q, k, v, do, lse, delta, scale, True, 512, 512), reps=3, inner=2),
@@ -671,7 +706,9 @@ def phase_backward_kernels(name: str, card: str) -> list:
         t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
         bound = max(t_bytes, t_ops)
         print(f"[kernel] {kname} [16,12,1024,64] bf16 causal on {card}: "
-              f"kernel {ms[kname]:.4f} ms, plain {plain_ms[kname]:.4f} ms,"
+              f"kernel {ms[kname]:.4f} ms ({nflop / ms[kname] / 1e9:.1f} "
+              f"TFLOP/s; per call {call_ms[kname]:.4f} ms), plain "
+              f"{plain_ms[kname]:.4f} ms (CUDA events),"
               f" SDPA backward {lib_ms:.4f} ms (device time, fwd+bwd "
               f"{sdpa_both:.4f} - fwd {sdpa_fwd:.4f}), bound {bound:.5f} ms "
               f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
@@ -684,6 +721,9 @@ def phase_backward_kernels(name: str, card: str) -> list:
             "ms": ms[kname], "plain_ms": plain_ms[kname], "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms})
+    both = ms["flash_bwd_kv"] + ms["flash_bwd_dq"]
+    print(f"[kernel] flash_bwd_kv + flash_bwd_dq {both:.4f} ms against SDPA's "
+          f"backward {lib_ms:.4f} ms: {both / lib_ms:.2f}x")
     return entries
 
 

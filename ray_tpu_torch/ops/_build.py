@@ -3,8 +3,9 @@
 Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled
 by ``nvcc`` for ``sm_90a`` into a shared library under
 ``ray_tpu_torch/_build/`` (listed in ``.gitignore``) and loaded with
-``ctypes``.  A library's file name carries the hash of its source, so an
-edited source is rebuilt and an unchanged one is reused.  Nothing is
+``ctypes``.  A library's file name carries the hash of its source and of
+the headers the sources share (``csrc/*.cuh``), so an edited source or
+header is rebuilt and an unchanged one is reused.  Nothing is
 built at import: ``load`` builds on first use, and ``build`` compiles
 several kernels at once, one ``nvcc`` process per source.
 """
@@ -41,10 +42,17 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple:
+    """(source path, library path) of kernel ``name``.  The library's name
+    hashes the source and every header under ``csrc/`` (``*.cuh``, shared
+    by the sources), so an edit to either rebuilds it."""
     src = os.path.join(CSRC, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return src, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [src] + sorted(
+            os.path.join(CSRC, f) for f in os.listdir(CSRC)
+            if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return src, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> dict:

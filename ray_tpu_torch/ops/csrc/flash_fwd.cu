@@ -78,6 +78,8 @@
 
 #include <type_traits>
 
+#include "tc.cuh"  // swizzled tiles, cp.async, ldmatrix, mma.sync
+
 namespace {
 
 constexpr int NT = 128;  // threads per CTA, both routes
@@ -259,8 +261,6 @@ __device__ __forceinline__ void fwd(
 
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
-
 template <int D> struct Tile {
   // m16 row tiles per warp: at d = 64 each K/V fragment read from shared
   // memory feeds two products (128-row CTAs); wider heads have no
@@ -275,74 +275,6 @@ template <int D> constexpr size_t smem_bytes() {
   return (size_t)(Tile<D>::ROWS + 4 * Tile<D>::BK) * D * sizeof(bf16);
 }
 
-// element offset of 16-byte chunk c of row r in a [rows, D] bf16 tile:
-// chunks are XOR-swizzled by the row's low 3 bits, so the 8 rows an
-// ldmatrix phase reads sit in 8 distinct 16-byte bank groups
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 3);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a * b, one m16n8k16 bf16 product with f32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats as one bf16x2 register, lo in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 2^x in one MUFU.EX2 (flushes denormal results to 0; 2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -351,23 +283,6 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-// copy rows [row0, row0 + R) of one head into a swizzled [R, D] tile;
-// rows at or past `limit` are zero-filled
-template <int D, int R>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long row_stride, int row0,
-                                          int limit, int tid) {
-  constexpr int C = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int i = tid; i < R * C; i += NT) {
-    const int r = i / C, c = i % C;
-    const int gr = row0 + r;
-    const bool ok = gr < limit;
-    cp_async16(dst + swz<D>(r, c), ok ? src + gr * row_stride + c * 8 : src,
-               ok ? 16 : 0);
-  }
 }
 
 template <int D>

@@ -11,15 +11,16 @@ are what a selective-checkpoint policy sees: ``models/gpt.py`` saves or
 recomputes the forward's ``(out, lse)`` by the op's name.
 
 On CUDA tensors the forward launches ``csrc/flash_fwd.cu`` (the port of
-the Pallas ``_fwd_kernel``: bf16 on the tensor cores, f32 on a scalar
-kernel that keeps full f32 precision) and the backward launches
+the Pallas ``_fwd_kernel``) and the backward launches
 ``csrc/flash_bwd.cu``: ``flash_bwd_kv`` (of ``_bwd_kv_kernel``) then
 ``flash_bwd_dq`` (of ``_bwd_dq_kernel``), after ``delta = rowsum(do * o)``
 as a torch reduction, which the JAX package also computes outside its
-kernels.  On CPU tensors the ops run the plain versions,
-``flash_attention_reference`` and ``flash_attention_backward_reference``:
-the same blocked recompute written in torch.  There is no route from one
-to the other: a CUDA input launches or raises.
+kernels.  Each kernel runs bf16 on the tensor cores and f32 on a scalar
+kernel that keeps full f32 precision.  On CPU tensors the ops run the
+plain versions, ``flash_attention_reference`` and
+``flash_attention_backward_reference``: the same blocked recompute
+written in torch.  There is no route from one to the other: a CUDA
+input launches or raises.
 
 Layout is the JAX package's: ``[batch, heads, seq, head_dim]``.  Causal
 rows sit at the tail of kv (offset ``kv_len - q_len``), as in
@@ -258,7 +259,7 @@ def _row_major(*ts):
 
 
 def _cp_async_aligned(t) -> bool:
-    """Whether the bf16 forward kernel's 16-byte ``cp.async`` copies can
+    """Whether the bf16 kernels' 16-byte ``cp.async`` copies can
     read ``t`` in place: a 16-byte-aligned base, a contiguous head dim and
     (batch, head, row) strides that are whole 16-byte chunks.  The model's
     q, k, v (strided views split from one qkv projection) qualify."""
@@ -268,7 +269,7 @@ def _cp_async_aligned(t) -> bool:
 
 
 def _aligned(*ts):
-    """The inputs as the bf16 forward kernel reads them: each one that
+    """The inputs as the bf16 kernels read them: each one that
     ``_cp_async_aligned`` refuses is copied into a fresh contiguous
     tensor (``clone``, not ``contiguous``: a contiguous view at an odd
     offset would come back from ``contiguous`` as it was)."""
@@ -328,6 +329,16 @@ def _bwd_lib():
     return lib
 
 
+def _bwd_inputs(q, k, v, do):
+    """q, k, v and do as the backward kernels read them: bf16 runs the
+    tensor-core kernels and their 16-byte copies (``_aligned``), f32 the
+    scalar kernels, which need only a contiguous head dim (``_row_major``).
+    The model's qkv views and the cotangent autograd hands over (a
+    transposed view of ``[b, s, h, d]``) pass uncopied either way."""
+    return (_aligned if q.dtype == torch.bfloat16 else _row_major)(
+        q, k, v, do)
+
+
 def _launch_bwd_kv(q, k, v, do, lse, delta, scale: float, causal: bool):
     """Launch ``flash_bwd_kv`` once; returns ``(dk, dv)``, contiguous, in
     the inputs' dtype."""
@@ -335,7 +346,7 @@ def _launch_bwd_kv(q, k, v, do, lse, delta, scale: float, causal: bool):
     _check(q, k, v)
     _check_grad_inputs(q, do, lse, delta)
     b, h, sq, d = q.shape
-    q, k, v, do = _row_major(q, k, v, do)
+    q, k, v, do = _bwd_inputs(q, k, v, do)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     lib = _bwd_lib()
@@ -359,7 +370,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     _check(q, k, v)
     _check_grad_inputs(q, do, lse, delta)
     b, h, sq, d = q.shape
-    q, k, v, do = _row_major(q, k, v, do)
+    q, k, v, do = _bwd_inputs(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lib = _bwd_lib()
     with torch.cuda.device(q.device):

@@ -10,6 +10,7 @@ asked for the CPU."""
 import ast
 import importlib
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -221,6 +222,23 @@ def test_cp_async_alignment_helper():
     wide = torch.zeros((b, h, s, hd + 4), dtype=torch.bfloat16)[..., :hd]
     assert wide.stride(2) == hd + 4
     assert not port_flash._cp_async_aligned(wide)
+
+
+def test_kernel_libraries_rebuild_when_the_shared_header_changes(
+        tmp_path, monkeypatch):
+    # both kernels include csrc/tc.cuh: a library named by its source's
+    # hash alone would be loaded stale after an edit to the header
+    from ray_tpu_torch.ops import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    before = {n: _build._target(n)[1] for n in ("flash_fwd", "flash_bwd")}
+    assert before == {n: _build._target(n)[1] for n in before}
+    header = csrc / "tc.cuh"
+    header.write_bytes(header.read_bytes() + b"\n")
+    after = {n: _build._target(n)[1] for n in before}
+    assert all(after[n] != before[n] for n in before)
 
 
 def test_flash_kernel_wrapper_refuses_cpu_tensors():

@@ -157,6 +157,38 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
             launch(q, k, v, do, lse, delta, 0.125, True)
 
 
+def test_backward_kernel_inputs_copy_only_what_the_kernels_cannot_read():
+    """bf16 goes to the tensor-core kernels' 16-byte copies
+    (``_aligned``), f32 to the scalar kernels (``_row_major``)."""
+    b, s, h, hd = 2, 16, 2, 64
+    for dtype in (torch.bfloat16, torch.float32):
+        # the model's q, k, v views of one qkv projection and the
+        # cotangent autograd hands over, a transposed [b, s, h, d] view
+        qkv = torch.zeros((b, s, 3 * h * hd), dtype=dtype)
+        q, k, v = (t.reshape(b, s, h, hd).transpose(1, 2)
+                   for t in qkv.split(h * hd, dim=-1))
+        do = torch.zeros((b, s, h, hd), dtype=dtype).transpose(1, 2)
+        got = port_flash._bwd_inputs(q, k, v, do)
+        assert all(g is t for g, t in zip(got, (q, k, v, do)))
+        # a contiguous do at a 1-element offset, and one whose head dim
+        # is not contiguous
+        shifted = torch.arange(b * h * s * hd + 1, dtype=dtype)[1:].view(
+            b, h, s, hd)
+        strided = torch.arange(b * h * s * hd, dtype=dtype).view(
+            b, h, hd, s).transpose(-1, -2)
+        for bad in (shifted, strided):
+            got = port_flash._bwd_inputs(q, k, v, bad)
+            assert all(g is t for g, t in zip(got[:3], (q, k, v)))
+            assert torch.equal(got[3], bad)
+            assert got[3].stride(-1) == 1
+            if dtype == torch.bfloat16:
+                assert got[3] is not bad
+                assert port_flash._cp_async_aligned(got[3])
+            else:
+                # the scalar kernels read any row-major layout in place
+                assert (got[3] is bad) == (bad.stride(-1) == 1)
+
+
 # ------------------------------------------------------------- the model
 
 @pytest.fixture(scope="module")
