@@ -18,7 +18,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    lse -inf), strided, misaligned (a view at a 1-element offset, which
    the bf16 route copies), non-causal and wider-head shapes, in bf16 and
    f32; prints the kernel's, the plain version's and SDPA's times and
-   the bound (device time, and time per call);
+   the bound (device time, and time per call), and the f32 kernel's and
+   f32 SDPA's device time at the serving path's shape;
 3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
    and 256, ragged (kv 77 too), cross-length, decode-like (q 1 / kv
@@ -38,7 +39,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
    full-width prefill's last-position logits are held against a prefill
    on plain attention, and each request's tokens, TTFT and tokens/s are
    printed;
-6. the training slice: GPT-2 124M at full width and depth, b16 s1024
+6. the slot engine and speculative decoding.  In f32 (TF32 off) the
+   slot engine (``EngineConfig(paged=False)``) and the paged engine
+   speculating with the n-gram drafter (k 8) and with the self-drafter
+   (k 4, 2 draft layers) each serve, all at once, the cold 600-token
+   prompt, the two shared-head prompts and a repetitive one: every reply
+   must be token-exact against the port's ``generate``, the flash kernel
+   must have launched n_layers times per full-width prefill (one per
+   admission on the slot engine), the n-gram engine must accept drafts
+   (tokens per step above 1), the self-drafter must draft, and both
+   paged engines must end with every block returned.  In bf16, the
+   serve bench's engine arms at its quick sizes (request builders copied
+   from benchmarks/serve_bench.py): shared-prefix requests/s on the slot
+   and paged engines, and TTFT/ITL percentiles, tokens per step, accept
+   rate, wall time and the share of replies equal to the plain arm's for
+   speculation off, n-gram and self-draft (printed, not gated);
+7. the training slice: GPT-2 124M at full width and depth, b16 s1024
    bf16, five make_train_step steps of AdamW(3e-4, weight_decay=0.1) on
    one repeated batch under remat_policy "dots" and then "dots_flash".
    Every step must launch the flash forward 24 / 12 times and each
@@ -57,6 +73,7 @@ import dataclasses
 import importlib
 import json
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -372,6 +389,8 @@ def phase_kernels(name: str, card: str) -> dict:
     bound = max(t_bytes, t_ops)
     q32, k32, v32 = (t.float() for t in (q, k, v))
     ms32 = device_ms(lambda: flash_attention(q32, k32, v32, causal=True))
+    lib32 = device_ms(lambda: F.scaled_dot_product_attention(
+        q32, k32, v32, is_causal=True))
     b32, f32 = attention_work(1, 12, 1024, 1024, 64, True, 4)
     bound32 = max(b32 / bw, f32 / F32_FLOPS) * 1e3
     print(f"[kernel] flash_fwd [1,12,1024,64] bf16 causal on {card}: "
@@ -381,14 +400,16 @@ def phase_kernels(name: str, card: str) -> dict:
           f"{lib_call:.4f}), bound {bound:.5f} ms "
           f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
           f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms); f32 kernel "
-          f"{ms32:.4f} ms vs f32 bound {bound32:.5f} ms")
+          f"{ms32:.4f} ms, f32 SDPA {lib32:.4f} ms, f32 bound "
+          f"{bound32:.5f} ms")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py:38",
             "launches": None, "max_abs_err": path_err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "f32_ms": ms32, "f32_bound_ms": bound32,
+            "f32_library_ms": lib32}
 
 
 def forward_err(label, out, lse, q, k, v, causal) -> float:
@@ -531,6 +552,233 @@ def phase_serving_bf16(card: str) -> int:
     finally:
         srv.teardown()
     return launches
+
+
+# the engines of phase 6 by launch path: the slot engine, and the paged
+# engine speculating with each drafter (the serve bench's settings)
+SPEC_ENGINE = dict(max_slots=8, kv_block_size=16, prefill_chunk=16)
+ENGINE_PATHS = {
+    "serve_slot": dict(max_slots=4, paged=False),
+    "serve_spec_ngram": dict(SPEC_ENGINE, speculate="ngram", speculate_k=8),
+    "serve_spec_self": dict(SPEC_ENGINE, speculate="self", speculate_k=4,
+                            draft_layers=2),
+}
+
+
+def assert_blocks_returned(engine, label: str):
+    """Idle paged engine: every block is free or held by the prefix index
+    alone, and evicting the index leaves all free with refcount 0."""
+    st = engine.stats()
+    check(st["active_slots"] == 0 and st["blocks_free"]
+          + st["prefix_cached_blocks"] == st["blocks_total"],
+          f"{label}: blocks leaked: {st}")
+    engine.trie.evict(st["blocks_total"])
+    pool = engine.pool
+    check(pool.n_free == pool.n_blocks
+          and all(pool.refcount(b) == 0 for b in range(pool.n_blocks + 1)),
+          f"{label}: a block is still referenced after evicting the index")
+
+
+def phase_engines_f32(card: str) -> dict:
+    """The slot engine and both speculating engines in f32, TF32 off: the
+    token-exact gate.  Returns {path: flash launches in its run}."""
+    from ray_tpu_torch.inference import EngineConfig, GPTServer
+    from ray_tpu_torch.models import gpt
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt.GPTConfig.gpt2_124m(dtype=torch.float32)
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    # the cold long prompt, the two shared-head prompts, a repetitive one
+    prompts = requests(cfg.vocab_size)[:3] + [[1, 2, 3, 4] * 12]
+    want = [gpt.generate(params, cfg, torch.tensor([p], device="cuda"), 16,
+                         temperature=0.0)[0, len(p):].tolist()
+            for p in prompts]
+    launches = {}
+    for path, kw in ENGINE_PATHS.items():
+        srv = GPTServer(cfg, EngineConfig(**kw), params=params)
+        try:
+            torch.cuda.synchronize()
+            fa.launches = 0              # this path's run starts here
+            t0 = time.perf_counter()
+            handles = [srv.engine.submit(p, max_new=16) for p in prompts]
+            got = [h.result(timeout=300) for h in handles]
+            torch.cuda.synchronize()
+            launches[path] = fa.launches  # ... and ends here
+            wall = time.perf_counter() - t0
+            st = srv.engine_stats()
+            print(f"[{path} f32] {len(prompts)} requests in {wall:.3f} s on "
+                  f"{card}: flash launches {launches[path]}, full-width "
+                  f"prefills {st['full_prefills']}, chunk prefills "
+                  f"{st['chunk_prefills']}, decode/verify steps "
+                  f"{st['decode_iterations']}, tokens per step "
+                  f"{st['tokens_per_step']:.4f}, drafted "
+                  f"{st['spec_drafted_tokens']}, accepted "
+                  f"{st['spec_accepted_tokens']}")
+            for p, g, w in zip(prompts, got, want):
+                check(g == w, f"{path} f32: the reply to a {len(p)}-token "
+                      f"prompt differs from generate: {g} vs {w}")
+            check(st["full_prefills"] >= 1, f"{path}: no full-width prefill")
+            check(launches[path] == cfg.n_layers * st["full_prefills"],
+                  f"{path}: flash kernel launched {launches[path]} times for "
+                  f"{st['full_prefills']} full-width prefills of "
+                  f"{cfg.n_layers} layers")
+            if path == "serve_slot":
+                check(st["full_prefills"] == len(prompts),
+                      f"slot engine: {st['full_prefills']} prefills for "
+                      f"{len(prompts)} admissions")
+            else:
+                assert_blocks_returned(srv.engine, path)
+            if path == "serve_spec_ngram":
+                check(st["spec_accepted_tokens"] > 0
+                      and st["tokens_per_step"] > 1, "the n-gram engine "
+                      f"accepted no draft: {st}")
+            if path == "serve_spec_self":
+                check(st["spec_drafted_tokens"] > 0,
+                      f"the self-drafter drafted nothing: {st}")
+        finally:
+            srv.teardown()
+    print("[engines f32] every reply of the three engines token-exact "
+          "against generate")
+    return launches
+
+
+# request builders: copies of benchmarks/serve_bench.py's (that module
+# imports the JAX package)
+def shared_prefix_requests(n, *, seed, vocab, heads, head_len, tail_len,
+                           max_new):
+    """N requests over K distinct prompt heads, each with a random tail."""
+    rng = np.random.default_rng(seed)
+    head_toks = [rng.integers(0, vocab, head_len).tolist()
+                 for _ in range(heads)]
+    return [(head_toks[i % heads] + rng.integers(0, vocab, tail_len).tolist(),
+             max_new) for i in range(n)]
+
+
+def mixed_requests(*, seed, vocab, n_short, n_long, short_len, long_len,
+                   short_new, long_new):
+    """Short requests interleaved with long prompts."""
+    rng = np.random.default_rng(seed)
+    out = []
+    longs = set(np.linspace(0, n_short + n_long - 1, n_long).astype(int))
+    for i in range(n_short + n_long):
+        if i in longs:
+            pl = int(rng.integers(long_len // 2, long_len + 1))
+            out.append((rng.integers(0, vocab, pl).tolist(), long_new))
+        else:
+            pl = int(rng.integers(short_len // 2, short_len + 1))
+            out.append((rng.integers(0, vocab, pl).tolist(), short_new))
+    return out
+
+
+def pct(xs, p):
+    """serve_bench's percentile: the nearest rank, on sorted values."""
+    xs = sorted(xs)
+    i = min(len(xs) - 1, max(0, int(round(p / 100 * (len(xs) - 1)))))
+    return xs[i] if xs else 0.0
+
+
+def run_arm(cfg, params, reqs, engine_cfg):
+    """serve_bench's ``run_engine_arm``: warm the engine off the clock on
+    a dedicated prompt, submit every request at once, wait for all.
+    Returns (numbers over the timed run, replies)."""
+    from ray_tpu_torch.inference import GPTServer
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    srv = GPTServer(cfg, engine_cfg, params=params)
+    eng = srv.engine
+    try:
+        wp = [(i % 7) + 1 for i in range(cfg.max_seq * 3 // 4)]
+        eng.generate(wp, max_new=2, timeout=600)
+        eng.generate(wp, max_new=2, timeout=600)
+        if engine_cfg.speculate is not None:
+            eng.generate(wp, max_new=engine_cfg.speculate_k + 4, timeout=600)
+        st0 = eng.stats()
+        torch.cuda.synchronize()
+        fa.launches = 0
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new=m) for p, m in reqs]
+        outs = [h.result(timeout=600) for h in handles]
+        wall = time.perf_counter() - t0
+        launches = fa.launches
+        st = eng.stats()
+        if engine_cfg.paged:
+            assert_blocks_returned(eng, "arm")
+    finally:
+        srv.teardown()
+    d = {k: st[k] - st0[k] for k in (
+        "row_steps", "row_tokens", "spec_drafted_tokens",
+        "spec_accepted_tokens", "full_prefills")}
+    ttft = [h.first_token_s - h.created_s for h in handles]
+    # serve_bench's ITL: (e2e - TTFT) / (n - 1), a stream's token period
+    itl = [(h.finished_s - h.first_token_s) / (len(h.tokens) - 1)
+           for h in handles if len(h.tokens) > 1]
+    for (p, m), out in zip(reqs, outs):
+        check(len(out) == m and all(0 <= t < cfg.vocab_size for t in out),
+              f"malformed reply of {len(out)} tokens for max_new {m}")
+    check(launches == cfg.n_layers * d["full_prefills"],
+          f"flash kernel launched {launches} times for "
+          f"{d['full_prefills']} full-width prefills")
+    return {"wall_s": wall, "req_s": len(reqs) / wall,
+            "tokens_s": sum(map(len, outs)) / wall,
+            "ttft_p50_s": pct(ttft, 50), "ttft_p99_s": pct(ttft, 99),
+            "itl_p50_s": pct(itl, 50), "itl_p99_s": pct(itl, 99),
+            "tokens_per_step": d["row_tokens"] / d["row_steps"],
+            "spec_accept_rate": (d["spec_accepted_tokens"]
+                                 / d["spec_drafted_tokens"]
+                                 if d["spec_drafted_tokens"] else 0.0),
+            "launches": launches, "full_prefills": d["full_prefills"]}, outs
+
+
+def phase_engines_bf16(card: str):
+    """The serve bench's engine arms 1 and 3 at its quick sizes, in bf16:
+    timed on the card, printed, not gated."""
+    from ray_tpu_torch.inference import EngineConfig
+    from ray_tpu_torch.models import gpt
+
+    cfg = gpt.GPTConfig.gpt2_124m()      # bf16 activations, f32 params
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    vocab = cfg.vocab_size
+    # arm 1: shared prefix, 12 requests over 4 heads of 192 tokens
+    reqs1 = shared_prefix_requests(12, seed=11, vocab=vocab, heads=4,
+                                   head_len=192, tail_len=8, max_new=4)
+    slot, _ = run_arm(cfg, params, reqs1,
+                      EngineConfig(max_slots=8, paged=False))
+    paged, _ = run_arm(cfg, params, reqs1, EngineConfig(**SPEC_ENGINE))
+    print(f"[arm 1 bf16] shared prefix, {len(reqs1)} requests on {card}: "
+          f"slot {slot['req_s']:.3f} requests/s ({slot['wall_s']:.3f} s, "
+          f"flash launches {slot['launches']} for {slot['full_prefills']} "
+          f"admissions), paged {paged['req_s']:.3f} requests/s "
+          f"({paged['wall_s']:.3f} s), paged/slot "
+          f"{paged['req_s'] / slot['req_s']:.3f}")
+    check(slot["full_prefills"] == len(reqs1),
+          f"slot arm: {slot['full_prefills']} prefills for {len(reqs1)} "
+          f"admissions")
+    # arm 3: speculation off / n-gram / self-draft on one request set
+    reqs3 = (shared_prefix_requests(12, seed=17, vocab=vocab, heads=4,
+                                    head_len=96, tail_len=8, max_new=32)
+             + mixed_requests(seed=19, vocab=vocab, n_short=6, n_long=2,
+                              short_len=16, long_len=120, short_new=32,
+                              long_new=32))
+    random.Random(23).shuffle(reqs3)
+    arms, outs = {}, {}
+    for label, kw in (("off", {}),
+                      ("ngram", dict(speculate="ngram", speculate_k=8)),
+                      ("self", dict(speculate="self", speculate_k=4,
+                                    draft_layers=2))):
+        arms[label], outs[label] = run_arm(
+            cfg, params, reqs3, EngineConfig(**SPEC_ENGINE, **kw))
+    for label, a in arms.items():
+        same = np.mean([o == r for o, r in zip(outs[label], outs["off"])])
+        print(f"[arm 3 bf16] speculate {label}, {len(reqs3)} requests on "
+              f"{card}: TTFT p50/p99 {a['ttft_p50_s'] * 1e3:.2f}/"
+              f"{a['ttft_p99_s'] * 1e3:.2f} ms, ITL p50/p99 "
+              f"{a['itl_p50_s'] * 1e3:.3f}/{a['itl_p99_s'] * 1e3:.3f} ms, "
+              f"tokens per step {a['tokens_per_step']:.4f}, accept rate "
+              f"{a['spec_accept_rate']:.4f}, wall {a['wall_s']:.3f} s, "
+              f"{a['tokens_s']:.1f} tokens/s, replies equal to the off "
+              f"arm's {same:.3f}")
 
 
 def grad_err(got, ref, dtype):
@@ -864,13 +1112,17 @@ def main() -> int:
     kernels += phase_backward_kernels(name, card)
     phase_serving_f32(card)
     serve_launches = phase_serving_bf16(card)
+    engine_launches = phase_engines_f32(card)
+    phase_engines_bf16(card)
     train_launches = phase_training(name, card)
-    # launches on each main path's run: the bf16 serving requests and the
-    # five training steps under each remat policy
+    # launches on each main path's run: the bf16 serving requests, the
+    # f32 engines' requests and the five training steps under each remat
+    # policy
     for i, k in enumerate(kernels):
         paths = {f"train_{p}": n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":
-            paths = {"serve_bf16": serve_launches, **paths}
+            paths = {"serve_bf16": serve_launches, **engine_launches,
+                     **paths}
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     print(f"[done] {time.perf_counter() - t0:.1f} s on {card}")

@@ -1,32 +1,49 @@
-"""Continuous-batching GPT inference over a paged KV cache: the port of
-``ray_tpu.inference``'s paged engine.
+"""Continuous-batching GPT inference over a paged KV cache, with
+speculative decoding, and the slot engine: the port of
+``ray_tpu.inference``.
 
   * cache.py   -- BlockPool (refcounted token blocks, copy-on-write,
-                  scratch block 0) and RadixIndex (prefix reuse, LRU).
+                  scratch block 0, speculative rollback), RadixIndex
+                  (prefix reuse, LRU) and KVCacheManager (one stripe per
+                  sequence, the slot engine's pool).
   * decode.py  -- full-width prefill (the model forward, flash kernel),
-                  chunked prefill and the paged decode step.
+                  chunked prefill, the paged decode step, the speculative
+                  verify step and self-draft burst, the n-gram drafter,
+                  and the slot decode step.
   * engine.py  -- the iteration-level scheduler: block-budget admission
-                  with prefix credit, chunked prefill, preemption.
+                  with prefix credit, chunked prefill, preemption,
+                  draft-then-verify; or, with ``paged=False``, slot
+                  admission; and ``metrics_snapshot``.
   * serving.py -- GPTServer: the /v1/generate request body, in process.
 """
 
-from ray_tpu_torch.inference.cache import BlockPool, RadixIndex
-from ray_tpu_torch.inference.decode import (make_chunk_prefill_fn,
+from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
+                                           RadixIndex)
+from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
+                                            make_chunk_prefill_fn,
+                                            make_decode_step,
                                             make_paged_decode_step,
-                                            make_prefill_fn)
+                                            make_paged_draft_step,
+                                            make_prefill_fn,
+                                            make_spec_verify_step,
+                                            ngram_propose)
 from ray_tpu_torch.inference.engine import (PRIORITY_BATCH,
                                             PRIORITY_INTERACTIVE,
                                             EngineConfig,
                                             EngineDrainingError,
                                             EngineStoppedError,
                                             GenerationRequest,
-                                            InferenceEngine)
+                                            InferenceEngine,
+                                            metrics_snapshot)
 from ray_tpu_torch.inference.serving import GPTServer, encode_prompt
 
 __all__ = [
-    "BlockPool", "RadixIndex",
-    "make_chunk_prefill_fn", "make_paged_decode_step", "make_prefill_fn",
+    "BlockPool", "KVCacheManager", "RadixIndex",
+    "SpeculationUnsupported", "make_chunk_prefill_fn", "make_decode_step",
+    "make_paged_decode_step", "make_paged_draft_step", "make_prefill_fn",
+    "make_spec_verify_step", "ngram_propose",
     "EngineConfig", "EngineDrainingError", "EngineStoppedError",
     "GenerationRequest", "InferenceEngine", "PRIORITY_BATCH",
-    "PRIORITY_INTERACTIVE", "GPTServer", "encode_prompt",
+    "PRIORITY_INTERACTIVE", "metrics_snapshot", "GPTServer",
+    "encode_prompt",
 ]

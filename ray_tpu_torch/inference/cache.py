@@ -1,7 +1,12 @@
-"""Paged KV cache: the refcounted block pool and the radix prefix index.
+"""KV-cache pools: the paged block pool with its radix prefix index, and
+the slot pool of the ``paged=False`` engine.
 
-Port of ``ray_tpu/inference/cache.py``'s ``BlockPool``, ``_TrieNode``
-and ``RadixIndex``.  The pool is preallocated and handed out in
+Port of ``ray_tpu/inference/cache.py``'s ``KVCacheManager``,
+``BlockPool``, ``_TrieNode`` and ``RadixIndex``.
+
+``KVCacheManager`` preallocates one ``[max_seq]`` stripe per sequence
+(``[n_layers, n_slots, n_heads, max_seq, head_dim]`` x2) and hands out
+whole slots.  ``BlockPool`` is preallocated and handed out in
 fixed-size token blocks (``[n_layers, n_blocks + 1, n_heads, block_size,
 head_dim]`` x2); a request's block table maps positions to blocks, and
 per-block refcounts let requests share blocks (prefix reuse) with
@@ -9,8 +14,9 @@ copy-on-write before a shared block is written.  Block id 0 is a
 reserved scratch block: masked rows and out-of-range writes land there
 so no write needs a branch.
 
-Where the JAX package donated the pool buffers to a jitted update, the
-port updates the pool tensors in place (``index_put_``/``copy_``).
+Where the JAX package donated the pool buffers to a jitted update and
+swapped the results in, the port updates the pool tensors in place
+(``index_put_``/``copy_``).
 
 ``RadixIndex`` is a trie over block-sized token chunks (plus partial
 tail leaves): a prompt whose head matches a cached prefix adopts those
@@ -29,6 +35,95 @@ import torch
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.gpt import GPTConfig
+
+
+class KVCacheManager:
+    """Owns the preallocated slot pool and its free list: one ``[max_seq]``
+    stripe per sequence.
+
+    alloc/free and the tensor updates happen on the engine loop thread;
+    ``stats()`` may be read from any thread (the lock guards the free
+    list)."""
+
+    def __init__(self, cfg: GPTConfig, n_slots: int,
+                 max_seq: Optional[int] = None, dtype=None, device=None):
+        if n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1, got {n_slots}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_slots = int(n_slots)
+        self.max_seq = int(max_seq or cfg.max_seq)
+        if self.max_seq > cfg.max_seq:
+            raise ValueError(
+                f"cache max_seq {self.max_seq} exceeds model max_seq "
+                f"{cfg.max_seq} (wpe table bound)")
+        self.dtype = dtype or cfg.dtype
+        shape = (cfg.n_layers, self.n_slots, cfg.n_heads, self.max_seq,
+                 cfg.head_dim)
+        self.k = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self._lock = threading.Lock()
+        self._free = list(range(self.n_slots - 1, -1, -1))  # pop() -> slot 0
+        self._allocated: set[int] = set()
+
+    def alloc(self) -> Optional[int]:
+        """Hand out a slot, or None when the pool is exhausted (the
+        caller queues the request: memory never grows)."""
+        with self._lock:
+            if not self._free:
+                return None
+            slot = self._free.pop()
+            self._allocated.add(slot)
+            return slot
+
+    def free(self, slot: int) -> None:
+        with self._lock:
+            if slot not in self._allocated:
+                raise ValueError(f"slot {slot} is not allocated "
+                                 "(double free or never alloc'd)")
+            self._allocated.remove(slot)
+            self._free.append(slot)
+
+    @property
+    def n_free(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    @property
+    def n_active(self) -> int:
+        with self._lock:
+            return len(self._allocated)
+
+    def write_prefill(self, slot: int, k_new: torch.Tensor,
+                      v_new: torch.Tensor) -> None:
+        """Seed a slot from a prefill (``[L, h, s, hd]`` each), in place.
+        A prefill shorter than the stripe is zero-padded on the right;
+        the kv-length masks hide the tail and decode overwrites it."""
+        pad = self.max_seq - k_new.shape[2]
+        for pool, new in ((self.k, k_new), (self.v, v_new)):
+            if pad > 0:
+                new = torch.nn.functional.pad(new, (0, 0, 0, pad))
+            pool[:, slot] = new.to(pool.dtype)
+
+    def reset_arrays(self) -> None:
+        """Zero the pool after a failed step left its content in doubt
+        (the caller fails every in-flight request)."""
+        self.k.zero_()
+        self.v.zero_()
+
+    def bytes_total(self) -> int:
+        return 2 * self.k.numel() * self.k.element_size()
+
+    def stats(self) -> dict:
+        with self._lock:
+            active = len(self._allocated)
+        return {
+            "n_slots": self.n_slots,
+            "active_slots": active,
+            "free_slots": self.n_slots - active,
+            "max_seq": self.max_seq,
+            "bytes_total": self.bytes_total(),
+        }
 
 
 class BlockPool:
@@ -105,6 +200,19 @@ class BlockPool:
             if rc == 0:
                 self._free.append(bid)
             return rc
+
+    def release_tail(self, blocks: list, keep: int) -> int:
+        """Speculative rollback: decref the chain's blocks past the first
+        ``keep``, the refund of a block charge taken for drafted tokens
+        the verify pass rejected.  ``blocks`` (the caller's row chain) is
+        truncated in place, so a later preemption releases exactly what
+        the row still holds.  Returns the number released."""
+        keep = max(int(keep), 0)
+        dropped = 0
+        while len(blocks) > keep:
+            self.decref(blocks.pop())
+            dropped += 1
+        return dropped
 
     def refcount(self, bid: int) -> int:
         with self._lock:

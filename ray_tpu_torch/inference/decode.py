@@ -1,6 +1,7 @@
-"""Incremental (KV-cache) decode for the GPT over the paged block pool.
+"""Incremental (KV-cache) decode for the GPT: the paged path with its
+speculative verify and self-draft steps, and the slot path.
 
-Port of ``ray_tpu/inference/decode.py``'s paged path:
+Port of ``ray_tpu/inference/decode.py``:
 
   * ``make_prefill_fn`` -- the full-width prefill: ``gpt.forward`` with
     ``return_kv`` over the padded prompt.  Its attention is the Hopper
@@ -12,22 +13,44 @@ Port of ``ray_tpu/inference/decode.py``'s paged path:
   * ``make_paged_decode_step`` -- one token for every row at once,
     attention over each row's gathered block table masked to its valid
     prefix.
+  * ``make_spec_verify_step`` -- the paged step widened to W = k + 1
+    lanes a row: lane 0 is the row's current token, lanes 1.. drafted
+    continuations, each query masked to its own causal horizon, so lane
+    j's logits are the next-token logits given the drafted prefix.
+  * ``make_paged_draft_step`` -- the truncated-layer self-draft burst: k
+    greedy tokens through the first ``draft_layers`` layers straight
+    into the head.  Layer l's K/V depend only on layers below it, so the
+    burst writes the real pool at layers < draft_layers.
+  * ``ngram_propose`` -- the host-side prompt-lookup drafter.
+  * ``make_decode_step`` -- the slot engine's step over the
+    ``[L, n_slots, h, S, hd]`` stripes, masked per row by kv length.
 
-Every step body reads one layer's pool slice inside the layer loop and
-writes the new K/V to the pool in ONE scatter after the loop (the shape
+The paged bodies read one layer's pool slice inside the layer loop and
+write the new K/V to the pool in ONE scatter after the loop (the shape
 the JAX package settled on; carrying the pool through the loop copied it
 whole).  Where JAX donated the pool to the jitted step, the port writes
-the pool tensors in place.  All bodies mirror ``gpt._transformer_layer``.
+the pool tensors in place.  All bodies mirror
+``gpt._transformer_layer``.  The step bodies run plain attention: the
+JAX package has no Pallas kernel for them either.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.ops.attention import attention
+
+
+class SpeculationUnsupported(ValueError):
+    """Speculative decoding was asked of a configuration that has no
+    speculation path: the slot engine, a bad ``speculate_k``-sized burst,
+    or a self-draft depth outside ``[1, n_layers)``.  Raised at engine
+    construction, never mid-decode.  ``temperature > 0`` requests are no
+    error: they decode one token a step on a speculating engine."""
 
 
 def _mlp_block(y, lp, cfg: GPTConfig):
@@ -65,6 +88,57 @@ def make_prefill_fn(cfg: GPTConfig):
     return prefill
 
 
+def _gather_table(pool, tables):
+    """One layer's pool [N, h, bs, hd] gathered through ``tables`` [b, T]
+    -> [b, h, T * bs, hd], position-major."""
+    b, T = tables.shape
+    h, bs, hd = pool.shape[1], pool.shape[2], pool.shape[3]
+    g = pool[tables]                                  # [b, T, h, bs, hd]
+    return g.permute(0, 2, 1, 3, 4).reshape(b, h, T * bs, hd)
+
+
+def make_decode_step(cfg: GPTConfig):
+    """The slot engine's one-token step over the whole slot batch.
+
+    (params, k_cache, v_cache [L, b, h, S, hd], tokens [b] long,
+     positions [b] long, active [b] bool)
+        -> logits [b, vocab] f32, the caches updated in place
+
+    Each active slot's current token K/V lands at ``positions[slot]``;
+    parked slots are left bit-unchanged (their position's old value is
+    written back).  Attention covers ``[0, positions[slot]]`` of the
+    slot's stripe (one key for parked slots: never NaN)."""
+    h, hd = cfg.n_heads, cfg.head_dim
+
+    @torch.no_grad()
+    def step(params, k_cache, v_cache, tokens, positions, active):
+        b = tokens.shape[0]
+        rows = torch.arange(b, device=tokens.device)
+        # parked slots write their position-0 value back and attend key 0
+        # (their logits are garbage the caller ignores)
+        pos = torch.where(active, positions, torch.zeros_like(positions))
+        kv_len = torch.where(active, positions + 1, torch.ones_like(pos))
+        wpe_pos = positions.clamp(0, cfg.max_seq - 1)
+        x = (params["wte"][tokens] + params["wpe"][wpe_pos])
+        x = x[:, None, :].to(cfg.dtype)                   # [b, 1, d]
+        keep = active[:, None, None]
+        for li in range(cfg.n_layers):
+            lp = gpt.layer_params(params, li)
+            q, k, v = _qkv_heads(x, lp, cfg)
+            ck, cv = k_cache[li], v_cache[li]             # [b, h, S, hd]
+            ck[rows, :, pos, :] = torch.where(
+                keep, k.reshape(b, h, hd).to(ck.dtype), ck[rows, :, pos, :])
+            cv[rows, :, pos, :] = torch.where(
+                keep, v.reshape(b, h, hd).to(cv.dtype), cv[rows, :, pos, :])
+            o = attention(q.reshape(b, 1, h, hd).transpose(1, 2), ck, cv,
+                          causal=False, kv_lengths=kv_len, impl="reference")
+            o = o.transpose(1, 2).reshape(b, 1, cfg.d_model)
+            x = _finish_layer(x, o, lp, cfg)
+        return gpt._head(params, x, cfg)[:, 0, :]
+
+    return step
+
+
 def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
                            n_table: int):
     """One-token step over the whole row batch against the block pool.
@@ -77,7 +151,7 @@ def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
     pos % bs)``; inactive rows are redirected to the scratch block.  The
     engine copy-on-writes shared tails first, so active rows never
     collide in the scatter."""
-    h, hd, bs, T = cfg.n_heads, cfg.head_dim, int(block_size), int(n_table)
+    h, hd, bs = cfg.n_heads, cfg.head_dim, int(block_size)
 
     @torch.no_grad()
     def step(params, k_pool, v_pool, tables, tokens, positions, active):
@@ -89,11 +163,6 @@ def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
         bidx = torch.where(active, tables[rows, positions // bs], zero)
         off = torch.where(active, positions % bs, zero)
         kv_len = torch.where(active, positions + 1, zero + 1)  # >=1: no NaN
-
-        def gather(pool):                                 # -> [b, h, S, hd]
-            g = pool[tables]                              # [b, T, h, bs, hd]
-            return g.permute(0, 2, 1, 3, 4).reshape(b, h, T * bs, hd)
-
         ks, vs = [], []
         for li in range(cfg.n_layers):
             lp = gpt.layer_params(params, li)
@@ -101,7 +170,8 @@ def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
             kh, vh = k.reshape(b, h, hd), v.reshape(b, h, hd)
             # insert the current token's K/V at its own position in the
             # gathered context: key order stays position-major
-            ctx_k, ctx_v = gather(k_pool[li]), gather(v_pool[li])
+            ctx_k = _gather_table(k_pool[li], tables)     # [b, h, S, hd]
+            ctx_v = _gather_table(v_pool[li], tables)
             ctx_k[rows, :, positions, :] = kh.to(ctx_k.dtype)
             ctx_v[rows, :, positions, :] = vh.to(ctx_v.dtype)
             o = attention(q.reshape(b, 1, h, hd).transpose(1, 2), ctx_k,
@@ -153,9 +223,7 @@ def make_chunk_prefill_fn(cfg: GPTConfig, *, chunk: int, block_size: int,
                 <= pos[:, None])[None, None]              # [1, 1, C, S+1]
 
         def gather(pool):                                 # -> [1, h, S+1, hd]
-            g = pool[table]                               # [T, h, bs, hd]
-            g = g.permute(1, 0, 2, 3).reshape(h, S, hd)
-            return F.pad(g, (0, 0, 0, 1))[None]
+            return F.pad(_gather_table(pool, table[None]), (0, 0, 0, 1))
 
         ks, vs = [], []
         for li in range(cfg.n_layers):
@@ -181,3 +249,201 @@ def make_chunk_prefill_fn(cfg: GPTConfig, *, chunk: int, block_size: int,
         return gpt._head(params, x, cfg)[0]               # [C, V]
 
     return chunk_fn
+
+
+def _scratch_column(tables):
+    """``tables`` [b, T] with one more column pointing at scratch block 0:
+    the gathered context gains S .. S+bs-1, where dead lanes write."""
+    return F.pad(tables, (0, 1))
+
+
+def make_spec_verify_step(cfg: GPTConfig, *, width: int, block_size: int,
+                          n_table: int):
+    """Speculative verify: the paged decode step widened to W = ``width``
+    lanes a row.
+
+    (params, k_pool, v_pool [L, N, h, bs, hd], tables [b, T] long,
+     tokens [b, W] long, positions [b] long, active [b] bool,
+     n_tokens [b] long)
+        -> logits [b, W, vocab] f32, the pools updated in place
+
+    ``tokens[row, 0]`` is the row's current token at ``positions[row]``
+    (the plain step's input); lanes 1.. are drafted continuations at
+    positions+1, +2, ...  ``n_tokens`` in [1, W] counts a row's real
+    lanes.  Dead lanes (past ``n_tokens``, of inactive rows, or at
+    ``pos >= S``) write the scratch block and the dummy context column S
+    and attend key 0 only: garbage logits the caller ignores, never NaN.
+    Each live lane's K/V is inserted into the gathered context at its
+    own position and its query masked to keys <= its position, so lane
+    0's logits are the plain step's and lane j's are the next-token
+    logits given the drafted prefix.  Every lane lands in ONE scatter;
+    rejected lanes leave K/V past the row's committed length, which the
+    masks hide until decode overwrites it."""
+    h, hd = cfg.n_heads, cfg.head_dim
+    bs, W, T = int(block_size), int(width), int(n_table)
+    S = T * bs
+
+    @torch.no_grad()
+    def verify(params, k_pool, v_pool, tables, tokens, positions, active,
+               n_tokens):
+        b = tokens.shape[0]
+        dev = tokens.device
+        rows = torch.arange(b, device=dev)[:, None]        # [b, 1]
+        lanes = torch.arange(W, device=dev)[None, :]       # [1, W]
+        pos = positions[:, None] + lanes                    # [b, W]
+        live = (lanes < n_tokens[:, None]) & active[:, None] & (pos < S)
+        wpe_pos = pos.clamp(0, cfg.max_seq - 1)
+        x = (params["wte"][tokens] + params["wpe"][wpe_pos]).to(cfg.dtype)
+        zero = torch.zeros_like(pos)
+        safe = torch.where(live, pos, zero)
+        bidx = torch.where(live, tables[rows, safe // bs], zero)
+        off = torch.where(live, pos % bs, zero)
+        # dead lanes write context column S (the appended scratch entry);
+        # every live query's horizon (<= S-1) excludes the scratch region
+        wcol = torch.where(live, pos, zero + S)
+        hor = torch.where(live, pos, zero)                 # >= 1 key: no NaN
+        tbl = _scratch_column(tables)
+        mask = (torch.arange(S + bs, device=dev)[None, None, :]
+                <= hor[:, :, None])[:, None]               # [b, 1, W, S+bs]
+        ks, vs = [], []
+        for li in range(cfg.n_layers):
+            lp = gpt.layer_params(params, li)
+            q, k, v = _qkv_heads(x, lp, cfg)
+            kh, vh = k.reshape(b, W, h, hd), v.reshape(b, W, h, hd)
+            ctx_k = _gather_table(k_pool[li], tbl)        # [b, h, S+bs, hd]
+            ctx_v = _gather_table(v_pool[li], tbl)
+            # value layout [b, W, h, hd]: the advanced indices are split
+            # by a slice, so their dims lead
+            ctx_k[rows, :, wcol, :] = kh.to(ctx_k.dtype)
+            ctx_v[rows, :, wcol, :] = vh.to(ctx_v.dtype)
+            o = attention(q.reshape(b, W, h, hd).transpose(1, 2), ctx_k,
+                          ctx_v, causal=False, mask=mask, impl="reference")
+            o = o.transpose(1, 2).reshape(b, W, cfg.d_model)
+            x = _finish_layer(x, o, lp, cfg)
+            ks.append(kh)
+            vs.append(vh)
+        # [L, b, W, h, hd] -> [b, W, L, h, hd]: one in-place scatter per
+        # pool (dead lanes all hit scratch block 0, offset 0)
+        k_pool[:, bidx, :, off, :] = \
+            torch.stack(ks).permute(1, 2, 0, 3, 4).to(k_pool.dtype)
+        v_pool[:, bidx, :, off, :] = \
+            torch.stack(vs).permute(1, 2, 0, 3, 4).to(v_pool.dtype)
+        return gpt._head(params, x, cfg)                   # [b, W, V]
+
+    return verify
+
+
+def make_paged_draft_step(cfg: GPTConfig, *, draft_layers: int, k: int,
+                          block_size: int, n_table: int):
+    """Truncated-layer self-draft burst: ``k`` greedy draft tokens a row,
+    each through the first ``draft_layers`` layers, the head and an
+    argmax that feeds the next.
+
+    (params, k_pool, v_pool [L, N, h, bs, hd], tables [b, T] long,
+     tokens [b] long, positions [b] long, want [b] long)
+        -> drafts [b, k] long, the pools updated in place at layers
+           < draft_layers
+
+    Row r drafts ``want[r]`` tokens (0 sits the burst out); columns past
+    ``want[r]`` are garbage.  A row whose ``want`` is spent keeps its
+    token and position.  Step j reads the burst's earlier tokens from a
+    side buffer inserted into the gathered context at their true
+    positions (the pool hears of the burst only at the end, in one
+    scatter of layers < draft_layers and lanes < want).  Those K/V equal
+    what the full model writes there, and the verify pass rewrites every
+    drafted position at all layers.  Raises SpeculationUnsupported unless
+    ``1 <= draft_layers < n_layers`` and ``k >= 1``."""
+    h, hd, bs = cfg.n_heads, cfg.head_dim, int(block_size)
+    D, K, T = int(draft_layers), int(k), int(n_table)
+    S = T * bs
+    if not (1 <= D < cfg.n_layers):
+        raise SpeculationUnsupported(
+            f"draft_layers must be in [1, n_layers) = [1, "
+            f"{cfg.n_layers}), got {D}")
+    if K < 1:
+        raise SpeculationUnsupported(f"draft burst k must be >= 1, "
+                                     f"got {K}")
+
+    @torch.no_grad()
+    def draft(params, k_pool, v_pool, tables, tokens, positions, want):
+        b = tokens.shape[0]
+        dev = tokens.device
+        rows = torch.arange(b, device=dev)[:, None]        # [b, 1]
+        lanes = torch.arange(K, device=dev)[None, :]       # [1, K]
+        tbl = _scratch_column(tables)
+        cur, pos = tokens, positions
+        bk = torch.zeros((D, b, K, h, hd), dtype=cfg.dtype, device=dev)
+        bv = torch.zeros_like(bk)
+        drafts = []
+        for j in range(K):
+            live = (want > j) & (pos < S)
+            x = (params["wte"][cur]
+                 + params["wpe"][pos.clamp(0, cfg.max_seq - 1)])
+            x = x[:, None, :].to(cfg.dtype)               # [b, 1, d]
+            # burst token i sits at positions + i; tokens not drafted yet
+            # (i > j) and dead rows land in the scratch column S
+            bpos = (pos - j)[:, None] + lanes              # [b, K]
+            bvalid = (lanes <= j) & live[:, None] & (bpos < S)
+            wcol = torch.where(bvalid, bpos, torch.full_like(bpos, S))
+            kv_len = torch.where(live, pos + 1, torch.ones_like(pos))
+            for li in range(D):
+                lp = gpt.layer_params(params, li)
+                q, kk, v = _qkv_heads(x, lp, cfg)
+                bk[li, :, j] = kk.reshape(b, h, hd).to(bk.dtype)
+                bv[li, :, j] = v.reshape(b, h, hd).to(bv.dtype)
+                ctx_k = _gather_table(k_pool[li], tbl)    # [b, h, S+bs, hd]
+                ctx_v = _gather_table(v_pool[li], tbl)
+                ctx_k[rows, :, wcol, :] = bk[li].to(ctx_k.dtype)
+                ctx_v[rows, :, wcol, :] = bv[li].to(ctx_v.dtype)
+                o = attention(q.reshape(b, 1, h, hd).transpose(1, 2), ctx_k,
+                              ctx_v, causal=False, kv_lengths=kv_len,
+                              impl="reference")
+                o = o.transpose(1, 2).reshape(b, 1, cfg.d_model)
+                x = _finish_layer(x, o, lp, cfg)
+            nxt = torch.argmax(gpt._head(params, x, cfg)[:, 0, :], dim=-1)
+            cur = torch.where(live, nxt, cur)
+            pos = pos + live.long()
+            drafts.append(nxt)
+        # ONE scatter commits the burst's K/V for layers < D and lanes <
+        # want (dead lanes collide harmlessly in the scratch block);
+        # layers >= D keep their committed content
+        bpos = positions[:, None] + lanes
+        valid = (lanes < want[:, None]) & (bpos < S)
+        zero = torch.zeros_like(bpos)
+        safe = torch.where(valid, bpos, zero)
+        bidx = torch.where(valid, tbl[rows, safe // bs], zero).reshape(-1)
+        off = torch.where(valid, safe % bs, zero).reshape(-1)
+        # value layout [b*K, D, h, hd]: block and offset lead
+        k_pool[:D, bidx, :, off, :] = bk.permute(1, 2, 0, 3, 4).reshape(
+            b * K, D, h, hd).to(k_pool.dtype)
+        v_pool[:D, bidx, :, off, :] = bv.permute(1, 2, 0, 3, 4).reshape(
+            b * K, D, h, hd).to(v_pool.dtype)
+        return torch.stack(drafts, dim=1)                  # [b, K]
+
+    return draft
+
+
+def ngram_propose(context: np.ndarray, k: int,
+                  max_ngram: int = 3) -> np.ndarray:
+    """Prompt-lookup draft proposal: find the most recent EARLIER
+    occurrence of the context's trailing n-gram (longest n first, n <=
+    ``max_ngram``) and propose up to ``k`` of the tokens that followed
+    it.  Host side, no weights.  Empty when nothing matches; the engine
+    then decodes that row plainly."""
+    n = int(len(context))
+    if n < 2 or k < 1:
+        return np.empty(0, np.int32)
+    context = np.asarray(context, np.int32)
+    for m in range(min(int(max_ngram), n - 1), 0, -1):
+        pat = context[n - m:]
+        # candidate starts s in [0, n-m-1]: the trailing n-gram itself
+        # (s = n-m) is excluded, and every match has >= 1 follower
+        win = np.stack([context[i:n - m + i] for i in range(m)], axis=1)
+        hits = np.flatnonzero((win == pat).all(axis=1))
+        if hits.size == 0:
+            continue
+        s = int(hits[-1])                 # most recent occurrence
+        prop = context[s + m:s + m + k]
+        if prop.size:
+            return prop.astype(np.int32)
+    return np.empty(0, np.int32)

@@ -1,10 +1,13 @@
-"""Continuous-batching inference engine over the paged KV cache.
+"""Continuous-batching inference engine over a paged KV cache, with
+speculative decoding, and the slot engine beside it.
 
-Port of ``ray_tpu/inference/engine.py``'s paged path.  One background
-loop owns the model state and runs one decode step per iteration over
-all rows at once; between steps it admits waiting requests, advances
-prefills, and evicts finished requests, so requests join and leave in
-the middle of their neighbours' decode.
+Port of ``ray_tpu/inference/engine.py``.  One background loop owns the
+model state and runs one decode step per iteration over all rows at
+once; between steps it admits waiting requests, advances prefills, and
+evicts finished requests, so requests join and leave in the middle of
+their neighbours' decode.
+
+The default cache is the paged BlockPool (``EngineConfig.paged``):
 
   * Admission is block-budget accounting: a request is admitted when a
     decode row is free and the pool covers its prompt after the prefix
@@ -20,13 +23,26 @@ the middle of their neighbours' decode.
     preempts the youngest lowest-priority request (its blocks go to the
     prefix index and it re-queues with its emitted tokens folded into
     its prompt, so its stream continues exactly).
+  * Speculative decoding (``EngineConfig.speculate``): a drafter proposes
+    up to ``speculate_k`` tokens per greedy row per pass, the host-side
+    n-gram prompt lookup ("ngram") or the truncated-layer self-draft
+    ("self"), and ONE widened verify step scores every row's window.
+    Greedy accept/reject against the verify argmaxes is token-exact.
+    Drafted positions are charged to the block budget up front (alloc
+    and prefix eviction only: hoped-for tokens never preempt), and the
+    rejected tail's charge rolls back after the pass.
+
+``paged=False`` is the slot engine: one ``[max_seq]`` stripe per request
+(``cache.KVCacheManager``), admitted by a full-width prefill of the
+prompt padded to the cache width (the flash kernel), decoded by
+``decode.make_decode_step``.  It has no speculation path.
 
 Sampling shares ``gpt.sample_token`` with the full-recompute oracle, so
 greedy decode is token-identical by construction.  A request with
 ``temperature > 0`` owns a ``torch.Generator`` seeded from its ``seed``.
 
-Not ported yet: speculative decoding, the slot engine, the cluster
-prefix plane, the chaos and flight-recorder hooks, and meshes.
+Not ported yet: the cluster prefix plane, the chaos and flight-recorder
+hooks, and meshes.
 """
 
 from __future__ import annotations
@@ -42,10 +58,16 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.inference.cache import BlockPool, RadixIndex
-from ray_tpu_torch.inference.decode import (make_chunk_prefill_fn,
+from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
+                                           RadixIndex)
+from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
+                                            make_chunk_prefill_fn,
+                                            make_decode_step,
                                             make_paged_decode_step,
-                                            make_prefill_fn)
+                                            make_paged_draft_step,
+                                            make_prefill_fn,
+                                            make_spec_verify_step,
+                                            ngram_propose)
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.serve.qos import (PRIORITY_BATCH,  # noqa: F401
@@ -57,18 +79,29 @@ from ray_tpu_torch.serve.qos import (PRIORITY_BATCH,  # noqa: F401
 @dataclass
 class EngineConfig:
     """Engine knobs.  ``max_slots`` is the decode-batch width (the
-    concurrency cap); memory is ``n_blocks`` x ``kv_block_size`` tokens."""
+    concurrency cap); memory is ``n_blocks`` x ``kv_block_size`` tokens
+    when paged, or ``max_slots`` x ``max_seq`` tokens in slot mode."""
     max_slots: int = 8
     max_seq: Optional[int] = None        # cache width; None = model max_seq
     eos_token: Optional[int] = None      # None = never stop early
     default_max_new: int = 64
     max_waiting: int = 1024              # admission-queue bound (backpressure)
     idle_wait_s: float = 0.05            # loop park interval when empty
+    # ---- paged cache (False = the slot engine)
+    paged: bool = True
     kv_block_size: int = 16              # tokens per block
     n_blocks: Optional[int] = None       # usable blocks; None = max_slots
     #                                      * ceil(max_seq/block)
     prefill_chunk: int = 32              # chunked-prefill window width
     prefix_cache: bool = True            # radix prefix reuse on/off
+    # ---- speculative decoding (paged engine only): None = off, "ngram"
+    # = prompt lookup in the request's own prompt and history, "self" =
+    # the first ``draft_layers`` layers straight into the head.  Greedy
+    # requests emit the exact non-speculative stream; temperature > 0
+    # requests decode one token a step.
+    speculate: Optional[str] = None      # None | "ngram" | "self"
+    speculate_k: int = 4                 # drafted tokens per verify pass
+    draft_layers: int = 1                # self-drafter depth ("self" mode)
 
 
 class EngineStoppedError(ReplicaDeadError):
@@ -97,15 +130,24 @@ class GenerationRequest:
         self.error: Optional[BaseException] = None
         self._cond = threading.Condition()
         self.created_s = time.perf_counter()
+        self.created_wall = time.time()
         self.first_token_s: Optional[float] = None
         self.finished_s: Optional[float] = None
+        # per-token arrival stamps (perf_counter): consecutive differences
+        # are the request's inter-token latencies
+        self.token_times: list[float] = []
+        # speculation accounting of this stream
+        self.spec_drafted = 0
+        self.spec_accepted = 0
 
     # ---- engine side -----------------------------------------------------
 
     def _emit(self, token: int) -> None:
         with self._cond:
+            now = time.perf_counter()
             if self.first_token_s is None:
-                self.first_token_s = time.perf_counter()
+                self.first_token_s = now
+            self.token_times.append(now)
             self.tokens.append(int(token))
             self._cond.notify_all()
 
@@ -169,6 +211,14 @@ class GenerationRequest:
             return list(self.tokens)
 
 
+# engines by name, for metrics_snapshot (weak: an engine that is dropped
+# leaves the registry with it)
+_ENGINES: "weakref.WeakValueDictionary[str, InferenceEngine]" = \
+    weakref.WeakValueDictionary()
+_engine_seq = itertools.count()
+_registry_lock = threading.Lock()
+
+
 def _engine_loop(ref: "weakref.ref[InferenceEngine]") -> None:
     """The loop thread's body.  It holds the engine strongly only during a
     pass, so an engine dropped without shutdown() is still collected."""
@@ -195,36 +245,71 @@ class InferenceEngine:
     >>> for tok in req.stream(): ...
     """
 
-    _names = itertools.count()
-
     def __init__(self, params, cfg: GPTConfig,
                  engine_cfg: Optional[EngineConfig] = None, *,
-                 device=None, name: Optional[str] = None):
+                 device=None, name: Optional[str] = None,
+                 labels: Optional[dict] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.params = _to_device(params, self.device)
+        # extra label pairs on this engine's metrics_snapshot series
+        self.labels = dict(labels) if labels else {}
         self.engine_cfg = engine_cfg or EngineConfig()
         ec = self.engine_cfg
         n = ec.max_slots
-        bs = ec.kv_block_size
-        per_seq = -(-int(ec.max_seq or cfg.max_seq) // bs)
-        n_blocks = ec.n_blocks if ec.n_blocks is not None else n * per_seq
-        self.pool = BlockPool(cfg, n_blocks, bs, max_seq=ec.max_seq,
-                              device=self.device)
-        self.max_seq = self.pool.max_seq
-        self.trie = RadixIndex(self.pool) if ec.prefix_cache else None
-        # the full-width prefill: a cold long prompt on a lightly loaded
-        # engine seeds all its blocks from one model forward
+        self._paged = bool(ec.paged)
+        self._spec = ec.speculate
+        if self._spec is not None:
+            # the capability boundary, at construction: the slot engine
+            # has no speculation path
+            if self._spec not in ("ngram", "self"):
+                raise ValueError(
+                    f"speculate must be None, 'ngram' or 'self', got "
+                    f"{self._spec!r}")
+            if not self._paged:
+                raise SpeculationUnsupported(
+                    "speculative decoding needs the paged engine "
+                    "(EngineConfig.paged=True); the slot engine is the "
+                    "non-speculative baseline")
+            if ec.speculate_k < 1:
+                raise ValueError(
+                    f"speculate_k must be >= 1, got {ec.speculate_k}")
+        self.device = resolve_device(device)
+        self.params = _to_device(params, self.device)
+        # the full-width prefill: the slot engine's admission, and the
+        # paged engine's cold long prompt on a lightly loaded engine
         self._prefill = make_prefill_fn(cfg)
-        self._step = make_paged_decode_step(
-            cfg, block_size=bs, n_table=self.pool.blocks_per_seq)
-        self._chunk = make_chunk_prefill_fn(
-            cfg, chunk=ec.prefill_chunk, block_size=bs,
-            n_table=self.pool.blocks_per_seq)
-        self._tables = np.zeros((n, self.pool.blocks_per_seq), np.int64)
-        self._row_blocks: dict[int, list[int]] = {}
-        self._free_rows = list(range(n - 1, -1, -1))
-        self._prefilling: dict[int, int] = {}   # row -> next prefill pos
+        if self._paged:
+            bs = ec.kv_block_size
+            per_seq = -(-int(ec.max_seq or cfg.max_seq) // bs)
+            n_blocks = ec.n_blocks if ec.n_blocks is not None else n * per_seq
+            self.pool = BlockPool(cfg, n_blocks, bs, max_seq=ec.max_seq,
+                                  device=self.device)
+            self.cache = None
+            self.max_seq = self.pool.max_seq
+            self.trie = RadixIndex(self.pool) if ec.prefix_cache else None
+            T = self.pool.blocks_per_seq
+            self._step = make_paged_decode_step(cfg, block_size=bs,
+                                                n_table=T)
+            self._chunk = make_chunk_prefill_fn(
+                cfg, chunk=ec.prefill_chunk, block_size=bs, n_table=T)
+            if self._spec is not None:
+                self._verify = make_spec_verify_step(
+                    cfg, width=ec.speculate_k + 1, block_size=bs, n_table=T)
+                # raises SpeculationUnsupported on a bad draft_layers
+                self._draft = (make_paged_draft_step(
+                    cfg, draft_layers=ec.draft_layers, k=ec.speculate_k,
+                    block_size=bs, n_table=T)
+                    if self._spec == "self" else None)
+            self._tables = np.zeros((n, T), np.int64)
+            self._row_blocks: dict[int, list[int]] = {}
+            self._free_rows = list(range(n - 1, -1, -1))
+            self._prefilling: dict[int, int] = {}   # row -> next prefill pos
+        else:
+            self.pool = None
+            self.trie = None
+            self.cache = KVCacheManager(cfg, n, max_seq=ec.max_seq,
+                                        device=self.device)
+            self.max_seq = self.cache.max_seq
+            self._step = make_decode_step(cfg)
 
         self._slot_req: dict[int, GenerationRequest] = {}
         self._tokens = np.zeros(n, np.int64)      # current input token
@@ -245,10 +330,20 @@ class InferenceEngine:
         self._prefix_lookup_tokens = 0
         self._preemptions = 0
         self._peak_active = 0
-        self._full_prefills = 0        # cold long prompts prefilled full-width
+        self._full_prefills = 0        # full-width prefills (flash kernel)
         self._chunk_prefills = 0       # chunk-prefill calls
+        self._spec_drafted = 0         # drafted tokens offered to verify
+        self._spec_accepted = 0        # drafted tokens accepted
+        self._spec_passes = 0          # verify passes run
+        # per-row step accounting: tokens_per_step = row_tokens /
+        # row_steps is exactly 1.0 for plain decode and 1 + accepted per
+        # row pass under speculation, whatever the batch width
+        self._row_steps = 0            # (row, step call) pairs
+        self._row_tokens = 0           # tokens those pairs emitted
 
-        self.name = name or f"engine-{next(self._names)}"
+        with _registry_lock:
+            self.name = name or f"engine-{next(_engine_seq)}"
+            _ENGINES[self.name] = self
         self._thread = threading.Thread(
             target=_engine_loop, args=(weakref.ref(self),), daemon=True,
             name=f"ray_tpu_torch-inference-{self.name}")
@@ -263,7 +358,10 @@ class InferenceEngine:
                priority: int = PRIORITY_BATCH) -> GenerationRequest:
         """Queue a generation; returns the request mailbox at once.
         Admission happens at the next prefill boundary, in (priority,
-        arrival) order."""
+        arrival) order.  On a speculating engine a greedy request rides
+        draft-then-verify and emits the exact non-speculative stream; a
+        ``temperature > 0`` request is accepted and decodes one token a
+        step, never drafted."""
         ec = self.engine_cfg
         prompt = np.asarray(list(prompt), np.int64)
         max_new = int(max_new if max_new is not None else ec.default_max_new)
@@ -311,7 +409,7 @@ class InferenceEngine:
         stopped."""
         with self._cond:
             while (not self._stopped and not self._active.any()
-                   and not self._prefilling
+                   and not (self._paged and self._prefilling)
                    and not (self._waiting and self._admission_possible())):
                 self._cond.wait(self.engine_cfg.idle_wait_s)
             if self._stopped:
@@ -324,17 +422,39 @@ class InferenceEngine:
                 else:
                     live.append(r)
             self._waiting = live
-            self._admit_locked()
+            admits = []
+            if self._paged:
+                self._paged_admit_locked()
+            else:
+                # freed slots go to the most urgent class first (stable
+                # within a class: the sort key is (priority, submit id))
+                self._waiting.sort(key=lambda r: (r.priority, r.id))
+                while self._waiting and self.cache.n_free > 0:
+                    req = self._waiting.pop(0)
+                    admits.append((self.cache.alloc(), req))
+        for slot, req in admits:
+            # per-admit isolation: a failed prefill fails ONE request and
+            # returns its slot
+            try:
+                self._admit(slot, req)
+            except Exception as e:
+                self.cache.free(slot)
+                req._finish(e)
         try:
-            if self._prefilling:
-                self._prefill_chunk_pass()
-            if self._active.any():
+            if self._paged:
+                if self._prefilling:
+                    self._prefill_chunk_pass()
+                if self._active.any():
+                    self._paged_decode_iteration()
+            elif self._active.any():
                 self._decode_iteration()
         except Exception as e:                # step failure: fail the
             self._fail_all(e)                 # in-flight requests, keep serving
         return True
 
     def _admission_possible(self) -> bool:
+        if not self._paged:
+            return self.cache.n_free > 0
         return bool(self._free_rows) and (
             self.pool.n_free > 0
             or (self.trie is not None and self.trie.cached_blocks > 0))
@@ -352,7 +472,41 @@ class InferenceEngine:
             if not r.done:
                 r._finish(err)
 
-    def _admit_locked(self) -> None:
+    def _admit(self, slot: int, req: GenerationRequest) -> None:
+        """Slot admission: the prompt, padded to the cache width, runs one
+        full-width prefill (the flash kernel) that seeds the slot's
+        stripe; its last position samples the first token."""
+        if req.cancelled:                 # abandoned while queued
+            self.cache.free(slot)
+            req._finish()
+            return
+        n = int(req.prompt.size)
+        padded = torch.zeros((1, self.cache.max_seq), dtype=torch.long,
+                             device=self.device)
+        padded[0, :n] = torch.from_numpy(req.prompt)
+        logits, k_new, v_new = self._prefill(self.params, padded)
+        self.cache.write_prefill(slot, k_new[:, 0], v_new[:, 0])
+        with self._mlock:
+            self._full_prefills += 1
+        tok = int(gpt.sample_token(logits[0, n - 1],
+                                   temperature=req.temperature,
+                                   generator=req.generator))
+        req._emit(tok)
+        if self._request_finished(req, tok):
+            self.cache.free(slot)
+            req._finish()
+            self._note_done()
+            return
+        self._slot_req[slot] = req
+        self._tokens[slot] = tok
+        self._positions[slot] = n
+        self._active[slot] = True
+        with self._mlock:
+            self._peak_active = max(self._peak_active, self.cache.n_active)
+
+    # ----------------------------------------------------------- paged path
+
+    def _paged_admit_locked(self) -> None:
         """Block-budget admission (under ``_cond``): admit while a row is
         free and the pool covers the prompt after the prefix hit.  Head
         of line within (priority, arrival) order: a large request that
@@ -363,7 +517,7 @@ class InferenceEngine:
         while self._waiting and self._free_rows:
             req = self._waiting[0]
             try:
-                if not self._try_admit(req):
+                if not self._try_admit_paged(req):
                     break
             except Exception as e:
                 self._waiting.pop(0)
@@ -371,7 +525,7 @@ class InferenceEngine:
                 continue
             self._waiting.pop(0)
 
-    def _try_admit(self, req: GenerationRequest) -> bool:
+    def _try_admit_paged(self, req: GenerationRequest) -> bool:
         bs = self.pool.block_size
         prompt = req.prompt
         n_prompt = int(prompt.size)
@@ -597,7 +751,7 @@ class InferenceEngine:
                                    generator=req.generator))
         req._emit(tok)
         if self._request_finished(req, tok):
-            self._evict(row)
+            self._paged_evict(row)
             return
         self._tokens[row] = tok
         self._positions[row] = int(req.prompt.size)
@@ -618,17 +772,216 @@ class InferenceEngine:
         self._tables[row, bidx] = nb
         return True
 
-    def _decode_iteration(self) -> None:
+    # ------------------------------------------------- speculative decode
+
+    def _spec_cover(self, row: int, upto: int) -> int:
+        """Charge the block budget for speculative positions up front:
+        grow the row's chain to cover positions through ``upto`` (the
+        write block at ``positions[row]`` exists and is exclusive:
+        ``_grow_row`` ran).  Allocation and prefix eviction only:
+        speculation never preempts a neighbour for tokens that are only
+        hoped for.  Granted blocks join ``_row_blocks[row]`` at once, so a
+        later preemption of the row refunds them with the rest of the
+        chain.  Returns the last position actually covered."""
+        bs = self.pool.block_size
+        pos = int(self._positions[row])
+        blocks = self._row_blocks[row]
+        for bidx in range(pos // bs + 1, upto // bs + 1):
+            if bidx < len(blocks):
+                continue
+            bid = self.pool.alloc()
+            if bid is None and self.trie is not None \
+                    and self.trie.evict(1):
+                bid = self.pool.alloc()
+            if bid is None:
+                return bidx * bs - 1      # covered through the prior block
+            blocks.append(bid)
+            self._tables[row, bidx] = bid
+        return upto
+
+    def _spec_rollback(self, row: int) -> None:
+        """Refund the rejected part of the speculative charge: drop the
+        chain's blocks past the row's next write position (that block is
+        kept; freeing it would thrash against ``_grow_row``).  Rejected
+        lanes' K/V past the committed length is masked and overwritten
+        later, so rollback is budget accounting only."""
+        keep = int(self._positions[row]) // self.pool.block_size + 1
+        blocks = self._row_blocks[row]
+        old = len(blocks)
+        if self.pool.release_tail(blocks, keep):
+            self._tables[row, len(blocks):old] = 0
+
+    def _spec_propose(self) -> tuple:
+        """This pass's drafts: ``(drafts [n, k] int64, want [n] int64)``,
+        row r offering ``want[r]`` tokens (0 = a plain one-token lane).
+        Sampled rows and rows at their max_new boundary never draft; the
+        block charge (``_spec_cover``) caps a draft the pool cannot
+        hold."""
+        ec = self.engine_cfg
+        n, k = ec.max_slots, ec.speculate_k
+        drafts = np.zeros((n, k), np.int64)
+        want = np.zeros(n, np.int64)
+        props = {}
+        active_rows = 0
+        for row in list(self._slot_req):
+            if not self._active[row]:
+                continue
+            active_rows += 1
+            req = self._slot_req[row]
+            if req.temperature != 0.0:
+                continue                  # one token a step (submit())
+            w = min(k, req.max_new - len(req.tokens) - 1)
+            if w <= 0:
+                continue
+            if self._spec == "ngram":
+                prop = ngram_propose(self._sequence(req), w)
+                if prop.size == 0:
+                    continue
+                props[row] = prop
+                w = min(w, int(prop.size))
+            want[row] = w
+        # batch-coverage gate: the widened verify prices every active row
+        # at W lanes, so speculate only when at least half the batch
+        # drafts.  Decided before blocks are charged or drafts run, so a
+        # skipped pass pays nothing.
+        if int((want > 0).sum()) * 2 < active_rows:
+            want[:] = 0
+            return drafts, want
+        for row in np.nonzero(want)[0]:
+            pos = int(self._positions[row])
+            w = min(int(want[row]),
+                    self._spec_cover(row, pos + int(want[row])) - pos)
+            if w <= 0:                    # the pool cannot hold a draft
+                want[row] = 0
+                continue
+            want[row] = w
+            if self._spec == "ngram":
+                drafts[row, :w] = props[row][:w]
+        if self._spec == "self" and want.any():
+            self._spec_self_draft(drafts, want)
+        return drafts, want
+
+    def _spec_self_draft(self, drafts: np.ndarray, want: np.ndarray) -> None:
+        """Fill ``drafts`` from ONE draft-burst call: the k-step
+        truncated-layer loop runs without a host round trip per token.
+        Its K/V for layers < draft_layers lands in the real pool, equal to
+        what the full model writes there; the verify pass rewrites every
+        drafted position at all layers anyway."""
+        dev = self.device
+        w = np.where(self._active, want, 0)
+        toks = self._draft(
+            self.params, self.pool.k, self.pool.v,
+            torch.from_numpy(self._tables).to(dev),
+            torch.from_numpy(self._tokens).to(dev),
+            torch.from_numpy(self._positions).to(dev),
+            torch.from_numpy(w).to(dev)).cpu().numpy()
+        m = np.arange(toks.shape[1])[None, :] < w[:, None]
+        drafts[m] = toks[m]
+
+    def _speculative_iteration(self) -> bool:
+        """One draft-then-verify pass over the whole batch; False = no
+        drafts this pass (the caller runs the plain step).  Greedy accept:
+        lane j's logits are the next-token logits given the drafted
+        prefix, so walking lanes while argmax == draft, and emitting the
+        argmax at the first mismatch, reproduces the non-speculative
+        greedy stream exactly (>= 1 token a row).  Committed lanes' K/V is
+        already in the pool from the verify scatter; the rejected tail's
+        block charge is rolled back."""
+        drafts, want = self._spec_propose()
+        if not want.any():
+            return False
+        n = self.engine_cfg.max_slots
+        W = self.engine_cfg.speculate_k + 1
+        tok_mat = np.zeros((n, W), np.int64)
+        tok_mat[:, 0] = self._tokens
+        tok_mat[:, 1:] = drafts
+        n_tok = np.where(self._active, want + 1, 1)
+        dev = self.device
+        logits = self._verify(
+            self.params, self.pool.k, self.pool.v,
+            torch.from_numpy(self._tables).to(dev),
+            torch.from_numpy(tok_mat).to(dev),
+            torch.from_numpy(self._positions).to(dev),
+            torch.from_numpy(self._active).to(dev),
+            torch.from_numpy(n_tok).to(dev))            # [n, W, V]
+        with self._mlock:
+            self._decode_iterations += 1
+            self._spec_passes += 1
+            self._occupancy_sum += (float(self._active.sum())
+                                    / self.engine_cfg.max_slots)
+        greedy = gpt.sample_token(logits, temperature=0.0).cpu().numpy()
+        stepped = emitted = 0
+        for row in list(self._slot_req):
+            if not self._active[row]:     # prefilling rows ride along
+                continue
+            req = self._slot_req[row]
+            w = int(want[row])
+            if req.temperature != 0.0:
+                # lane 0 holds the plain step's logits: one token from the
+                # request's own generator, as without speculation
+                tok = int(gpt.sample_token(logits[row, 0],
+                                           temperature=req.temperature,
+                                           generator=req.generator))
+                req._emit(tok)
+                stepped += 1
+                emitted += 1
+                self._positions[row] += 1
+                self._tokens[row] = tok
+                if self._request_finished(req, tok):
+                    self._paged_evict(row)
+                continue
+            accepted = 0
+            finished = False
+            for j in range(w + 1):
+                tok = int(greedy[row, j])
+                req._emit(tok)
+                emitted += 1
+                self._positions[row] += 1
+                self._tokens[row] = tok
+                if self._request_finished(req, tok):
+                    finished = True       # EOS / max_new mid-burst
+                    break
+                if j < w and int(drafts[row, j]) == tok:
+                    accepted += 1         # lane j+1's input was right
+                    continue
+                break                     # first mismatch: corrected
+            stepped += 1
+            req.spec_drafted += w
+            req.spec_accepted += accepted
+            with self._mlock:
+                self._spec_drafted += w
+                self._spec_accepted += accepted
+            if finished:
+                self._paged_evict(row)    # releases the whole chain
+            else:
+                self._spec_rollback(row)
+        with self._mlock:
+            self._row_steps += stepped
+            self._row_tokens += emitted
+        return True
+
+    def _paged_decode_iteration(self) -> None:
         for row in [r for r in list(self._slot_req) if self._active[r]]:
             req = self._slot_req.get(row)
             if req is None or not self._active[row]:
                 continue                  # preempted by an earlier row's
             #                               block hunt this very pass
             if req.cancelled:
-                self._evict(row, cache_prefix=False)
+                self._paged_evict(row, cache_prefix=False)
                 continue
             self._grow_row(row)           # False = row preempted; skip
         if not self._active.any():
+            return
+        # draft-then-verify when configured; False = no row drafted this
+        # pass and the plain step runs.  A speculative pass spans several
+        # plain steps' time while the loop advances one prefill chunk a
+        # pass, so two more chunks follow it: admission latency (TTFT)
+        # stays flat, and decode-only passes pay nothing.
+        if self._spec is not None and self._speculative_iteration():
+            for _ in range(2):
+                if not self._prefilling:
+                    break
+                self._prefill_one_chunk()
             return
         dev = self.device
         logits = self._step(
@@ -637,11 +990,17 @@ class InferenceEngine:
             torch.from_numpy(self._tokens).to(dev),
             torch.from_numpy(self._positions).to(dev),
             torch.from_numpy(self._active).to(dev))
+        self._emit_step(logits, self._paged_evict)
+
+    def _emit_step(self, logits, evict) -> None:
+        """Sample and emit one token for every active row from a plain
+        step's logits [n, V]; ``evict`` releases a finished row."""
         with self._mlock:
             self._decode_iterations += 1
             self._occupancy_sum += (float(self._active.sum())
                                     / self.engine_cfg.max_slots)
         greedy = gpt.sample_token(logits, temperature=0.0).cpu().numpy()
+        stepped = 0
         for row in list(self._slot_req):
             if not self._active[row]:     # prefilling rows ride along
                 continue
@@ -653,12 +1012,16 @@ class InferenceEngine:
                                            temperature=req.temperature,
                                            generator=req.generator))
             req._emit(tok)
+            stepped += 1
             self._positions[row] += 1
             self._tokens[row] = tok
             if self._request_finished(req, tok):
-                self._evict(row)
+                evict(row)
+        with self._mlock:
+            self._row_steps += stepped
+            self._row_tokens += stepped
 
-    def _evict(self, row: int, cache_prefix: bool = True) -> None:
+    def _paged_evict(self, row: int, cache_prefix: bool = True) -> None:
         """Natural eviction (EOS / max-tokens / cancel): donate the clean
         KV chain to the prefix index, then release the row."""
         req = self._slot_req[row]
@@ -668,6 +1031,33 @@ class InferenceEngine:
         self._release_row(row)
         req._finish()
         self._note_done()
+
+    # ------------------------------------------------------------ slot path
+
+    def _decode_iteration(self) -> None:
+        # a cancelled slot frees for live work before the step, as a
+        # cancelled row does on the paged path
+        for slot in [s for s in list(self._slot_req)
+                     if self._slot_req[s].cancelled]:
+            self._evict(slot)
+        if not self._active.any():
+            return
+        dev = self.device
+        logits = self._step(
+            self.params, self.cache.k, self.cache.v,
+            torch.from_numpy(self._tokens).to(dev),
+            torch.from_numpy(self._positions).to(dev),
+            torch.from_numpy(self._active).to(dev))
+        self._emit_step(logits, self._evict)
+
+    def _evict(self, slot: int) -> None:
+        req = self._slot_req.pop(slot)
+        self._active[slot] = False
+        self.cache.free(slot)
+        req._finish()
+        self._note_done()
+        with self._cond:
+            self._cond.notify_all()   # wake the loop: admits may be waiting
 
     def _request_finished(self, req: GenerationRequest, tok: int) -> bool:
         with self._mlock:
@@ -681,22 +1071,28 @@ class InferenceEngine:
             self._requests_completed += 1
 
     def _fail_all(self, e: BaseException) -> None:
-        """A failed step leaves the pool's content in doubt: fail the
-        in-flight requests, zero the pool, drop every reference and the
-        prefix index (cached prefixes would point at zeroed blocks)."""
-        failed = [self._slot_req.pop(row) for row in list(self._slot_req)]
+        """A failed step leaves the cache's content in doubt: fail the
+        in-flight requests and zero the cache.  Paged: also drop every
+        block reference and the prefix index (cached prefixes would point
+        at zeroed blocks)."""
+        failed = {row: self._slot_req.pop(row) for row in list(self._slot_req)}
         self._active[:] = False
-        self._prefilling.clear()
-        self._row_blocks.clear()
-        self._tables[:, :] = 0
-        if self.trie is not None:
-            self.trie.clear()
-        self.pool.reset()
-        with self._cond:
-            self._free_rows = list(
-                range(self.engine_cfg.max_slots - 1, -1, -1))
-            self._cond.notify_all()
-        for req in failed:
+        if self._paged:
+            self._prefilling.clear()
+            self._row_blocks.clear()
+            self._tables[:, :] = 0
+            if self.trie is not None:
+                self.trie.clear()
+            self.pool.reset()
+            with self._cond:
+                self._free_rows = list(
+                    range(self.engine_cfg.max_slots - 1, -1, -1))
+                self._cond.notify_all()
+        else:
+            for slot in failed:
+                self.cache.free(slot)
+            self.cache.reset_arrays()
+        for req in failed.values():
             req._finish(e)
 
     # ------------------------------------------------------------- admin
@@ -723,9 +1119,13 @@ class InferenceEngine:
                               if r.priority <= PRIORITY_INTERACTIVE)
             stopped = self._stopped
             draining = self._draining
-            occupied = self.engine_cfg.max_slots - len(self._free_rows)
+            occupied = (self.engine_cfg.max_slots - len(self._free_rows)
+                        if self._paged else None)
         with self._mlock:
             iters = self._decode_iterations
+            drafted, accepted = self._spec_drafted, self._spec_accepted
+            row_steps, row_tokens = self._row_steps, self._row_tokens
+            lookup = self._prefix_lookup_tokens
             out = {
                 "max_slots": self.engine_cfg.max_slots,
                 "waiting_requests": waiting,
@@ -737,19 +1137,46 @@ class InferenceEngine:
                 "generated_tokens": self._generated_tokens,
                 "requests_completed": self._requests_completed,
                 "decode_iterations": iters,
+                # tokens emitted per (row, step call) pair: exactly 1.0 for
+                # plain decode, 1 + accepted per row pass when speculating
+                "tokens_per_step": (row_tokens / row_steps
+                                    if row_steps else 0.0),
+                "row_steps": row_steps,
+                "row_tokens": row_tokens,
                 "full_prefills": self._full_prefills,
                 "chunk_prefills": self._chunk_prefills,
-                "prefix_hit_tokens": self._prefix_hit_tokens,
-                "prefix_lookup_tokens": self._prefix_lookup_tokens,
-                "prefix_hit_rate": (self._prefix_hit_tokens
-                                    / self._prefix_lookup_tokens
-                                    if self._prefix_lookup_tokens else 0.0),
-                "preemptions": self._preemptions,
+                "paged": self._paged,
+                # zeros when speculate is None or on the slot engine
+                "speculate": self._spec,
+                "spec_drafted_tokens": drafted,
+                "spec_accepted_tokens": accepted,
+                "spec_accept_rate": accepted / drafted if drafted else 0.0,
+                "spec_passes": self._spec_passes,
+                # serving geometry: one card, no tensor parallelism
+                "mesh_devices": 1,
+                "tp_shards": 1,
                 "peak_active_requests": self._peak_active,
             }
+            if self._paged:
+                out.update({
+                    "prefix_hit_tokens": self._prefix_hit_tokens,
+                    "prefix_lookup_tokens": lookup,
+                    "prefix_hit_rate": (self._prefix_hit_tokens / lookup
+                                        if lookup else 0.0),
+                    "preemptions": self._preemptions,
+                })
+        if not self._paged:
+            cache = self.cache.stats()
+            out.update({
+                "active_slots": cache["active_slots"],
+                "free_slots": cache["free_slots"],
+                "cache_bytes": cache["bytes_total"],
+            })
+            return out
         pool = self.pool.stats()
         total = pool["blocks_total"]
         out.update({
+            # occupied rows (decoding and prefilling)
             "active_slots": occupied,
             "free_slots": self.engine_cfg.max_slots - occupied,
             "cache_bytes": pool["bytes_total"],
@@ -768,6 +1195,61 @@ class InferenceEngine:
             self._stopped = True
             self._cond.notify_all()
         self._thread.join(timeout=timeout)
+
+
+def metrics_snapshot() -> list:
+    """Per-engine gauges and counters as ``(name, kind, help, {labels:
+    value})`` tuples, the JAX package's series names and format; labels
+    are ``engine`` and the engine's own ``labels``."""
+    with _registry_lock:
+        engines = dict(_ENGINES)
+    series = [  # (name, kind, help, stats key)
+        ("ray_tpu_inference_active_slots", "gauge",
+         "Cache slots currently decoding, per engine", "active_slots"),
+        ("ray_tpu_inference_waiting_requests", "gauge",
+         "Requests queued for a free slot, per engine", "waiting_requests"),
+        ("ray_tpu_inference_batch_occupancy_ratio", "gauge",
+         "Mean active/max_slots per decode iteration", "batch_occupancy"),
+        ("ray_tpu_inference_generated_tokens_total", "counter",
+         "Tokens generated since engine start", "generated_tokens"),
+        ("ray_tpu_inference_requests_completed_total", "counter",
+         "Generation requests completed since engine start",
+         "requests_completed"),
+        ("ray_tpu_inference_block_utilization_ratio", "gauge",
+         "Paged KV pool blocks in use / usable blocks", "block_utilization"),
+        ("ray_tpu_inference_prefix_hit_rate", "gauge",
+         "Prompt tokens adopted from the radix prefix cache / prompt "
+         "tokens seen", "prefix_hit_rate"),
+        ("ray_tpu_inference_prefix_cached_blocks", "gauge",
+         "Blocks held by the radix prefix index", "prefix_cached_blocks"),
+        ("ray_tpu_inference_preemptions_total", "counter",
+         "Requests requeued by block-pressure preemption", "preemptions"),
+        ("ray_tpu_inference_tokens_per_step", "gauge",
+         "Tokens emitted per decode/verify step call (speculative "
+         "decoding pushes this above 1)", "tokens_per_step"),
+        ("ray_tpu_inference_spec_accept_rate", "gauge",
+         "Drafted tokens accepted by the verify pass / drafted tokens "
+         "offered", "spec_accept_rate"),
+        ("ray_tpu_inference_spec_accepted_tokens_total", "counter",
+         "Drafted tokens accepted since engine start",
+         "spec_accepted_tokens"),
+        ("ray_tpu_inference_mesh_devices", "gauge",
+         "Devices in the engine's mesh (1 = unmeshed single device)",
+         "mesh_devices"),
+        ("ray_tpu_inference_tp_shards", "gauge",
+         "Tensor-parallel shards of the paged KV pool's heads dim",
+         "tp_shards"),
+    ]
+    values = {name: {} for name, _, _, _ in series}
+    for name, eng in sorted(engines.items()):
+        st = eng.stats()
+        key = (("engine", name),) + tuple(sorted(eng.labels.items()))
+        for metric, _, _, stat in series:
+            # slot engines report 0 for the paged-only keys
+            values[metric][key] = float(st.get(stat, 0.0))
+    zero = {(("engine", "none"),): 0.0}
+    return [(metric, kind, doc, values[metric] or zero)
+            for metric, kind, doc, _ in series]
 
 
 def _to_device(tree, device):

@@ -11,6 +11,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ray_tpu_torch.ops.flash_attention import _scale_for, flash_attention
 
@@ -71,9 +72,12 @@ def attention(q, k, v, *, causal: bool = True,
               kv_lengths: Optional[torch.Tensor] = None,
               impl: Optional[str] = None,
               block_q: int = 512, block_k: int = 512) -> torch.Tensor:
-    """Dispatching attention.  ``impl``: "flash", "reference", or None =
-    flash for tile-friendly CUDA tensors with no mask or kv_lengths (the
-    JAX package's condition, with CUDA in the TPU's place)."""
+    """Dispatching attention.  ``impl``: "flash", "reference",
+    "xla_fused", or None = flash for tile-friendly CUDA tensors with no
+    mask or kv_lengths (the JAX package's condition, with CUDA in the
+    TPU's place).  "xla_fused" is the JAX package's library route
+    (``jax.nn.dot_product_attention``); its counterpart here is torch's
+    ``scaled_dot_product_attention``, no kernel of this package."""
     if impl is None:
         tile_ok = (q.shape[-2] % 128 == 0 and k.shape[-2] % 128 == 0
                    and q.shape[-1] in (64, 128, 256))
@@ -89,4 +93,10 @@ def attention(q, k, v, *, causal: bool = True,
     if impl == "reference":
         return mha_reference(q, k, v, causal=causal, scale=scale, mask=mask,
                              kv_lengths=kv_lengths)
+    if impl == "xla_fused":
+        if mask is not None or kv_lengths is not None:
+            raise ValueError("xla_fused impl has no custom-mask / "
+                             "kv_lengths support")
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                              scale=scale)
     raise ValueError(f"unknown attention impl {impl!r}")
