@@ -61,10 +61,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward kernel 12 times, loss and grad_norm must be finite, the loss
    must fall, and step 1 must agree with the same step on plain
    attention; prints step time, tokens/s and MFU (bench.py's
-   flops-per-token over 989e12).
+   flops-per-token over 989e12);
+8. mixture-of-experts serving: GPT-2 124M widths with 4 experts, top-2
+   (``GPTConfig.gpt2_124m(n_experts=4, expert_top_k=2)``), at capacity
+   factor 4.0 (capacity never binds).  In f32 (TF32 off) the paged
+   engine and both speculating engines serve phase 6's four requests at
+   once: every reply token-exact against ``generate``, n_layers flash
+   launches per full-width prefill, no leaked block; the slot engine
+   must raise ``MoEDecodeUnsupported`` at construction.  In bf16 the
+   paged engine's TTFT and decode ms per step beside the dense model's
+   (printed);
+9. mixture-of-experts training: the same config at its default capacity
+   factor 1.25 (capacity binds), trained as in phase 7 with the same
+   gates; MFU over the active parameters; one step of the MoE and of
+   the dense model under ``torch.cuda.set_sync_debug_mode("warn")``: the
+   MoE step may add no host sync;
+10. the cluster prefix plane: two paged engines at GPT-2 124M width in
+   f32; the holder serves a cold 512-token prompt (a full-width
+   prefill), ``prefix_extract`` takes its 32 blocks to the host and the
+   adopter's ``prefix_install`` writes them; the adopter's reply to the
+   prompt plus an 8-token tail must equal the holder's and
+   ``generate``'s without a full-width prefill; no block may leak, and
+   after a pool reset the holder must refuse the old generation with
+   ``StalePrefixGeneration``; prints the transfer times and rates.
 
-The line before the last is the kernels' JSON record; the last is
-``{"ok": true, "device": {...}}``.
+``main`` runs phases 8 and 10 before phase 7: no serving phase runs
+after the profiler.  The line before the last is the kernels' JSON
+record; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -79,6 +102,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -312,6 +336,7 @@ def phase_kernels(name: str, card: str) -> dict:
         ("ragged kv77", 1, 12, 77, 77, 64, True, True),
         ("ragged kv77 non-causal", 2, 3, 40, 77, 64, False, True),
         ("training shape", 16, 12, 1024, 1024, 64, True, True),
+        ("prefix plane width", 1, 12, 896, 896, 64, True, False),
     ]
     path_err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -582,21 +607,39 @@ def assert_blocks_returned(engine, label: str):
 def phase_engines_f32(card: str) -> dict:
     """The slot engine and both speculating engines in f32, TF32 off: the
     token-exact gate.  Returns {path: flash launches in its run}."""
-    from ray_tpu_torch.inference import EngineConfig, GPTServer
     from ray_tpu_torch.models import gpt
 
-    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = gpt.GPTConfig.gpt2_124m(dtype=torch.float32)
     params = gpt.init_params(cfg, SEED, device="cuda")
-    # the cold long prompt, the two shared-head prompts, a repetitive one
+    launches = engines_token_exact(cfg, params, ENGINE_PATHS, card,
+                                   gate_drafts=True)
+    print("[engines f32] every reply of the three engines token-exact "
+          "against generate")
+    return launches
+
+
+def engines_token_exact(cfg, params, paths: dict, card: str, *,
+                        gate_drafts: bool) -> dict:
+    """Each engine of ``paths`` serves, all at once, the cold long prompt,
+    the two shared-head prompts and a repetitive one (16 greedy tokens
+    each): every reply must equal the port's ``generate``, the flash
+    kernel must launch n_layers times per full-width prefill (once per
+    admission on the slot engine), and a paged engine must end with
+    every block returned.  With ``gate_drafts`` the n-gram engine must
+    accept drafts and the self-drafter must draft.  Returns {path: flash
+    launches in its run}."""
+    from ray_tpu_torch.inference import EngineConfig, GPTServer
+    from ray_tpu_torch.models import gpt
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     prompts = requests(cfg.vocab_size)[:3] + [[1, 2, 3, 4] * 12]
     want = [gpt.generate(params, cfg, torch.tensor([p], device="cuda"), 16,
                          temperature=0.0)[0, len(p):].tolist()
             for p in prompts]
     launches = {}
-    for path, kw in ENGINE_PATHS.items():
+    for path, kw in paths.items():
         srv = GPTServer(cfg, EngineConfig(**kw), params=params)
         try:
             torch.cuda.synchronize()
@@ -624,23 +667,21 @@ def phase_engines_f32(card: str) -> dict:
                   f"{path}: flash kernel launched {launches[path]} times for "
                   f"{st['full_prefills']} full-width prefills of "
                   f"{cfg.n_layers} layers")
-            if path == "serve_slot":
+            if not kw.get("paged", True):
                 check(st["full_prefills"] == len(prompts),
                       f"slot engine: {st['full_prefills']} prefills for "
                       f"{len(prompts)} admissions")
             else:
                 assert_blocks_returned(srv.engine, path)
-            if path == "serve_spec_ngram":
+            if gate_drafts and kw.get("speculate") == "ngram":
                 check(st["spec_accepted_tokens"] > 0
                       and st["tokens_per_step"] > 1, "the n-gram engine "
                       f"accepted no draft: {st}")
-            if path == "serve_spec_self":
+            if gate_drafts and kw.get("speculate") == "self":
                 check(st["spec_drafted_tokens"] > 0,
                       f"the self-drafter drafted nothing: {st}")
         finally:
             srv.teardown()
-    print("[engines f32] every reply of the three engines token-exact "
-          "against generate")
     return launches
 
 
@@ -975,7 +1016,7 @@ def phase_backward_kernels(name: str, card: str) -> list:
     return entries
 
 
-def train_run(cfg, params, batch, steps, timed=0):
+def train_run(cfg, params, batch, steps, timed=0, label="train"):
     """``steps`` make_train_step steps on one batch from a copy of
     ``params``, then ``timed`` more and one under torch.profiler.  The
     launch counters are zeroed just before the first step and read after
@@ -1025,7 +1066,7 @@ def train_run(cfg, params, batch, steps, timed=0):
             kernel_ms[kname] = sum(e.self_device_time_total for e in cuda
                                    if f"{kname}_kernel<" in e.key) / 1e3
         top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:8]
-        print(f"[train {cfg.remat_policy}] profiled step, top kernels by "
+        print(f"[{label} {cfg.remat_policy}] profiled step, top kernels by "
               f"device ms: " + "; ".join(
                   f"{e.key[:70]} x{e.count} "
                   f"{e.self_device_time_total / 1e3:.3f}" for e in top))
@@ -1038,50 +1079,68 @@ def phase_training(name: str, card: str) -> dict:
     from ray_tpu_torch.models import gpt
 
     base = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
-    L, batch_n, seq, steps = base.n_layers, 16, 1024, 5
     params = gpt.init_params(base, SEED)
-    n_params = sum(t.numel() for t in params["layers"].values()) + sum(
+    n_params = count_params(params)
+    print(f"[train] GPT-2 124M: {n_params} params")
+    # bench.py's training flops per token: 6N + the attention term
+    return train_policies(name, card, base, params, n_params, "train")
+
+
+def count_params(params) -> int:
+    return sum(t.numel() for t in params["layers"].values()) + sum(
         t.numel() for k, t in params.items() if k != "layers")
+
+
+def train_policies(name: str, card: str, base, params, n_flop_params: int,
+                   label: str, batch_n: int = 16) -> dict:
+    """Five make_train_step steps of AdamW(3e-4, weight_decay=0.1) on one
+    repeated b16 s1024 batch under remat "dots" and then "dots_flash",
+    each followed by 10 timed steps and one profiled one: launches per
+    step (2L / L flash forwards, L of each backward kernel), finite and
+    falling loss, step 1 against plain attention.  MFU counts
+    ``6 * n_flop_params + 12 L d s`` FLOPs per token (bench.py's
+    formula) against the card's dense bf16 peak.  Returns {path: [flash
+    forward, bwd_kv, bwd_dq launches over the five steps]}."""
+    L, seq, steps = base.n_layers, 1024, 5
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = {"tokens": torch.randint(0, base.vocab_size, (batch_n, seq + 1),
                                      generator=gen, device="cuda")}
-    # bench.py's training flops per token: 6N + the attention term
-    flops_per_token = 6 * n_params + 12 * L * base.d_model * seq
+    flops_per_token = 6 * n_flop_params + 12 * L * base.d_model * seq
     peak = rates(name)[1]
     launches = {}
     first = {}
     for policy, fwd_per_step in (("dots", 2 * L), ("dots_flash", L)):
         cfg = dataclasses.replace(base, remat_policy=policy)
         losses, norms, step_ms, counts, kernel_ms = train_run(
-            cfg, params, batch, steps, timed=10)
+            cfg, params, batch, steps, timed=10, label=label)
         steady = statistics.median(step_ms[steps:])
         tps = batch_n * seq / (steady / 1e3)
-        print(f"[train {policy}] GPT-2 124M ({n_params} params) b{batch_n} "
-              f"s{seq} bf16 on {card}: losses "
+        print(f"[{label} {policy}] b{batch_n} s{seq} bf16 on {card}: losses "
               f"{[round(x, 5) for x in losses]}, grad norms "
               f"{[round(x, 5) for x in norms]}")
-        print(f"[train {policy}] step ms {[round(x, 3) for x in step_ms]}; "
+        print(f"[{label} {policy}] step ms {[round(x, 3) for x in step_ms]}; "
               f"steady step (median of the last 10) {steady:.3f} ms, "
               f"{tps:.1f} tokens/s, MFU {flops_per_token * tps / peak:.4f} "
-              f"(of {peak:.3g} FLOP/s)")
-        print(f"[train {policy}] one profiled step, device ms per kernel "
+              f"({flops_per_token} FLOPs per token of {peak:.3g} FLOP/s)")
+        print(f"[{label} {policy}] one profiled step, device ms per kernel "
               f"and share of the steady step: " + (", ".join(
                   f"{k} {v:.3f} ({v / steady:.3f})"
                   for k, v in kernel_ms.items())
                   if kernel_ms["all kernels"] > 0 else "not measured "
                   "(the profiler saw no device time)"))
-        print(f"[train {policy}] launches per step (flash_fwd, "
+        print(f"[{label} {policy}] launches per step (flash_fwd, "
               f"flash_bwd_kv, flash_bwd_dq): {counts}")
         for c in counts:
             check(c == (fwd_per_step, L, L),
-                  f"{policy}: a step launched {c}, expected "
+                  f"{label} {policy}: a step launched {c}, expected "
                   f"({fwd_per_step}, {L}, {L})")
         check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
-              f"{policy}: non-finite loss or grad norm")
-        check(losses[-1] < losses[0], f"{policy}: loss did not fall over "
-              f"{steps} steps on one batch: {losses}")
+              f"{label} {policy}: non-finite loss or grad norm")
+        check(losses[-1] < losses[0], f"{label} {policy}: loss did not fall "
+              f"over {steps} steps on one batch: {losses}")
         first[policy] = (losses[0], norms[0])
-        launches[policy] = [sum(c[i] for c in counts) for i in range(3)]
+        launches[f"{label}_{policy}"] = [sum(c[i] for c in counts)
+                                         for i in range(3)]
 
     # step 1 on plain attention, the same params and batch.  bf16 bound:
     # activations are bf16 on both sides and round at different points
@@ -1094,11 +1153,279 @@ def phase_training(name: str, card: str) -> dict:
         dl = abs(loss - losses[0]) / abs(losses[0])
         dn = abs(norm - norms[0]) / abs(norms[0])
         ok = dl <= 5e-3 and dn <= 5e-2
-        print(f"[train {policy}] step 1 vs plain attention: loss "
+        print(f"[{label} {policy}] step 1 vs plain attention: loss "
               f"{loss:.6f} vs {losses[0]:.6f} (rel {dl:.2e}, bound 5e-3), "
               f"grad_norm {norm:.6f} vs {norms[0]:.6f} (rel {dn:.2e}, "
               f"bound 5e-2) {'ok' if ok else 'FAIL'}")
-        check(ok, f"{policy}: step 1 disagrees with plain attention")
+        check(ok, f"{label} {policy}: step 1 disagrees with plain attention")
+    return launches
+
+
+# ------------------------------------------------ mixture of experts
+
+def moe_config(**kw):
+    """tiny_moe's routing (4 experts, top-2) at GPT-2 124M widths: d 768,
+    12 heads, 12 layers, d_ff 3072, vocab 50304."""
+    from ray_tpu_torch.models import gpt
+
+    return gpt.GPTConfig.gpt2_124m(n_experts=4, expert_top_k=2, **kw)
+
+
+MOE_ENGINE_PATHS = {
+    "serve_moe_paged": dict(SPEC_ENGINE),
+    "serve_moe_ngram": dict(SPEC_ENGINE, speculate="ngram", speculate_k=8),
+    "serve_moe_self": dict(SPEC_ENGINE, speculate="self", speculate_k=4,
+                           draft_layers=2),
+}
+
+
+def phase_moe_serving(card: str) -> dict:
+    """The MoE config at capacity factor 4.0, where capacity never binds
+    (an expert takes at most one slot per token, C = 2s).  In f32 with
+    TF32 off the paged engine and both speculating engines must answer
+    token-exact (the phase 6 gate, draft counts printed only), and the
+    slot engine must refuse the config at construction.  Then the same
+    requests in bf16 on the paged engine, beside the dense model's:
+    TTFT and decode ms per step, printed.  Returns {path: flash
+    launches}."""
+    from ray_tpu_torch.inference import (EngineConfig, GPTServer,
+                                         MoEDecodeUnsupported)
+    from ray_tpu_torch.models import gpt
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = moe_config(capacity_factor=4.0, dtype=torch.float32)
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    print(f"[serve_moe] GPT-2 124M widths, 4 experts top-2: "
+          f"{count_params(params)} params")
+    try:
+        srv = GPTServer(cfg, EngineConfig(max_slots=4, paged=False),
+                        params=params)
+    except MoEDecodeUnsupported as e:
+        print(f"[serve_moe] slot engine refused at construction: {e}")
+    else:
+        srv.teardown()
+        raise SmokeFailure("the slot engine accepted an MoE config")
+    launches = engines_token_exact(cfg, params, MOE_ENGINE_PATHS, card,
+                                   gate_drafts=False)
+    print("[serve_moe f32] every reply of the three MoE engines "
+          "token-exact against generate")
+    del params
+
+    prompts = requests(cfg.vocab_size)[:3] + [[1, 2, 3, 4] * 12]
+    warm = requests(cfg.vocab_size, seed=SEED + 1)[:3] + [[5, 6, 7, 8] * 12]
+    rows = {}
+    for path, c in (("serve_moe_bf16", moe_config(capacity_factor=4.0)),
+                    ("serve_dense_bf16", gpt.GPTConfig.gpt2_124m())):
+        srv = GPTServer(c, EngineConfig(**SPEC_ENGINE), seed=SEED)
+        try:
+            for h in [srv.engine.submit(p, max_new=16) for p in warm]:
+                h.result(timeout=300)
+            st0 = srv.engine_stats()
+            torch.cuda.synchronize()
+            fa.launches = 0              # this path's run starts here
+            handles = [srv.engine.submit(p, max_new=16) for p in prompts]
+            outs = [h.result(timeout=300) for h in handles]
+            torch.cuda.synchronize()
+            launches[path] = fa.launches  # ... and ends here
+            full = srv.engine_stats()["full_prefills"] - st0["full_prefills"]
+        finally:
+            srv.teardown()
+        for out in outs:
+            check(len(out) == 16 and all(0 <= t < c.vocab_size
+                                         for t in out),
+                  f"{path}: malformed reply {out}")
+        check(launches[path] == c.n_layers * full,
+              f"{path}: flash kernel launched {launches[path]} times for "
+              f"{full} full-width prefills")
+        rows[path] = [((h.first_token_s - h.created_s) * 1e3,
+                       (h.finished_s - h.first_token_s)
+                       / (len(h.tokens) - 1) * 1e3) for h in handles]
+    for i, p in enumerate(prompts):
+        (mt, md), (dt, dd) = rows["serve_moe_bf16"][i], \
+            rows["serve_dense_bf16"][i]
+        print(f"[serve_moe bf16] prompt {len(p)} tokens, 4 requests at "
+              f"once on {card}: TTFT {mt:.2f} ms (dense {dt:.2f}), decode "
+              f"{md:.3f} ms per step (dense {dd:.3f})")
+    print(f"[serve_moe bf16] flash launches {launches['serve_moe_bf16']} "
+          f"(dense {launches['serve_dense_bf16']}) on {card}")
+    return launches
+
+
+def sync_warnings(cfg, params, batch) -> list:
+    """The host syncs ``torch.cuda.set_sync_debug_mode("warn")`` reports
+    in one make_train_step step (after a warm-up step), as "file:line:
+    message".  The mode's one-time notice that it is a prototype is no
+    sync and is left out."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import adamw, make_train_step
+
+    init_fn, step_fn = make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg),
+                                       adamw(3e-4, weight_decay=0.1))
+    state = init_fn(params)
+    step_fn(state, batch)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step_fn(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    del state
+    torch.cuda.empty_cache()
+    return [f"{os.path.basename(w.filename)}:{w.lineno}: {w.message}"
+            for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)]
+
+
+def phase_moe_training(name: str, card: str) -> dict:
+    """The MoE config at its default capacity factor 1.25 (capacity binds:
+    C = 640 of 1024 tokens per expert and row), trained as phase 7 trains
+    the dense model; MFU over the ACTIVE parameters (the non-expert ones
+    and top-k of the E experts' MLPs).  Then one step of each model under
+    sync debug mode: the MoE step must add no host sync."""
+    from ray_tpu_torch.models import gpt
+
+    base = moe_config(remat=True, remat_policy="dots")
+    params = gpt.init_params(base, SEED)
+    n_params = count_params(params)
+    E, k, d, f, L = (base.n_experts, base.expert_top_k, base.d_model,
+                     base.d_ff, base.n_layers)
+    n_active = n_params - L * (E - k) * (2 * d * f + f + d)
+    print(f"[train_moe] GPT-2 124M widths, 4 experts top-2, capacity "
+          f"factor {base.capacity_factor}: {n_params} params, {n_active} "
+          f"active per token; MFU counts 6 * {n_active} + 12 L d s FLOPs "
+          f"per token")
+    launches = train_policies(name, card, base, params, n_active,
+                              "train_moe")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    batch = {"tokens": torch.randint(0, base.vocab_size, (16, 1025),
+                                     generator=gen, device="cuda")}
+    moe_syncs = sync_warnings(base, params, batch)
+    del params
+    dense = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    dense_syncs = sync_warnings(dense, gpt.init_params(dense, SEED), batch)
+    print(f"[train_moe] host syncs in one step under sync debug mode on "
+          f"{card}: MoE {len(moe_syncs)} {moe_syncs}, dense "
+          f"{len(dense_syncs)} {dense_syncs}")
+    check(len(moe_syncs) <= len(dense_syncs),
+          f"the MoE step syncs the host {len(moe_syncs)} times, the dense "
+          f"one {len(dense_syncs)}")
+    return launches
+
+
+# ------------------------------------------------- cluster prefix plane
+
+def phase_prefix_plane(card: str) -> dict:
+    """Two paged engines at GPT-2 124M width in f32 (cache width 896, so a
+    cold 512-token prompt takes the full-width prefill).  The holder
+    serves a 512-token prompt; its 32 published blocks go out through
+    ``prefix_extract`` and into the adopter through ``prefix_install``;
+    the adopter then serves the prompt plus an 8-token tail.  Gates: the
+    adopter's reply equals the holder's and ``generate``'s, the adopter
+    runs no full-width prefill, 32 blocks are installed, no block leaks,
+    and after a pool reset the old generation is refused.  Prints the
+    extract and install times and rates, through the engines' op queue.
+    Returns {path: flash launches}."""
+    from ray_tpu_torch.inference import EngineConfig, GPTServer
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve.qos import StalePrefixGeneration
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt.GPTConfig.gpt2_124m(dtype=torch.float32)
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    rng = np.random.default_rng(SEED + 5)
+    prompt = rng.integers(0, cfg.vocab_size, 512).tolist()
+    tail = rng.integers(0, cfg.vocab_size, 8).tolist()
+    want = gpt.generate(params, cfg, torch.tensor([prompt + tail],
+                                                  device="cuda"),
+                        16, temperature=0.0)[0, 520:].tolist()
+    ec = EngineConfig(max_seq=896)
+    holder = GPTServer(cfg, ec, params=params)
+    adopter = GPTServer(cfg, ec, params=params)
+    launches = {}
+    try:
+        # the adopter's first request pays its first-call costs, off the
+        # measured path
+        adopter({"prompt": tail * 3, "max_tokens": 4})
+        torch.cuda.synchronize()
+        fa.launches = 0                  # the holder's run starts here
+        holder({"prompt": prompt, "max_tokens": 8})
+        torch.cuda.synchronize()
+        launches["prefix_holder"] = fa.launches   # ... and ends here
+        check(holder.engine_stats()["full_prefills"] == 1
+              and launches["prefix_holder"] == cfg.n_layers,
+              f"holder: {launches['prefix_holder']} flash launches, "
+              f"expected one full-width prefill of {cfg.n_layers}")
+        recs = [r for r in holder.prefix_export() if r["tokens"] == prompt]
+        check(len(recs) == 1 and len(recs[0]["blocks"]) == 32,
+              f"holder published {recs}")
+        gen = recs[0]["generation"]
+        extract_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            payload = holder.prefix_extract(None, prompt, gen)
+            extract_ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = payload["k"].nbytes + payload["v"].nbytes
+        check(payload["k"].shape == payload["v"].shape == (
+                  cfg.n_layers, 32, cfg.n_heads, 16, cfg.head_dim),
+              f"payload shape {payload['k'].shape}")
+        torch.cuda.synchronize()
+        fa.launches = 0                  # the adopter's run starts here
+        t0 = time.perf_counter()
+        got = adopter.prefix_install(None, prompt, payload)
+        install_ms = (time.perf_counter() - t0) * 1e3
+        check(got == {"installed": 32, "already": False},
+              f"install reported {got}")
+        reply = adopter({"prompt": prompt + tail, "max_tokens": 16})
+        torch.cuda.synchronize()
+        launches["prefix_adopter"] = fa.launches  # ... and ends here
+        st = adopter.engine_stats()
+        check(st["full_prefills"] == 0 and launches["prefix_adopter"] == 0,
+              f"adopter ran a full-width prefill: {st['full_prefills']}, "
+              f"{launches['prefix_adopter']} flash launches")
+        check(st["prefix_hit_tokens"] >= 512,
+              f"adopter hit {st['prefix_hit_tokens']} prefix tokens")
+        held = holder({"prompt": prompt + tail, "max_tokens": 16})
+        check(reply["tokens"] == held["tokens"] == want,
+              f"adopted reply {reply['tokens']}, holder's "
+              f"{held['tokens']}, generate {want}")
+        print(f"[prefix] adopter's reply token-exact against the holder's "
+              f"and generate; TTFT on {card}: {reply['ttft_s'] * 1e3:.2f} "
+              f"ms adopted vs {held['ttft_s'] * 1e3:.2f} ms on the holder "
+              f"(own cache)")
+        ext = statistics.median(extract_ms)
+        print(f"[prefix] 32 blocks, {nbytes} bytes (k + v) on {card}: "
+              f"prefix_extract {ext:.3f} ms median of 5 "
+              f"({[round(x, 3) for x in extract_ms]}), "
+              f"{nbytes / ext / 1e6:.3f} GB/s; prefix_install "
+              f"{install_ms:.3f} ms, {nbytes / install_ms / 1e6:.3f} GB/s")
+        hs = holder.engine_stats()
+        check(hs["active_slots"] == 0 and hs["blocks_free"]
+              + hs["prefix_cached_blocks"] == hs["blocks_total"],
+              f"holder: blocks leaked: {hs}")
+        # the reset runs on the holder's loop thread, as a failed step's
+        # recovery does: the index goes first, then the pool
+        eng = holder.engine
+        eng._run_op(lambda: (eng.trie.clear(), eng.pool.reset()))
+        try:
+            holder.prefix_extract(None, prompt, gen)
+        except StalePrefixGeneration as e:
+            print(f"[prefix] after a pool reset, generation {gen} is "
+                  f"refused: {e}")
+        else:
+            raise SmokeFailure("a reset pool served its old generation")
+    finally:
+        holder.teardown()
+        adopter.teardown()
+    assert_blocks_returned(adopter.engine, "prefix adopter")
+    print("[prefix] the adopter shut down with every block free (the "
+          "holder's blocks were audited before its reset)")
     return launches
 
 
@@ -1107,22 +1434,34 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    name, card = phase_environment()
-    kernels = [phase_kernels(name, card)]
-    kernels += phase_backward_kernels(name, card)
-    phase_serving_f32(card)
-    serve_launches = phase_serving_bf16(card)
-    engine_launches = phase_engines_f32(card)
-    phase_engines_bf16(card)
-    train_launches = phase_training(name, card)
+
+    def run(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        print(f"[time] {fn.__name__} {time.perf_counter() - t:.1f} s")
+        return out
+
+    name, card = run(phase_environment)
+    kernels = [run(phase_kernels, name, card)]
+    kernels += run(phase_backward_kernels, name, card)
+    run(phase_serving_f32, card)
+    serve_launches = run(phase_serving_bf16, card)
+    engine_launches = run(phase_engines_f32, card)
+    run(phase_engines_bf16, card)
+    # the serving phases run before the training phases, which use the
+    # profiler
+    moe_serve_launches = run(phase_moe_serving, card)
+    prefix_launches = run(phase_prefix_plane, card)
+    train_launches = run(phase_training, name, card)
+    train_launches.update(run(phase_moe_training, name, card))
     # launches on each main path's run: the bf16 serving requests, the
-    # f32 engines' requests and the five training steps under each remat
-    # policy
+    # f32 engines' requests, the MoE engines' and the prefix plane's
+    # requests, and the five training steps under each remat policy
     for i, k in enumerate(kernels):
-        paths = {f"train_{p}": n[i] for p, n in train_launches.items()}
+        paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":
             paths = {"serve_bf16": serve_launches, **engine_launches,
-                     **paths}
+                     **moe_serve_launches, **prefix_launches, **paths}
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     print(f"[done] {time.perf_counter() - t0:.1f} s on {card}")

@@ -19,7 +19,8 @@ speculative decoding, and the slot engine: the port of
 
 from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
                                            RadixIndex)
-from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
+from ray_tpu_torch.inference.decode import (MoEDecodeUnsupported,
+                                            SpeculationUnsupported,
                                             make_chunk_prefill_fn,
                                             make_decode_step,
                                             make_paged_decode_step,
@@ -39,7 +40,8 @@ from ray_tpu_torch.inference.serving import GPTServer, encode_prompt
 
 __all__ = [
     "BlockPool", "KVCacheManager", "RadixIndex",
-    "SpeculationUnsupported", "make_chunk_prefill_fn", "make_decode_step",
+    "MoEDecodeUnsupported", "SpeculationUnsupported",
+    "make_chunk_prefill_fn", "make_decode_step",
     "make_paged_decode_step", "make_paged_draft_step", "make_prefill_fn",
     "make_spec_verify_step", "ngram_propose",
     "EngineConfig", "EngineDrainingError", "EngineStoppedError",

@@ -16,7 +16,9 @@ so no write needs a branch.
 
 Where the JAX package donated the pool buffers to a jitted update and
 swapped the results in, the port updates the pool tensors in place
-(``index_put_``/``copy_``).
+(``index_put_``/``copy_``).  The K and V pools are the two halves of one
+tensor, so a prefix transfer gathers or scatters both in one indexing
+op (``read_blocks``, ``write_blocks_at``).
 
 ``RadixIndex`` is a trie over block-sized token chunks (plus partial
 tail leaves): a prompt whose head matches a cached prefix adopts those
@@ -158,17 +160,20 @@ class BlockPool:
                 f"sequence ({self.blocks_per_seq} blocks of {block_size})")
         self.n_blocks = int(n_blocks)             # usable (excludes scratch)
         self.dtype = dtype or cfg.dtype
-        self._shape = (cfg.n_layers, self.n_blocks + 1, cfg.n_heads,
-                       self.block_size, cfg.head_dim)
-        self.k = self._zeros()
-        self.v = self._zeros()
+        # [2, L, N+1, h, bs, hd]: k and v are views of its two halves
+        self._kv = torch.zeros(
+            (2, cfg.n_layers, self.n_blocks + 1, cfg.n_heads,
+             self.block_size, cfg.head_dim),
+            dtype=self.dtype, device=self.device)
+        self.k, self.v = self._kv.unbind(0)
         self._lock = threading.Lock()
         # pop() -> block 1 first; id 0 (scratch) is never in the list
         self._free = list(range(self.n_blocks, 0, -1))
         self._rc = [0] * (self.n_blocks + 1)
-
-    def _zeros(self) -> torch.Tensor:
-        return torch.zeros(self._shape, dtype=self.dtype, device=self.device)
+        # bumped by every reset(): block ids published before a reset
+        # (to the cluster prefix plane) are fenced by it, so a reset
+        # pool's old ids are never served
+        self.generation = 0
 
     # ------------------------------------------------------------- blocks
 
@@ -250,16 +255,46 @@ class BlockPool:
                 .permute(0, 2, 1, 3, 4)
             pool[:, t] = blocks.to(pool.dtype)       # in-place index_put_
 
+    def _table(self, ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(list(ids), np.int64),
+                               device=self.device)
+
+    def read_blocks(self, ids) -> tuple:
+        """A block chain's K/V on the host, the export side of a prefix
+        transfer: ``(k, v)`` numpy arrays of shape ``[L, T, h, bs, hd]``
+        each (T = len(ids)), from ONE gather of both pools and one copy
+        to the host.  A bf16 pool, which numpy cannot hold, reads back
+        as its exact f32 upcast."""
+        kv = self._kv[:, :, self._table(ids)]
+        if kv.dtype == torch.bfloat16:
+            kv = kv.float()
+        kv = kv.cpu().numpy()
+        return kv[0], kv[1]
+
+    def write_blocks_at(self, ids, k_new, v_new) -> None:
+        """Scatter fetched K/V (``read_blocks``' layout, ``[L, T, h, bs,
+        hd]`` each, host arrays) into blocks ``ids``, cast to the pool's
+        dtype: the install side of a prefix transfer, ONE scatter of both
+        pools.  The caller owns ``ids`` alone (fresh blocks), so no
+        copy-on-write is needed."""
+        t = self._table(ids)
+        L, _, h, bs, hd = self.k.shape
+        new = torch.empty((2, L, len(t), h, bs, hd), dtype=self.dtype,
+                          device=self.device)
+        new[0].copy_(torch.as_tensor(np.asarray(k_new)))
+        new[1].copy_(torch.as_tensor(np.asarray(v_new)))
+        self._kv[:, :, t] = new                      # in-place index_put_
+
     def reset(self) -> None:
-        """Zero the pool and drop every reference, after a failed step
-        left the pool's content in doubt.  The caller fails all in-flight
-        requests and clears the prefix index (cached prefixes would
-        otherwise point at zeroed blocks)."""
-        self.k.zero_()
-        self.v.zero_()
+        """Zero the pool, drop every reference and bump ``generation``,
+        after a failed step left the pool's content in doubt.  The caller
+        fails all in-flight requests and clears the prefix index (cached
+        prefixes would otherwise point at zeroed blocks)."""
+        self._kv.zero_()
         with self._lock:
             self._free = list(range(self.n_blocks, 0, -1))
             self._rc = [0] * (self.n_blocks + 1)
+            self.generation += 1
 
     # ------------------------------------------------------------- stats
 
@@ -276,6 +311,7 @@ class BlockPool:
             "blocks_used": self.n_blocks - free,
             "max_seq": self.max_seq,
             "bytes_total": self.bytes_total(),
+            "generation": self.generation,
         }
 
 

@@ -24,13 +24,16 @@ Port of ``ray_tpu/inference/decode.py``:
   * ``ngram_propose`` -- the host-side prompt-lookup drafter.
   * ``make_decode_step`` -- the slot engine's step over the
     ``[L, n_slots, h, S, hd]`` stripes, masked per row by kv length.
+    Dense configs only: an MoE config raises ``MoEDecodeUnsupported``
+    when the step is built.
 
 The paged bodies read one layer's pool slice inside the layer loop and
 write the new K/V to the pool in ONE scatter after the loop (the shape
 the JAX package settled on; carrying the pool through the loop copied it
 whole).  Where JAX donated the pool to the jitted step, the port writes
 the pool tensors in place.  All bodies mirror
-``gpt._transformer_layer``.  The step bodies run plain attention: the
+``gpt._transformer_layer``; an MoE config's paged bodies route each
+step's token window through ``gpt._moe_mlp``.  The step bodies run plain attention: the
 JAX package has no Pallas kernel for them either.
 """
 
@@ -45,6 +48,21 @@ from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.ops.attention import attention
 
 
+class MoEDecodeUnsupported(NotImplementedError):
+    """The slot decode path has no MoE support (it is the dense
+    baseline; the paged engine serves MoE through ``gpt._moe_mlp``).
+    Raised when the slot step is built, so a slot engine over an MoE
+    config fails at construction, never mid-decode."""
+
+    def __init__(self, cfg: GPTConfig):
+        super().__init__(
+            f"the slot decode path has no MoE support (n_experts="
+            f"{cfg.n_experts}); serve this config with the paged engine "
+            f"(EngineConfig.paged=True, which routes experts per token "
+            f"window through gpt._moe_mlp), or with a dense MLP "
+            f"(n_experts=0)")
+
+
 class SpeculationUnsupported(ValueError):
     """Speculative decoding was asked of a configuration that has no
     speculation path: the slot engine, a bad ``speculate_k``-sized burst,
@@ -54,13 +72,17 @@ class SpeculationUnsupported(ValueError):
 
 
 def _mlp_block(y, lp, cfg: GPTConfig):
-    """The step bodies' dense MLP, mirroring gpt._transformer_layer.
+    """The step bodies' MLP, as in gpt._transformer_layer: dense, or for
+    an MoE config the expert dispatch of ``gpt._moe_mlp`` over the step's
+    whole token window, pad and dead lanes included as in the JAX
+    package, with the aux loss dropped.  Routing is per token, but
+    capacity is per window and row (C = ceil(cf * k * s_window / E)), so
+    the steps agree token for token with the full-sequence forward while
+    capacity never binds (capacity_factor >= n_experts / expert_top_k).
     y [b, s, d] -> [b, s, d]."""
     if cfg.n_experts:
-        raise NotImplementedError("MoE decode is not ported yet")
-    u = y @ lp["w_up"].to(cfg.dtype) + lp["b_up"].to(cfg.dtype)
-    u = F.gelu(u, approximate="tanh")
-    return u @ lp["w_down"].to(cfg.dtype) + lp["b_down"].to(cfg.dtype)
+        return gpt._moe_mlp(y, lp, cfg)[0]
+    return gpt._mlp(y, lp, cfg)
 
 
 def _qkv_heads(x, lp, cfg: GPTConfig):
@@ -107,7 +129,10 @@ def make_decode_step(cfg: GPTConfig):
     Each active slot's current token K/V lands at ``positions[slot]``;
     parked slots are left bit-unchanged (their position's old value is
     written back).  Attention covers ``[0, positions[slot]]`` of the
-    slot's stripe (one key for parked slots: never NaN)."""
+    slot's stripe (one key for parked slots: never NaN).  Raises
+    MoEDecodeUnsupported for an MoE config."""
+    if cfg.n_experts:
+        raise MoEDecodeUnsupported(cfg)
     h, hd = cfg.n_heads, cfg.head_dim
 
     @torch.no_grad()

@@ -41,8 +41,16 @@ Sampling shares ``gpt.sample_token`` with the full-recompute oracle, so
 greedy decode is token-identical by construction.  A request with
 ``temperature > 0`` owns a ``torch.Generator`` seeded from its ``seed``.
 
-Not ported yet: the cluster prefix plane, the chaos and flight-recorder
-hooks, and meshes.
+The engine half of the cluster prefix plane: ``prefix_export`` drains
+the record of prompt heads published to the local prefix index,
+``prefix_extract`` gathers a cached block-aligned prefix's K/V to the
+host, and ``prefix_install`` writes such a payload into fresh local
+blocks and publishes them, so the next admission adopts them like a
+locally computed prefix.  Extract and install touch the pool and the
+index, which belong to the loop thread, so they run there as queued ops
+between passes (``_run_op``).
+
+Not ported yet: the chaos and flight-recorder hooks, and meshes.
 """
 
 from __future__ import annotations
@@ -72,8 +80,10 @@ from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.serve.qos import (PRIORITY_BATCH,  # noqa: F401
                                      PRIORITY_INTERACTIVE,
-                                     EngineDrainingError, ReplicaDeadError,
-                                     parse_priority)
+                                     EngineDrainingError,
+                                     PrefixInstallPressure,
+                                     PrefixUnavailable, ReplicaDeadError,
+                                     StalePrefixGeneration, parse_priority)
 
 
 @dataclass
@@ -320,6 +330,13 @@ class InferenceEngine:
         self._cond = threading.Condition()
         self._stopped = False
         self._draining = False
+        # ops other threads queue for the loop thread, which alone
+        # touches the pool and the prefix index: (fn, result box) pairs
+        # run between passes (_run_op, _run_ops_locked)
+        self._ops: list = []
+        # prefixes published to the local index since the last
+        # prefix_export() (bounded; the oldest is dropped first)
+        self._prefix_outbox: list = []
 
         self._mlock = threading.Lock()
         self._generated_tokens = 0
@@ -408,12 +425,15 @@ class InferenceEngine:
         """One scheduler pass (reap, admit, prefill, decode); False when
         stopped."""
         with self._cond:
-            while (not self._stopped and not self._active.any()
+            while (not self._stopped and not self._ops
+                   and not self._active.any()
                    and not (self._paged and self._prefilling)
                    and not (self._waiting and self._admission_possible())):
                 self._cond.wait(self.engine_cfg.idle_wait_s)
             if self._stopped:
                 return False
+            if self._ops:
+                self._run_ops_locked()
             # reap cancelled waiters even when the pool is full
             live = []
             for r in self._waiting:
@@ -466,6 +486,11 @@ class InferenceEngine:
             pending = list(self._slot_req.values()) + self._waiting
             self._slot_req.clear()
             self._waiting.clear()
+            ops, self._ops = self._ops, []
+            for _fn, box in ops:
+                # a queued op on a dying engine resolves as a dead replica
+                box["error"] = EngineStoppedError("engine shut down")
+                box["done"] = True
             self._cond.notify_all()
         err = EngineStoppedError("engine shut down")
         for r in pending:
@@ -746,6 +771,9 @@ class InferenceEngine:
                 * self.pool.block_size
             if full > 0:
                 self._insert_prefix(row, req.prompt[:full])
+                self._note_prefix_published(
+                    req.prompt[:full],
+                    self._row_blocks[row][:full // self.pool.block_size])
         tok = int(gpt.sample_token(last_logits,
                                    temperature=req.temperature,
                                    generator=req.generator))
@@ -1111,6 +1139,168 @@ class InferenceEngine:
         for r in waiting:
             if not r.done:
                 r._finish(err)
+
+    # ------------------------------------------- cluster prefix plane
+
+    def _run_ops_locked(self) -> None:
+        """Run the queued ops on the loop thread (under ``_cond``).  An
+        op's error goes to its caller's box; the loop never dies for a
+        bad op.  Ops must not take ``_cond`` (they run holding it): the
+        pool and the index are safe to touch, the row helpers are not."""
+        while self._ops:
+            fn, box = self._ops.pop(0)
+            try:
+                box["result"] = fn()
+            except Exception as e:
+                box["error"] = e
+            box["done"] = True
+        self._cond.notify_all()
+
+    def _run_op(self, fn, timeout: float = 10.0):
+        """Run ``fn`` on the loop thread and return its result, or raise
+        its error; EngineStoppedError on an engine that is shut down or
+        dies first, PrefixUnavailable when it has not run in
+        ``timeout`` seconds."""
+        box = {"done": False, "result": None, "error": None}
+        deadline = time.monotonic() + timeout
+        with self._cond:
+            if self._stopped:
+                raise EngineStoppedError("engine is shut down")
+            self._ops.append((fn, box))
+            self._cond.notify_all()
+            while not box["done"]:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise PrefixUnavailable(
+                        f"engine op timed out after {timeout}s")
+                self._cond.wait(left)
+        if box["error"] is not None:
+            raise box["error"]
+        return box["result"]
+
+    def _note_prefix_published(self, tokens: np.ndarray, blocks) -> None:
+        """Record a publication to the local prefix index for
+        ``prefix_export``; at most 64 records are kept."""
+        with self._mlock:
+            if len(self._prefix_outbox) >= 64:
+                self._prefix_outbox.pop(0)
+            self._prefix_outbox.append({
+                "tokens": [int(t) for t in tokens],
+                "blocks": [int(b) for b in blocks],
+                "block_size": self.pool.block_size,
+                "generation": self.pool.generation,
+                "engine": self.name,
+            })
+
+    def _prefix_geometry(self, tokens) -> tuple:
+        """(tokens as int64, n_tokens, block_size) of a prefix-plane call;
+        PrefixUnavailable without a prefix index or for a prefix that is
+        not a whole number of blocks."""
+        if not self._paged or self.trie is None:
+            raise PrefixUnavailable("engine has no prefix index")
+        toks = np.asarray(list(tokens), np.int64)
+        bs = self.pool.block_size
+        n = int(toks.size)
+        if n < bs or n % bs:
+            raise PrefixUnavailable(
+                f"prefix length {n} is not block-aligned (bs={bs})")
+        return toks, n, bs
+
+    def _probe_match(self, toks: np.ndarray) -> tuple:
+        """The index's match for the prefix ``toks`` (blocks increfed).
+        The index caps a match at len - 1 tokens, so one probe token past
+        the prefix lets the whole chain match."""
+        return self.trie.match(np.append(toks, 0))
+
+    def prefix_export(self) -> list:
+        """Drain the record of prefixes published to the local index
+        since the last call ([] without a prefix index)."""
+        if not self._paged or self.trie is None:
+            return []
+        with self._mlock:
+            out, self._prefix_outbox = self._prefix_outbox, []
+        return out
+
+    def prefix_extract(self, tokens, generation: int) -> dict:
+        """The holder's side of a prefix adoption: the K/V of the cached,
+        block-aligned prefix ``tokens`` as host arrays, ``{"k", "v"}``
+        ``[L, T, h, bs, hd]`` each, with ``generation``, ``n_tokens`` and
+        ``block_size``.  Checks, in order: block alignment, then the pool
+        generation (StalePrefixGeneration after a reset: old block ids
+        are never served), then that the index still holds every token
+        (PrefixUnavailable).  Runs on the loop thread."""
+        toks, n, bs = self._prefix_geometry(tokens)
+        want = int(generation)
+
+        def op():
+            if want != self.pool.generation:
+                raise StalePrefixGeneration(
+                    f"pool generation is {self.pool.generation}, the "
+                    f"prefix was published at {want} (the pool was reset "
+                    "since)")
+            ids, hit = self._probe_match(toks)
+            try:
+                if hit < n:
+                    raise PrefixUnavailable(
+                        f"only {hit}/{n} prefix tokens still cached "
+                        "(evicted since publish)")
+                k, v = self.pool.read_blocks(ids[:n // bs])
+            finally:
+                for bid in ids:
+                    self.pool.decref(bid)
+            return {"k": k, "v": v, "generation": self.pool.generation,
+                    "n_tokens": n, "block_size": bs}
+        return self._run_op(op)
+
+    def prefix_install(self, tokens, payload: dict) -> dict:
+        """The adopter's side: write a ``prefix_extract`` payload into
+        fresh local blocks and publish them to the local index, so the
+        next admission adopts them by refcount like a locally computed
+        prefix.  A prefix the index already holds is left as it is
+        (``already``).  Fresh blocks come from the free list, else from
+        evicting unreferenced cached prefixes; a live row is never
+        preempted: PrefixInstallPressure, with every block taken given
+        back.  Returns ``{"installed": blocks, "already": bool}``."""
+        toks, n, bs = self._prefix_geometry(tokens)
+        if int(payload.get("block_size", -1)) != bs:
+            raise PrefixUnavailable(
+                f"holder block_size {payload.get('block_size')} != local "
+                f"{bs} (geometry mismatch)")
+        n_b = n // bs
+        k_new, v_new = payload["k"], payload["v"]
+        cfg = self.cfg
+        expect = (cfg.n_layers, n_b, cfg.n_heads, bs, cfg.head_dim)
+        if tuple(np.shape(k_new)) != expect \
+                or tuple(np.shape(v_new)) != expect:
+            raise PrefixUnavailable(
+                f"payload shape {np.shape(k_new)} != expected {expect}")
+
+        def op():
+            ids, hit = self._probe_match(toks)
+            for bid in ids:
+                self.pool.decref(bid)
+            if hit >= n:
+                return {"installed": 0, "already": True}
+            fresh = []
+            for _ in range(n_b):
+                bid = self.pool.alloc()
+                while bid is None and self.trie.evict(1):
+                    bid = self.pool.alloc()
+                if bid is None:
+                    for b in fresh:
+                        self.pool.decref(b)
+                    raise PrefixInstallPressure(
+                        f"pool cannot hold a {n_b}-block adopted prefix "
+                        "without preempting live requests")
+                fresh.append(bid)
+            self.pool.write_blocks_at(fresh, k_new, v_new)
+            self.trie.insert(toks, fresh)
+            # the index holds its own references now (chunks it already
+            # had were deduped); dropping ours frees exactly those
+            for b in fresh:
+                self.pool.decref(b)
+            return {"installed": n_b, "already": False}
+        return self._run_op(op)
 
     def stats(self) -> dict:
         with self._cond:

@@ -16,8 +16,11 @@ takes:
 Replies hold plain ints and floats: ``{"tokens": [...], "n": n,
 "ttft_s": ..., "latency_s": ...}``; ``stream: true`` returns a generator
 of ``{"token": t, "index": i}`` documents and a final ``{"done": true}``.
-The serve controller, multiplexing and ``build_gpt_deployment`` come
-with the slice that ports ``serve/``.
+The replica half of the cluster prefix plane is ``prefix_export``,
+``prefix_extract`` and ``prefix_install`` (the engine's, through the
+same closed/draining gate as requests).  The serve controller,
+multiplexing and ``build_gpt_deployment`` come with the slice that ports
+``serve/``.
 """
 
 from __future__ import annotations
@@ -62,11 +65,14 @@ class GPTServer:
         self.engine = InferenceEngine(params, self.cfg, self.engine_cfg,
                                       device=self.device, name=engine_name)
 
-    def _engine(self) -> InferenceEngine:
+    def _engine_for(self, req: dict) -> InferenceEngine:
+        """The engine that serves ``req``: the one engine (``req``'s
+        ``model`` picks nothing without a multiplexer).  A closed replica
+        raises EngineStoppedError, a draining one EngineDrainingError."""
         if self._closed:
-            raise EngineStoppedError("server closed")
+            raise EngineStoppedError("replica closed")
         if self._draining:
-            raise EngineDrainingError("server is draining (scale-down)")
+            raise EngineDrainingError("replica is draining (scale-down)")
         return self.engine
 
     def __call__(self, req):
@@ -77,7 +83,7 @@ class GPTServer:
         if "prompt" not in req:
             raise ValueError('missing required field "prompt"')
         prompt = encode_prompt(req["prompt"], self.cfg.vocab_size)
-        handle = self._engine().submit(
+        handle = self._engine_for(req).submit(
             prompt,
             max_new=req.get("max_tokens"),
             temperature=float(req.get("temperature", 0.0)),
@@ -115,6 +121,27 @@ class GPTServer:
                 if not handle.done:
                     handle.cancel()
         return gen()
+
+    # ---- cluster prefix plane: all failures are PrefixTransferError or
+    # ReplicaDeadError shapes, which a caller maps to local recompute
+
+    def prefix_export(self) -> list:
+        """Drain the engine's record of published prefixes ([] once the
+        replica is closed)."""
+        if self._closed:
+            return []
+        return self.engine.prefix_export()
+
+    def prefix_extract(self, model, tokens, generation: int) -> dict:
+        """The holder's side of a prefix adoption
+        (``InferenceEngine.prefix_extract``)."""
+        req = {"model": model} if model is not None else {}
+        return self._engine_for(req).prefix_extract(tokens, generation)
+
+    def prefix_install(self, model, tokens, payload: dict) -> dict:
+        """The adopter's side (``InferenceEngine.prefix_install``)."""
+        req = {"model": model} if model is not None else {}
+        return self._engine_for(req).prefix_install(tokens, payload)
 
     def engine_stats(self) -> dict:
         return self.engine.stats()

@@ -1,9 +1,10 @@
 """GPT: decoder-only transformer, the port of ``ray_tpu/models/gpt.py``.
 
-Dense models on one device.  Params are a plain dict in the JAX
-package's stacked layout (``PARAM_AXES``: every per-layer leaf has a
-leading ``[n_layers]`` dim), so the bridge in ``models/convert.py`` needs
-no renaming; the layer loop is a Python loop where JAX had ``lax.scan``.
+Dense and mixture-of-experts models on one device.  Params are a plain
+dict in the JAX package's stacked layout (``param_logical_axes``: every
+per-layer leaf has a leading ``[n_layers]`` dim), so the bridge in
+``models/convert.py`` needs no renaming; the layer loop is a Python loop
+where JAX had ``lax.scan``.
 Activations run in ``cfg.dtype``, params and the layer-norm / softmax /
 logits math in f32.  Attention goes through ``ops.attention``, which
 picks the Hopper flash kernels for tile-friendly CUDA inputs.
@@ -12,8 +13,12 @@ Training: ``loss_fn`` is next-token cross-entropy, and with ``cfg.remat``
 each layer runs under ``torch.utils.checkpoint`` with the JAX package's
 policies (``_remat_context``).
 
-Not ported yet: MoE (``n_experts > 0`` raises), meshes, ring attention
-and the pipelined forward.
+MoE (``n_experts > 0``): every layer's MLP is a top-k routed expert layer
+in the GShard/Switch formulation (``_moe_mlp``), without expert
+parallelism; ``loss_fn`` adds the load-balance aux loss.
+
+Not ported yet: meshes (and with them ep), ring attention and the
+pipelined forward.
 """
 
 from __future__ import annotations
@@ -65,9 +70,13 @@ class GPTConfig:
                 f"unknown remat_policy {self.remat_policy!r}; expected "
                 "None, 'dots', or 'dots_flash'")
         if self.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts GPT is not ported yet (n_experts="
-                f"{self.n_experts}); use a dense config")
+            if not 1 <= self.expert_top_k <= self.n_experts:
+                raise ValueError(
+                    f"expert_top_k {self.expert_top_k} must be in "
+                    f"[1, n_experts={self.n_experts}]")
+            if self.capacity_factor <= 0:
+                raise ValueError(
+                    f"capacity_factor {self.capacity_factor} must be > 0")
 
     @property
     def head_dim(self) -> int:
@@ -85,6 +94,12 @@ class GPTConfig:
         return GPTConfig(**{**dict(vocab_size=512, max_seq=128, d_model=64,
                                    n_heads=4, n_layers=2, d_ff=128,
                                    remat=False), **kw})
+
+    @staticmethod
+    def tiny_moe(**kw) -> "GPTConfig":
+        """Test-sized mixture-of-experts config."""
+        return GPTConfig.tiny(**{**dict(n_experts=4, expert_top_k=2,
+                                        dtype=torch.float32), **kw})
 
 
 # -- params ----------------------------------------------------------------
@@ -110,6 +125,26 @@ PARAM_AXES = {
         "b_down": ("layers", "embed"),
     },
 }
+
+# MoE layers swap the dense MLP leaves for expert-stacked ones
+MOE_MLP_AXES = {
+    "w_router": ("layers", "embed", None),
+    "w_up": ("layers", "expert", "embed", "mlp"),
+    "b_up": ("layers", "expert", "mlp"),
+    "w_down": ("layers", "expert", "mlp", "embed"),
+    "b_down": ("layers", "expert", "embed"),
+}
+
+
+def param_logical_axes(cfg: GPTConfig) -> dict:
+    """The params tree's logical axes for ``cfg``: ``PARAM_AXES``, with the
+    expert-stacked MLP leaves for MoE and ``lm_head`` when untied."""
+    axes = dict(PARAM_AXES)
+    if cfg.n_experts:
+        axes["layers"] = {**axes["layers"], **MOE_MLP_AXES}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("embed", "vocab")
+    return axes
 
 
 def init_params(cfg: GPTConfig, seed: int = 0, *, device=None,
@@ -137,6 +172,24 @@ def init_params(cfg: GPTConfig, seed: int = 0, *, device=None,
     def ones(shape):
         return torch.ones(shape, dtype=pd, device=dev)
 
+    def mlp():
+        if not cfg.n_experts:
+            return {
+                "w_up": norm((L, d, f)),
+                "b_up": zeros((L, f)),
+                "w_down": norm((L, f, d), res_std),
+                "b_down": zeros((L, d)),
+            }
+        E = cfg.n_experts
+        return {
+            "w_router": norm((L, d, E)),
+            "w_up": norm((L, E, d, f)),
+            "b_up": zeros((L, E, f)),
+            "w_down": norm((L, E, f, d), res_std),
+            "b_down": zeros((L, E, d)),
+        }
+
+    # drawn in this order: wte, wpe, wqkv, wo, then the MLP's leaves
     params = {
         "wte": norm((cfg.vocab_size, d)),
         "wpe": norm((cfg.max_seq, d), 0.01),
@@ -150,10 +203,7 @@ def init_params(cfg: GPTConfig, seed: int = 0, *, device=None,
             "bo": zeros((L, d)),
             "ln2_scale": ones((L, d)),
             "ln2_bias": zeros((L, d)),
-            "w_up": norm((L, d, f)),
-            "b_up": zeros((L, f)),
-            "w_down": norm((L, f, d), res_std),
-            "b_down": zeros((L, d)),
+            **mlp(),
         },
     }
     if not cfg.tie_embeddings:
@@ -177,15 +227,82 @@ def _layer_norm(x, scale, bias, eps=1e-5):
 
 
 def _mlp(y, lp, cfg: GPTConfig):
+    """The dense MLP: y [b, s, d] -> [b, s, d]."""
     u = y @ lp["w_up"].to(cfg.dtype) + lp["b_up"].to(cfg.dtype)
     u = F.gelu(u, approximate="tanh")      # jax.nn.gelu's default
     return u @ lp["w_down"].to(cfg.dtype) + lp["b_down"].to(cfg.dtype)
 
 
+def _moe_mlp(y, lp, cfg: GPTConfig):
+    """Top-k routed expert MLP, the GShard/Switch formulation with one
+    group per batch row, step for step as the JAX package's ``_moe_mlp``
+    (without a mesh).  Capacity is per group, ``C = max(1, ceil(cf * k *
+    s / E))``; the dispatch and combine tensors are [G, s, E, C].  Round
+    i routes each token to the argmax of its remaining router
+    probabilities (the first maximum on ties), queues it behind the
+    earlier rounds' fill of that expert, and drops it when the queue is
+    full.  The one-hots compare with ``arange`` instead of calling
+    ``F.one_hot``: a dropped token's position (>= C) gives an all-zero
+    row as ``jax.nn.one_hot`` does, and nothing checks its input on the
+    host.  Gradients flow through the gate values and the router
+    probabilities only.  Returns (out [b, s, d], the Switch load-balance
+    aux loss, a 0-d f32)."""
+    b, s, _ = y.shape                  # groups G = b, tokens/group n = s
+    E, k = cfg.n_experts, cfg.expert_top_k
+    C = max(1, int(math.ceil(cfg.capacity_factor * k * s / E)))
+    dev = y.device
+    experts = torch.arange(E, device=dev)
+    slots = torch.arange(C, device=dev)
+
+    logits = y.float() @ lp["w_router"].float()          # [G, n, E]
+    probs = torch.softmax(logits, dim=-1)
+
+    remaining = probs
+    counts = torch.zeros((b, E), device=dev)   # per-group expert fill
+    combine = torch.zeros((b, s, E, C), device=dev)
+    gates_sum = torch.zeros((b, s), device=dev)
+    top1_frac = None
+    for i in range(k):
+        idx = torch.argmax(remaining, dim=-1)             # [G, n]
+        mask = (idx[..., None] == experts).float()        # [G, n, E]
+        gate = (remaining * mask).sum(-1)                 # [G, n]
+        # position of each token in its chosen expert's queue (0-based,
+        # offset by earlier rounds' fill of this group's queues)
+        pos = mask.cumsum(dim=1) - 1.0 + counts[:, None, :]
+        posn = (pos * mask).sum(-1)                       # [G, n]
+        keep = (posn < C).float()                         # capacity drop
+        disp = (mask * keep[..., None])[..., None] \
+            * (posn.long()[..., None] == slots).float()[..., None, :]
+        combine = combine + gate[..., None, None] * disp  # [G, n, E, C]
+        gates_sum = gates_sum + gate * keep
+        counts = counts + (mask * keep[..., None]).sum(1)
+        if i == 0:
+            top1_frac = mask.mean(dim=(0, 1))             # [E]
+        remaining = remaining * (1.0 - mask)
+    # normalise the selected gates to sum to 1 per token (GShard)
+    combine = combine / gates_sum.clamp_min(1e-9)[..., None, None]
+    dispatch = (combine > 0).to(cfg.dtype)                # [G, n, E, C]
+
+    # Switch load-balance loss: E * sum_e f_e * P_e (f from the top-1
+    # routing decision before the capacity drop, P the mean probability)
+    aux = E * (top1_frac * probs.mean(dim=(0, 1))).sum()
+
+    dt = cfg.dtype
+    expert_in = torch.einsum("gnec,gnd->gecd", dispatch, y.to(dt))
+    hid = torch.einsum("gecd,edf->gecf", expert_in, lp["w_up"].to(dt)) \
+        + lp["b_up"].to(dt)[None, :, None, :]
+    hid = F.gelu(hid, approximate="tanh")
+    out_e = torch.einsum("gecf,efd->gecd", hid, lp["w_down"].to(dt)) \
+        + lp["b_down"].to(dt)[None, :, None, :]
+    out = torch.einsum("gnec,gecd->gnd", combine.to(dt), out_e)
+    return out, aux
+
+
 def _transformer_layer(x, lp, cfg: GPTConfig, return_kv: bool = False):
-    """One pre-LN block; x [b, s, d], lp = one layer's params.  With
-    ``return_kv`` also the per-head K/V ([b, h, s, hd] each), the seed of
-    an incremental-decode cache."""
+    """One pre-LN block; x [b, s, d], lp = one layer's params.  Returns
+    (x, the MoE aux loss: a Python 0.0 when dense); with ``return_kv`` also the
+    per-head K/V ([b, h, s, hd] each), the seed of an incremental-decode
+    cache."""
     b, s, _ = x.shape
     h, hd = cfg.n_heads, cfg.head_dim
 
@@ -203,10 +320,14 @@ def _transformer_layer(x, lp, cfg: GPTConfig, return_kv: bool = False):
     o = o @ lp["wo"].to(cfg.dtype) + lp["bo"].to(cfg.dtype)
     x = x + o
     y = _layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-    x = x + _mlp(y, lp, cfg)
+    if cfg.n_experts:
+        dn, aux = _moe_mlp(y, lp, cfg)
+    else:
+        dn, aux = _mlp(y, lp, cfg), 0.0
+    x = x + dn
     if return_kv:
-        return x, (kh, vh)
-    return x
+        return x, aux, (kh, vh)
+    return x, aux
 
 
 def _embed(params, tokens, cfg: GPTConfig):
@@ -224,7 +345,9 @@ def _head(params, x, cfg: GPTConfig):
 # what each remat policy keeps from a layer's forward for its backward;
 # everything else is recomputed.  "dots" is the counterpart of
 # dots_with_no_batch_dims_saveable: the 2-D projections (mm/addmm), not
-# the batched attention products and not the flash forward.  "dots_flash"
+# the batched attention products and not the flash forward.  In an MoE
+# layer that keeps the router product; the dispatch, expert and combine
+# einsums run as batched products (bmm) and are recomputed.  "dots_flash"
 # also keeps the flash forward's (out, lse), so the backward never
 # re-runs its kernel.  The JAX package needs an lse-returning flash
 # variant with named outputs for that; here the flash forward is one op
@@ -244,48 +367,58 @@ def _remat_context(cfg: GPTConfig):
     return functools.partial(create_selective_checkpoint_contexts, ops)
 
 
-def forward(params, tokens, cfg: GPTConfig, *, return_kv: bool = False):
-    """tokens [b, s] int -> logits [b, s, vocab] f32.  ``return_kv`` also
-    returns ``(k, v)``, each [L, b, h, s, hd]: the prefill half of the
-    incremental-decode path.  With ``cfg.remat``, and a gradient to
-    take, each layer is rematerialised in the backward pass as its
-    ``remat_policy`` says."""
+def forward(params, tokens, cfg: GPTConfig, *, return_aux: bool = False,
+            return_kv: bool = False):
+    """tokens [b, s] int -> logits [b, s, vocab] f32.  ``return_aux`` also
+    returns the MoE load-balance aux loss summed over layers (a Python
+    0.0 when dense); ``return_kv`` also returns ``(k, v)``, each [L, b, h, s, hd]:
+    the prefill half of the incremental-decode path.  The result is
+    ``logits``, ``(logits, aux)``, ``(logits, (k, v))`` or ``(logits,
+    aux, (k, v))``.  With ``cfg.remat``, and a gradient to take, each
+    layer is rematerialised in the backward pass as its ``remat_policy``
+    says."""
     x = _embed(params, tokens, cfg)
     # one unbind per stacked leaf: its backward stacks the per-layer
     # grads in one op
     layers = {name: t.unbind(0) for name, t in params["layers"].items()}
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = {name: ts[i] for name, ts in layers.items()}
         if return_kv:
-            x, (kh, vh) = _transformer_layer(x, lp, cfg, return_kv=True)
+            x, a, (kh, vh) = _transformer_layer(x, lp, cfg, return_kv=True)
             ks.append(kh)
             vs.append(vh)
         elif remat:
-            x = checkpoint(_transformer_layer, x, lp, cfg,
-                           use_reentrant=False,
-                           context_fn=_remat_context(cfg))
+            x, a = checkpoint(_transformer_layer, x, lp, cfg,
+                              use_reentrant=False,
+                              context_fn=_remat_context(cfg))
         else:
-            x = _transformer_layer(x, lp, cfg)
+            x, a = _transformer_layer(x, lp, cfg)
+        if cfg.n_experts:
+            aux = aux + a
     logits = _head(params, x, cfg)
     if return_kv:
-        return logits, (torch.stack(ks), torch.stack(vs))
-    return logits
+        kv = (torch.stack(ks), torch.stack(vs))
+        return (logits, aux, kv) if return_aux else (logits, kv)
+    return (logits, aux) if return_aux else logits
 
 
 def loss_fn(params, batch, cfg: GPTConfig):
     """Next-token cross-entropy, the mean of logsumexp - gold over f32
-    logits.  batch = {"tokens": [b, s+1] int} or {"tokens": [b, s],
-    "targets": [b, s]}."""
+    logits, plus ``moe_aux_weight`` times the load-balance aux loss when
+    the config is MoE.  batch = {"tokens": [b, s+1] int} or {"tokens":
+    [b, s], "targets": [b, s]}."""
     tokens = batch["tokens"]
     if "targets" in batch:
         inp, tgt = tokens, batch["targets"]
     else:
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
-    logits = forward(params, inp, cfg)
-    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
-                           tgt.reshape(-1).long())
+    logits, aux = forward(params, inp, cfg, return_aux=True)
+    ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                         tgt.reshape(-1).long())
+    return ce + cfg.moe_aux_weight * aux if cfg.n_experts else ce
 
 
 def sample_token(logits, *, temperature: float = 1.0,

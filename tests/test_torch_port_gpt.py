@@ -146,5 +146,12 @@ def test_generate_samples_on_its_defaults(cfgs, weights):
 
 
 def test_moe_config_is_not_ported():
+    """An MoE config builds (tests/test_torch_port_moe.py holds it to the
+    JAX package); the one MoE path the port leaves out, as the JAX
+    package does, is the slot decode step, which raises a
+    NotImplementedError when built."""
+    from ray_tpu_torch.inference import make_decode_step
+
+    cfg = tgpt.GPTConfig.tiny(n_experts=4)
     with pytest.raises(NotImplementedError):
-        tgpt.GPTConfig.tiny(n_experts=4)
+        make_decode_step(cfg)
