@@ -18,8 +18,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    lse -inf), strided, misaligned (a view at a 1-element offset, which
    the bf16 route copies), non-causal and wider-head shapes, in bf16 and
    f32; prints the kernel's, the plain version's and SDPA's times and
-   the bound (device time, and time per call), and the f32 kernel's and
-   f32 SDPA's device time at the serving path's shape;
+   the bound (device time, and time per call), and the f32 kernel's, its
+   plain version's and f32 SDPA's device time at the serving path's
+   shape;
 3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
    and 256, ragged (kv 77 too), cross-length, decode-like (q 1 / kv
@@ -83,16 +84,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
    prompt plus an 8-token tail must equal the holder's and
    ``generate``'s without a full-width prefill; no block may leak, and
    after a pool reset the holder must refuse the old generation with
-   ``StalePrefixGeneration``; prints the transfer times and rates.
+   ``StalePrefixGeneration``; prints the transfer times and rates;
+11. the replica contract at GPT-2 124M width in f32 (TF32 off).
+   Multiplexing: ``build_gpt_deployment(variants={"base": 0, "alt": 1},
+   multiplex_capacity=1).build_replica()`` under a replica context
+   answers cold 600-token prompts to base, alt and base again, each
+   token-exact against ``generate`` on that variant's seed, with n_layers
+   flash launches per load, 3 loads and 2 evictions, and device memory
+   back at the one-variant level after each eviction; prints the load
+   and evict times.  The surface: ``fleet_stats`` has the JAX package's
+   keys, ``health`` is True; after ``drain`` a new request raises
+   ``EngineDrainingError`` while one in flight completes token-exact;
+   after ``teardown`` ``health`` is False and no block is referenced.
+   Chaos, a scripted plan in the port's gate: ``infer_speculate`` with
+   ``reject_all`` on the n-gram engine (replies token-exact, 0 tokens
+   accepted, no leak); ``infer_block_alloc`` raising on its 2nd call
+   (every request in flight fails with the injected error, the pool's
+   generation moves on, the next request is token-exact, no leak); the
+   ``infer_admit`` ctx carries ``engine``, ``req``, ``need`` and
+   ``hit_tokens``.  The flight recorder, armed: one ``engine_request``
+   event per finished request, whose ``spec_accepted`` sum to the
+   engine's accepted tokens.  Prints decode ms per step with a no-op
+   plan installed beside the same run with none.
 
-``main`` runs phases 8 and 10 before phase 7: no serving phase runs
+``main`` runs phases 8, 10 and 11 before phase 7: no serving phase runs
 after the profiler.  The line before the last is the kernels' JSON
 record; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import importlib
 import json
 import os
@@ -414,6 +438,8 @@ def phase_kernels(name: str, card: str) -> dict:
     bound = max(t_bytes, t_ops)
     q32, k32, v32 = (t.float() for t in (q, k, v))
     ms32 = device_ms(lambda: flash_attention(q32, k32, v32, causal=True))
+    plain32 = device_ms(lambda: flash_attention_reference(
+        q32, k32, v32, causal=True), 3)
     lib32 = device_ms(lambda: F.scaled_dot_product_attention(
         q32, k32, v32, is_causal=True))
     b32, f32 = attention_work(1, 12, 1024, 1024, 64, True, 4)
@@ -425,7 +451,8 @@ def phase_kernels(name: str, card: str) -> dict:
           f"{lib_call:.4f}), bound {bound:.5f} ms "
           f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
           f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms); f32 kernel "
-          f"{ms32:.4f} ms, f32 SDPA {lib32:.4f} ms, f32 bound "
+          f"{ms32:.4f} ms, f32 plain {plain32:.4f} ms, f32 SDPA "
+          f"{lib32:.4f} ms, f32 bound "
           f"{bound32:.5f} ms")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -434,7 +461,7 @@ def phase_kernels(name: str, card: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "f32_ms": ms32, "f32_bound_ms": bound32,
-            "f32_library_ms": lib32}
+            "f32_plain_ms": plain32, "f32_library_ms": lib32}
 
 
 def forward_err(label, out, lse, q, k, v, causal) -> float:
@@ -1429,6 +1456,341 @@ def phase_prefix_plane(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------- replica contract
+
+# the keys of ray_tpu/inference/serving.py GPTServer.fleet_stats, which
+# the fleet router and the serve controller read
+FLEET_STATS_KEYS = {
+    "max_slots", "active_slots", "waiting_requests", "waiting_interactive",
+    "blocks_total", "blocks_free", "block_utilization", "mesh_devices",
+    "tp_shards", "prefix_hit_tokens", "prefix_lookup_tokens",
+    "prefix_hit_rate", "spec_drafted_tokens", "spec_accepted_tokens",
+    "spec_accept_rate", "tokens_per_step", "models", "stopped", "draining"}
+ADMIT_CTX_KEYS = {"engine", "req", "need", "hit_tokens"}
+
+
+class ScriptedPlan:
+    """A fault plan for the port's gate: ``on_infer`` logs every point
+    and its ctx, and runs ``actions[point](ctx, n)`` on the point's n-th
+    call, if one is given."""
+
+    def __init__(self, actions=None):
+        self.actions = actions or {}
+        self.log = []                    # (point, ctx copy)
+        self.calls = {}
+
+    def on_infer(self, point, ctx):
+        n = self.calls[point] = self.calls.get(point, 0) + 1
+        self.log.append((point, dict(ctx)))
+        action = self.actions.get(point)
+        if action is not None:
+            action(ctx, n)
+
+
+def reference_tokens(cfg, params, prompts, max_new=16) -> list:
+    from ray_tpu_torch.models import gpt
+
+    return [gpt.generate(params, cfg, torch.tensor([p], device="cuda"),
+                         max_new, temperature=0.0)[0, len(p):].tolist()
+            for p in prompts]
+
+
+def served(srv, prompts, max_new=16):
+    """Submit every prompt to the server's one engine at once; returns
+    the handles once all are done (their errors kept, not raised)."""
+    handles = [srv.engine.submit(p, max_new=max_new) for p in prompts]
+    for h in handles:
+        try:
+            h.result(timeout=300)
+        except Exception:
+            pass
+    return handles
+
+
+def replica_multiplexing(cfg, card: str, launches: dict):
+    """The multiplexed replica at capacity 1: base, alt, base again, each
+    a cold 600-token prompt.  Returns the replica, with base resident."""
+    from ray_tpu_torch.inference import EngineConfig, build_gpt_deployment
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.serve.context import replica_context
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    rng = np.random.default_rng(SEED + 11)
+    cold = [rng.integers(0, cfg.vocab_size, 600).tolist() for _ in range(3)]
+    order = [("base", 0, cold[0]), ("alt", 1, cold[1]), ("base", 0, cold[2])]
+    want = []
+    for _, seed, p in order:
+        params = gpt.init_params(cfg, seed, device="cuda")
+        want += reference_tokens(cfg, params, [p])
+        del params
+    gc.collect()
+    dep = build_gpt_deployment(cfg=cfg, engine_cfg=EngineConfig(),
+                               variants={"base": 0, "alt": 1},
+                               multiplex_capacity=1)
+    with replica_context("v1", "v1#0"):
+        srv = dep.build_replica()
+    mux = srv._mux
+    load_ms, evict_ms = [], []
+    loader, unloader = mux._loader, mux._unloader
+
+    def timed(fn, out):
+        def run(*a):
+            t0 = time.perf_counter()
+            r = fn(*a)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    mux._loader, mux._unloader = timed(loader, load_ms), \
+        timed(unloader, evict_ms)
+    levels = []
+    for i, ((model, _, p), w) in enumerate(zip(order, want)):
+        path = f"serve_mux_{model}" + ("_again" if i == 2 else "")
+        torch.cuda.synchronize()
+        fa.launches = 0                  # this path's run starts here
+        reply = srv({"prompt": p, "max_tokens": 16, "model": model})
+        torch.cuda.synchronize()
+        launches[path] = fa.launches     # ... and ends here
+        gc.collect()
+        levels.append(torch.cuda.memory_allocated())
+        check(reply["tokens"] == w, f"{path}: the reply differs from "
+              f"generate on its seed: {reply['tokens']} vs {w}")
+        check(launches[path] == cfg.n_layers,
+              f"{path}: {launches[path]} flash launches for one cold "
+              f"full-width prefill of {cfg.n_layers} layers")
+        check(srv.loaded_variants() == [model],
+              f"{path}: resident {srv.loaded_variants()}")
+    st = srv.multiplex_stats()
+    check(st["loads"] == 3 and st["evictions"] == 2,
+          f"multiplex_stats {st}: expected 3 loads and 2 evictions")
+    # one variant resident after each eviction: the evicted engine's
+    # params and pool are freed (equal shapes: equal allocations)
+    check(all(abs(m - levels[0]) <= 64 << 20 for m in levels),
+          f"device memory {levels} bytes after base, alt, base: an "
+          f"evicted variant was not freed")
+    names = [e.name for e in srv._engines()]
+    check(names == ["v1#0:base"], f"engine names {names}")
+    print(f"[replica mux] base, alt, base again token-exact against "
+          f"generate on each seed; {cfg.n_layers} flash launches per load; "
+          f"multiplex_stats loads {st['loads']}, evictions "
+          f"{st['evictions']}; memory_allocated after each request "
+          f"{levels} bytes on {card}")
+    print(f"[replica mux] variant load ms (params, pool, engine) "
+          f"{[round(x, 3) for x in load_ms]}, evict ms (engine "
+          f"shutdown) {[round(x, 3) for x in evict_ms]} on {card}")
+    return srv
+
+
+def replica_surface(cfg, srv, card: str):
+    """fleet_stats keys, health, drain with a request in flight, then
+    teardown: health False and every block returned."""
+    from ray_tpu_torch.inference import EngineDrainingError
+    from ray_tpu_torch.models import gpt
+
+    st = srv.fleet_stats()
+    check(set(st) == FLEET_STATS_KEYS,
+          f"fleet_stats keys differ from the JAX package's: "
+          f"{sorted(set(st) ^ FLEET_STATS_KEYS)}")
+    check(st["models"] == ["base"] and not st["stopped"]
+          and not st["draining"], f"fleet_stats {st}")
+    check(srv.health() is True, "a live replica reads unhealthy")
+    p = requests(cfg.vocab_size)[3]
+    want = reference_tokens(cfg, gpt.init_params(cfg, 0, device="cuda"),
+                            [p])[0]
+    gen = srv({"prompt": p, "max_tokens": 16, "stream": True,
+               "model": "base"})
+    first = next(gen)                    # admitted and decoding
+    srv.drain()
+    try:
+        srv({"prompt": p, "max_tokens": 4, "model": "base"})
+    except EngineDrainingError as e:
+        print(f"[replica] draining: a new request raises "
+              f"EngineDrainingError ({e})")
+    else:
+        raise SmokeFailure("a draining replica admitted a request")
+    rest = list(gen)
+    toks = [first["token"]] + [c["token"] for c in rest if "token" in c]
+    check(toks == want and rest[-1].get("done"),
+          f"the request in flight during the drain: {toks} vs {want}")
+    check(srv.fleet_stats()["draining"], "fleet_stats misses the drain")
+    engines = srv._engines()
+    srv.teardown()
+    check(srv.health() is False and srv.fleet_stats()["stopped"],
+          "a torn-down replica reads healthy")
+    for eng in engines:
+        assert_blocks_returned(eng, f"replica {eng.name} after teardown")
+    print(f"[replica] fleet_stats has the JAX package's {len(st)} keys; "
+          f"health True; the in-flight request finished token-exact "
+          f"through the drain; after teardown health False, no block "
+          f"referenced")
+
+
+def replica_chaos(cfg, card: str, launches: dict):
+    """Scripted plans in the port's gate on full-width f32 engines."""
+    from ray_tpu_torch.core import fault_injection as fi
+    from ray_tpu_torch.inference import EngineConfig, GPTServer
+    from ray_tpu_torch.models import gpt
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    prompts = requests(cfg.vocab_size)[:3] + [[1, 2, 3, 4] * 12]
+    want = reference_tokens(cfg, params, prompts)
+
+    def reject_all(ctx, n):
+        ctx["reject_all"] = True
+
+    plan = ScriptedPlan({"infer_speculate": reject_all})
+    srv = GPTServer(cfg, EngineConfig(**SPEC_ENGINE, speculate="ngram",
+                                      speculate_k=8), params=params)
+    try:
+        torch.cuda.synchronize()
+        fa.launches = 0                  # this path's run starts here
+        with fi.injected(plan):
+            handles = served(srv, prompts)
+        torch.cuda.synchronize()
+        launches["chaos_reject_all"] = fa.launches  # ... and ends here
+        st = srv.engine_stats()
+        for h, w in zip(handles, want):
+            check(h.error is None and h.tokens == w,
+                  f"reject_all: {h.error} {h.tokens} vs {w}")
+        passes = sum(1 for pt, _ in plan.log if pt == "infer_speculate")
+        check(passes > 0 and st["spec_drafted_tokens"] > 0
+              and st["spec_accepted_tokens"] == 0,
+              f"reject_all: {passes} passes, stats {st}")
+        check(launches["chaos_reject_all"]
+              == cfg.n_layers * st["full_prefills"] > 0,
+              f"reject_all: {launches['chaos_reject_all']} flash launches "
+              f"for {st['full_prefills']} full-width prefills")
+        assert_blocks_returned(srv.engine, "reject_all")
+    finally:
+        srv.teardown()
+    print(f"[chaos] infer_speculate reject_all on {passes} passes: every "
+          f"reply token-exact, {st['spec_drafted_tokens']} drafted, 0 "
+          f"accepted, no leak")
+
+    def alloc_fails(ctx, n):
+        if n == 2:
+            raise RuntimeError("injected block-alloc failure")
+
+    plan = ScriptedPlan({"infer_block_alloc": alloc_fails})
+    srv = GPTServer(cfg, EngineConfig(**SPEC_ENGINE), params=params)
+    try:
+        torch.cuda.synchronize()
+        fa.launches = 0                  # this path's run starts here
+        with fi.injected(plan):
+            handles = served(srv, prompts)
+            gen0 = srv.engine.pool.generation
+            after = served(srv, prompts[:1])
+        torch.cuda.synchronize()
+        launches["chaos_block_alloc"] = fa.launches  # ... and ends here
+        st = srv.engine_stats()
+        failed = [str(h.error) for h in handles]
+        check(all("injected block-alloc failure" in e for e in failed),
+              f"block_alloc: in-flight requests ended with {failed}")
+        check(gen0 == 1, f"block_alloc: pool generation {gen0}, expected "
+              "one reset")
+        check(after[0].error is None and after[0].tokens == want[0],
+              f"block_alloc: the next request {after[0].error} "
+              f"{after[0].tokens} vs {want[0]}")
+        check(launches["chaos_block_alloc"]
+              == cfg.n_layers * st["full_prefills"] > 0,
+              f"block_alloc: {launches['chaos_block_alloc']} flash "
+              f"launches for {st['full_prefills']} full-width prefills")
+        assert_blocks_returned(srv.engine, "block_alloc")
+        admits = [c for pt, c in plan.log if pt == "infer_admit"]
+        check(len(admits) == len(prompts) + 1
+              and all(set(c) == ADMIT_CTX_KEYS
+                      and c["engine"] == srv.engine.name for c in admits),
+              f"infer_admit ctx {admits}")
+    finally:
+        srv.teardown()
+    print(f"[chaos] infer_block_alloc raising on its 2nd call: "
+          f"{len(failed)} requests in flight failed with the injected "
+          f"error, pool generation 0 -> {gen0}, the next request "
+          f"token-exact, no leak; infer_admit ctx {admits[0]}")
+    return params, prompts, want
+
+
+def replica_recorder(cfg, card: str, params, prompts, want,
+                     launches: dict):
+    """The flight recorder armed on the n-gram engine, then decode ms per
+    step on the paged engine with a no-op plan installed and without."""
+    from ray_tpu_torch.core import fault_injection as fi
+    from ray_tpu_torch.core import flight_recorder as fr
+    from ray_tpu_torch.inference import EngineConfig, GPTServer
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    rec = fr.enable()
+    srv = GPTServer(cfg, EngineConfig(**SPEC_ENGINE, speculate="ngram",
+                                      speculate_k=8), params=params)
+    try:
+        torch.cuda.synchronize()
+        fa.launches = 0                  # this path's run starts here
+        handles = served(srv, prompts)
+        torch.cuda.synchronize()
+        launches["recorder_ngram"] = fa.launches  # ... and ends here
+        st = srv.engine_stats()
+    finally:
+        srv.teardown()
+        fr.disable()
+    evs = [e for e in rec.export_ingress() if e["kind"] == "engine_request"]
+    for h, w in zip(handles, want):
+        check(h.error is None and h.tokens == w,
+              f"recorder run: {h.error} {h.tokens} vs {w}")
+    check(len(evs) == len(prompts)
+          and sorted(e["req"] for e in evs) == [h.id for h in handles],
+          f"{len(evs)} engine_request events for {len(prompts)} requests")
+    check(sum(e["spec_accepted"] for e in evs)
+          == st["spec_accepted_tokens"] > 0,
+          f"events accepted {[e['spec_accepted'] for e in evs]}, engine "
+          f"{st['spec_accepted_tokens']}")
+    check(launches["recorder_ngram"] == cfg.n_layers * st["full_prefills"],
+          f"recorder run: {launches['recorder_ngram']} flash launches for "
+          f"{st['full_prefills']} full-width prefills")
+    print(f"[recorder] {len(evs)} engine_request events for {len(prompts)} "
+          f"requests; spec_accepted sum {st['spec_accepted_tokens']} equals "
+          f"the engine's")
+
+    class NoOpPlan:
+        def on_infer(self, point, ctx):
+            pass
+
+    per_step = {}
+    for label in ("none", "no-op plan", "none again", "no-op plan again"):
+        srv = GPTServer(cfg, EngineConfig(**SPEC_ENGINE), params=params)
+        try:
+            with (fi.injected(NoOpPlan()) if "plan" in label
+                  else contextlib.nullcontext()):
+                handles = served(srv, prompts)
+        finally:
+            srv.teardown()
+        per_step[label] = statistics.median(
+            (h.finished_s - h.first_token_s) / (len(h.tokens) - 1) * 1e3
+            for h in handles)
+    print(f"[chaos] decode ms per step (median of {len(prompts)} requests "
+          f"at once, f32) on {card}: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in per_step.items()))
+
+
+def phase_replica_contract(card: str) -> dict:
+    """Multiplexing, the replica surface, chaos and the flight recorder at
+    GPT-2 124M width in f32 with TF32 off.  Returns {path: flash
+    launches}."""
+    from ray_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt.GPTConfig.gpt2_124m(dtype=torch.float32)
+    launches = {}
+    srv = replica_multiplexing(cfg, card, launches)
+    replica_surface(cfg, srv, card)
+    del srv
+    params, prompts, want = replica_chaos(cfg, card, launches)
+    replica_recorder(cfg, card, params, prompts, want, launches)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1452,16 +1814,19 @@ def main() -> int:
     # profiler
     moe_serve_launches = run(phase_moe_serving, card)
     prefix_launches = run(phase_prefix_plane, card)
+    replica_launches = run(phase_replica_contract, card)
     train_launches = run(phase_training, name, card)
     train_launches.update(run(phase_moe_training, name, card))
     # launches on each main path's run: the bf16 serving requests, the
-    # f32 engines' requests, the MoE engines' and the prefix plane's
-    # requests, and the five training steps under each remat policy
+    # f32 engines' requests, the MoE engines', the prefix plane's and the
+    # replica contract's requests, and the five training steps under each
+    # remat policy
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":
             paths = {"serve_bf16": serve_launches, **engine_launches,
-                     **moe_serve_launches, **prefix_launches, **paths}
+                     **moe_serve_launches, **prefix_launches,
+                     **replica_launches, **paths}
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     print(f"[done] {time.perf_counter() - t0:.1f} s on {card}")

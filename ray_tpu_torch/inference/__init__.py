@@ -14,7 +14,10 @@ speculative decoding, and the slot engine: the port of
                   with prefix credit, chunked prefill, preemption,
                   draft-then-verify; or, with ``paged=False``, slot
                   admission; and ``metrics_snapshot``.
-  * serving.py -- GPTServer: the /v1/generate request body, in process.
+  * serving.py -- GPTServer: the /v1/generate replica body (one engine,
+                  or an LRU of per-variant engines), its fleet probe,
+                  drain and teardown; build_gpt_deployment and
+                  parse_stream_chunks.
 """
 
 from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
@@ -36,7 +39,10 @@ from ray_tpu_torch.inference.engine import (PRIORITY_BATCH,
                                             GenerationRequest,
                                             InferenceEngine,
                                             metrics_snapshot)
-from ray_tpu_torch.inference.serving import GPTServer, encode_prompt
+from ray_tpu_torch.inference.serving import (GPTServer,
+                                             build_gpt_deployment,
+                                             encode_prompt,
+                                             parse_stream_chunks)
 
 __all__ = [
     "BlockPool", "KVCacheManager", "RadixIndex",
@@ -47,5 +53,5 @@ __all__ = [
     "EngineConfig", "EngineDrainingError", "EngineStoppedError",
     "GenerationRequest", "InferenceEngine", "PRIORITY_BATCH",
     "PRIORITY_INTERACTIVE", "metrics_snapshot", "GPTServer",
-    "encode_prompt",
+    "build_gpt_deployment", "encode_prompt", "parse_stream_chunks",
 ]

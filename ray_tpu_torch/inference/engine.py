@@ -50,7 +50,11 @@ locally computed prefix.  Extract and install touch the pool and the
 index, which belong to the loop thread, so they run there as queued ops
 between passes (``_run_op``).
 
-Not ported yet: the chaos and flight-recorder hooks, and meshes.
+The fault plane's hooks (``_chaos``: ``infer_admit``,
+``infer_block_alloc``, ``infer_speculate``) and the flight recorder's
+(``_fr_note``: one ``engine_request`` event per finished request) read
+the port's gates in ``ray_tpu_torch.core``; unarmed, each costs one
+global load.
 """
 
 from __future__ import annotations
@@ -66,6 +70,8 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.core import fault_injection as _fi
+from ray_tpu_torch.core import flight_recorder as _fr
 from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
                                            RadixIndex)
 from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
@@ -520,7 +526,7 @@ class InferenceEngine:
         if self._request_finished(req, tok):
             self.cache.free(slot)
             req._finish()
-            self._note_done()
+            self._note_done(req)
             return
         self._slot_req[slot] = req
         self._tokens[slot] = tok
@@ -530,6 +536,34 @@ class InferenceEngine:
             self._peak_active = max(self._peak_active, self.cache.n_active)
 
     # ----------------------------------------------------------- paged path
+
+    def _chaos(self, point: str, **ctx) -> Optional[dict]:
+        """Fault-plane hook (``infer_admit``, ``infer_block_alloc``,
+        ``infer_speculate``): one global load when no plan is installed.
+        Returns the ctx dict when a plan ran; the plan may have set a
+        verdict in it (``ctx["reject_all"] = True``)."""
+        fi = _fi._active
+        if fi is None:
+            return None
+        ctx["engine"] = self.name
+        fi.on_infer(point, ctx)
+        return ctx
+
+    def _fr_note(self, req: GenerationRequest) -> None:
+        """Flight-recorder copy of a finished request (armed only): an
+        ``engine_request`` event, one engine slice per request on the
+        timeline, with its speculation counts."""
+        rec = _fr._active
+        if rec is None:
+            return
+        rec.note_ingress({
+            "t": time.time(), "kind": "engine_request",
+            "engine": self.name, "req": req.id,
+            "start_t": req.created_wall,
+            "tokens": len(req.tokens),
+            "spec_accepted": req.spec_accepted,
+            "spec_rejected": req.spec_drafted - req.spec_accepted,
+        })
 
     def _paged_admit_locked(self) -> None:
         """Block-budget admission (under ``_cond``): admit while a row is
@@ -566,6 +600,13 @@ class InferenceEngine:
             for bid in ids:
                 self.pool.decref(bid)
             return False
+        try:
+            self._chaos("infer_admit", req=req.id, need=need,
+                        hit_tokens=hit)
+        except BaseException:
+            for bid in ids:
+                self.pool.decref(bid)
+            raise
         row = self._free_rows.pop()
         blocks = list(ids)
         for _ in range(need):
@@ -587,6 +628,7 @@ class InferenceEngine:
         eviction, else preempt the youngest lowest-priority occupied row
         (``row`` itself last).  None = ``row`` was the victim."""
         while True:
+            self._chaos("infer_block_alloc", row=row)
             bid = self.pool.alloc()
             if bid is not None:
                 return bid
@@ -699,7 +741,7 @@ class InferenceEngine:
         if req.cancelled:                  # abandoned mid-prefill
             self._release_row(row)
             req._finish()
-            self._note_done()
+            self._note_done(req)
             return
         pos = self._prefilling[row]
         bs = self.pool.block_size
@@ -918,6 +960,11 @@ class InferenceEngine:
         drafts, want = self._spec_propose()
         if not want.any():
             return False
+        # a plan may force every draft to be rejected: verify still runs
+        # and emits the plain step's token, and the rollback path runs
+        ctx = self._chaos("infer_speculate", rows=int((want > 0).sum()),
+                          drafted=int(want.sum()))
+        force_reject = ctx is not None and bool(ctx.get("reject_all"))
         n = self.engine_cfg.max_slots
         W = self.engine_cfg.speculate_k + 1
         tok_mat = np.zeros((n, W), np.int64)
@@ -969,7 +1016,8 @@ class InferenceEngine:
                 if self._request_finished(req, tok):
                     finished = True       # EOS / max_new mid-burst
                     break
-                if j < w and int(drafts[row, j]) == tok:
+                if j < w and not force_reject \
+                        and int(drafts[row, j]) == tok:
                     accepted += 1         # lane j+1's input was right
                     continue
                 break                     # first mismatch: corrected
@@ -1058,7 +1106,7 @@ class InferenceEngine:
                                 self._sequence(req)[:self._valid_len(row)])
         self._release_row(row)
         req._finish()
-        self._note_done()
+        self._note_done(req)
 
     # ------------------------------------------------------------ slot path
 
@@ -1083,7 +1131,7 @@ class InferenceEngine:
         self._active[slot] = False
         self.cache.free(slot)
         req._finish()
-        self._note_done()
+        self._note_done(req)
         with self._cond:
             self._cond.notify_all()   # wake the loop: admits may be waiting
 
@@ -1094,9 +1142,10 @@ class InferenceEngine:
         return (len(req.tokens) >= req.max_new
                 or (eos is not None and tok == eos))
 
-    def _note_done(self) -> None:
+    def _note_done(self, req: GenerationRequest) -> None:
         with self._mlock:
             self._requests_completed += 1
+        self._fr_note(req)
 
     def _fail_all(self, e: BaseException) -> None:
         """A failed step leaves the cache's content in doubt: fail the
