@@ -16,11 +16,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    at the serving path's shape and at cross-length, ragged (kv 77 too),
    decode-like (q 1 / kv 1000), key-less-row (q 300 / kv 100: output 0,
    lse -inf), strided, misaligned (a view at a 1-element offset, which
-   the bf16 route copies), non-causal and wider-head shapes, in bf16 and
-   f32; prints the kernel's, the plain version's and SDPA's times and
-   the bound (device time, and time per call), and the f32 kernel's, its
-   plain version's and f32 SDPA's device time at the serving path's
-   shape;
+   the bf16 route copies), non-causal, wider-head and BERT-base training
+   ([32, 12, 512, 64] non-causal) shapes, in bf16 and f32; prints the
+   kernel's, the plain version's and SDPA's times and the bound (device
+   time, and time per call), and the f32 kernel's, its plain version's
+   and f32 SDPA's device time at the serving path's shape, and the bf16
+   times at the BERT-base shape;
 3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
    and 256, ragged (kv 77 too), cross-length, decode-like (q 1 / kv
@@ -28,8 +29,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    cotangent and 1-element-offset views (which the bf16 route copies);
    autograd through the flash op against autograd through plain
    attention; times at the training shape [16, 12, 1024, 64] bf16 causal
-   (device time, and time per call) beside the bound, the plain versions
-   and SDPA's backward;
+   and at BERT-base's [32, 12, 512, 64] bf16 non-causal (device time, and
+   time per call) beside the bound, the plain versions and SDPA's
+   backward;
 4. the serving slice in f32: GPTServer at GPT-2 124M width from seeded
    random weights answers a cold 600-token prompt (full-width prefill on
    the flash kernel) and three short ones (two share a 48-token head);
@@ -106,9 +108,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    event per finished request, whose ``spec_accepted`` sum to the
    engine's accepted tokens.  Prints decode ms per step with a no-op
    plan installed beside the same run with none.
+12. the other models.  In f32 with TF32 off (cuDNN's too), on the card
+   against the same call on the CPU within 1e-4 (1 + the largest
+   value): ResNet tiny at 16x16 and 15x15 and ResNet-50 at width 8 with
+   the ImageNet stem at 64x64, train=True and train=False (logits and BN
+   state); ActorCritic fcnet, visionnet (84x84x4 uint8), lstm (two
+   windows, carry threaded) and gtrxl at their published widths, and the
+   MLP; none may launch a flash kernel.  ResNet-18 at CIFAR-10 widths,
+   b256 bf16, five hand-written AdamW steps with the BN state carried
+   and ten timed: the loss must fall, every running stat move, and
+   train=False leave the state equal.  BERT-base, b32 s512 bf16, remat
+   on: five make_train_step steps of AdamW(1e-4, weight_decay=0.01) and
+   ten timed, each launching the flash forward 24 times and each
+   backward kernel 12 times, finite and falling loss, step 1 against
+   plain attention as in phase 7; a batch with the last 64 positions of
+   half its rows padded launches no kernel and gives a finite loss; on
+   a tiny f32 config with head dim 64 the loss without a mask (the
+   kernel) equals the loss with an all-ones mask (plain attention)
+   within 1e-5.  Prints step ms, images/s or tokens/s and MFU, and the
+   kernel share of a profiled BERT step.
 
-``main`` runs phases 8, 10 and 11 before phase 7: no serving phase runs
-after the profiler.  The line before the last is the kernels' JSON
+``main`` runs phases 8, 10, 11 and 12 before phase 7: no serving phase
+runs after the profiler.  The line before the last is the kernels' JSON
 record; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -141,6 +162,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16 logits of the served model: flash vs plain-attention prefill
 BF16_LOGIT_TOL = 0.125
 SEED = 0
+# [batch, heads, seq, head dim] of phase 12's BERT-base step
+BERT_SHAPE = (32, 12, 512, 64)
 
 
 class SmokeFailure(RuntimeError):
@@ -361,6 +384,7 @@ def phase_kernels(name: str, card: str) -> dict:
         ("ragged kv77 non-causal", 2, 3, 40, 77, 64, False, True),
         ("training shape", 16, 12, 1024, 1024, 64, True, True),
         ("prefix plane width", 1, 12, 896, 896, 64, True, False),
+        ("BERT-base training shape", 32, 12, 512, 512, 64, False, True),
     ]
     path_err = None
     for dtype in (torch.bfloat16, torch.float32):
@@ -382,6 +406,8 @@ def phase_kernels(name: str, card: str) -> dict:
                       f"{TOL[dtype]}")
             if label == "path" and dtype == torch.bfloat16:
                 path_err = err
+            if label.startswith("BERT") and dtype == torch.bfloat16:
+                bert_err = err
 
     # q, k, v as the model hands them over: strided views of one qkv
     qkv = rand((1, 1024, 3 * 768), torch.bfloat16)
@@ -461,7 +487,40 @@ def phase_kernels(name: str, card: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "f32_ms": ms32, "f32_bound_ms": bound32,
-            "f32_plain_ms": plain32, "f32_library_ms": lib32}
+            "f32_plain_ms": plain32, "f32_library_ms": lib32,
+            "bert_shape": bert_forward_times(name, card, rand, bert_err)}
+
+
+def bert_forward_times(name: str, card: str, rand, err: float) -> dict:
+    """The flash forward at BERT-base's training shape, [32, 12, 512, 64]
+    bf16 non-causal (what every layer of phase 12's BERT step launches;
+    ``err`` is its error against the plain version there): device ms of
+    the kernel, its plain version and SDPA, and the bound."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops.flash_attention import (flash_attention,
+                                                   flash_attention_reference)
+
+    b, h, s, d = BERT_SHAPE
+    q, k, v = (rand((b, h, s, d), torch.bfloat16) for _ in range(3))
+    ms = device_ms(lambda: flash_attention(q, k, v, causal=False))
+    plain_ms = device_ms(lambda: flash_attention_reference(
+        q, k, v, causal=False), 3)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+    bw, flops = rates(name)
+    nbytes, nflop = attention_work(b, h, s, s, d, False, 2)
+    t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
+    bound = max(t_bytes, t_ops)
+    print(f"[kernel] flash_fwd [{b},{h},{s},{d}] bf16 non-causal (BERT-base "
+          f"training) on {card}: kernel {ms:.4f} ms "
+          f"({nflop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {bound:.5f} ms ({nbytes / 1e6:.2f} MB -> "
+          f"{t_bytes:.5f} ms, {nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms), "
+          f"max_abs_err {err:.3e}")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": err}
 
 
 def forward_err(label, out, lse, q, k, v, causal) -> float:
@@ -864,8 +923,6 @@ def grad_err(got, ref, dtype):
 
 
 def phase_backward_kernels(name: str, card: str) -> list:
-    import torch.nn.functional as F
-
     from ray_tpu_torch.ops.attention import mha_reference
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
@@ -917,8 +974,9 @@ def phase_backward_kernels(name: str, card: str) -> list:
         ("decode-like q1/kv1000", 1, 12, 1, 1000, 64, True),
         ("ragged kv77", 1, 12, 77, 77, 64, True),
         ("ragged kv77 non-causal", 2, 3, 40, 77, 64, False),
+        ("BERT-base training shape", 32, 12, 512, 512, 64, False),
     ]
-    path_err = {}
+    path_err, bert_err = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, h, sq, skv, d, causal in cases:
             q, do = (rand((b, h, sq, d), dtype) for _ in range(2))
@@ -930,6 +988,8 @@ def phase_backward_kernels(name: str, card: str) -> list:
                               f"causal={causal}", dtype, got, ref)
             if label == "path" and dtype == torch.bfloat16:
                 path_err = {"flash_bwd_kv": e_kv, "flash_bwd_dq": e_dq}
+            if label.startswith("BERT") and dtype == torch.bfloat16:
+                bert_err = {"flash_bwd_kv": e_kv, "flash_bwd_dq": e_dq}
 
     # as the model hands them over: q, k, v strided views of one qkv
     # projection; do a transposed view of a [b, s, h, d] gradient, and
@@ -975,53 +1035,80 @@ def phase_backward_kernels(name: str, card: str) -> list:
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"autograd d{nm} differs from plain attention by {err}")
 
-    # times at the training shape, [16, 12, 1024, 64] bf16 causal
-    b, h, s, d = 16, 12, 1024, 64
+    # times at the training shape, [16, 12, 1024, 64] bf16 causal, and at
+    # BERT-base's, [32, 12, 512, 64] bf16 non-causal
+    times = backward_times(name, card, rand, 16, 12, 1024, 64, True)
+    bert = backward_times(name, card, rand, *BERT_SHAPE, False)
+    entries = []
+    for kname, line in (("flash_bwd_kv", 192), ("flash_bwd_dq", 238)):
+        t = times[kname]
+        entries.append({
+            "name": kname, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
+            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
+            "launches": None, "max_abs_err": path_err[kname],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "bert_shape": {**bert[kname], "max_abs_err": bert_err[kname]}})
+    return entries
+
+
+def backward_times(name, card, rand, b, h, s, d, causal) -> dict:
+    """Device ms of both backward kernels on one bf16 shape beside their
+    bound, their plain versions and SDPA's backward (its forward +
+    backward minus its forward), and the forward's against SDPA's:
+    {kernel: {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}."""
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    shape = f"[{b},{h},{s},{d}] bf16 {'causal' if causal else 'non-causal'}"
     q, k, v, do = (rand((b, h, s, d), torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
-    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
     delta = fa._delta(out, do)
-    fwd_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
-    fwd_call = time_ms(lambda: fa.flash_attention(q, k, v, causal=True),
+    fwd_ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
+    fwd_call = time_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
                        reps=5, inner=3)
     fwd_plain_ms = time_ms(lambda: fa.flash_attention_reference(
-        q, k, v, causal=True), reps=3, inner=2)
+        q, k, v, causal=causal), reps=3, inner=2)
     calls = {"flash_bwd_kv": lambda: fa._launch_bwd_kv(
-                 q, k, v, do, lse, delta, scale, True),
+                 q, k, v, do, lse, delta, scale, causal),
              "flash_bwd_dq": lambda: fa._launch_bwd_dq(
-                 q, k, v, do, lse, delta, scale, True)}
+                 q, k, v, do, lse, delta, scale, causal)}
     ms = {kname: device_ms(fn) for kname, fn in calls.items()}
     call_ms = {kname: time_ms(fn, reps=5, inner=3)
                for kname, fn in calls.items()}
     plain_ms = {
         "flash_bwd_kv": time_ms(lambda: fa._bwd_kv_reference(
-            q, k, v, do, lse, delta, scale, True, 512, 512), reps=3, inner=2),
+            q, k, v, do, lse, delta, scale, causal, 512, 512), reps=3,
+            inner=2),
         "flash_bwd_dq": time_ms(lambda: fa._bwd_dq_reference(
-            q, k, v, do, lse, delta, scale, True, 512, 512), reps=3, inner=2)}
-    # SDPA's backward: its forward + backward minus its forward
+            q, k, v, do, lse, delta, scale, causal, 512, 512), reps=3,
+            inner=2)}
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
 
     def sdpa():
-        return F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal)
 
     sdpa_call = time_ms(lambda: sdpa().detach(), reps=5, inner=3)
     sdpa_fwd = device_ms(lambda: sdpa().detach())
     sdpa_both = device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do))
     lib_ms = sdpa_both - sdpa_fwd
     bw, flops = rates(name)
-    fb, ff = attention_work(b, h, s, s, d, True, 2)
-    print(f"[kernel] flash_fwd [16,12,1024,64] bf16 causal on {card}: "
+    fb, ff = attention_work(b, h, s, s, d, causal, 2)
+    print(f"[kernel] flash_fwd {shape} on {card}: "
           f"kernel {fwd_ms:.4f} ms ({ff / fwd_ms / 1e9:.1f} TFLOP/s; per "
           f"call {fwd_call:.4f} ms), plain {fwd_plain_ms:.4f} ms, SDPA "
           f"{sdpa_fwd:.4f} ms (per call {sdpa_call:.4f}), bound "
           f"{max(fb / bw, ff / flops) * 1e3:.5f} ms"
           f" ({'bytes' if fb / bw >= ff / flops else 'operations'})")
-    entries = []
-    for kname, line in (("flash_bwd_kv", 192), ("flash_bwd_dq", 238)):
-        nbytes, nflop = backward_work(kname, b, h, s, s, d, True, 2)
+    out = {}
+    for kname in calls:
+        nbytes, nflop = backward_work(kname, b, h, s, s, d, causal, 2)
         t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
         bound = max(t_bytes, t_ops)
-        print(f"[kernel] {kname} [16,12,1024,64] bf16 causal on {card}: "
+        print(f"[kernel] {kname} {shape} on {card}: "
               f"kernel {ms[kname]:.4f} ms ({nflop / ms[kname] / 1e9:.1f} "
               f"TFLOP/s; per call {call_ms[kname]:.4f} ms), plain "
               f"{plain_ms[kname]:.4f} ms (CUDA events),"
@@ -1029,23 +1116,22 @@ def phase_backward_kernels(name: str, card: str) -> list:
               f"{sdpa_both:.4f} - fwd {sdpa_fwd:.4f}), bound {bound:.5f} ms "
               f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
               f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms)")
-        entries.append({
-            "name": kname, "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/flash_bwd.cu",
-            "replaces": f"ray_tpu/ops/flash_attention.py:{line}",
-            "launches": None, "max_abs_err": path_err[kname],
-            "ms": ms[kname], "plain_ms": plain_ms[kname], "bound_ms": bound,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms})
+        out[kname] = {"ms": ms[kname], "plain_ms": plain_ms[kname],
+                      "library_ms": lib_ms, "bound_ms": bound,
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations"}
     both = ms["flash_bwd_kv"] + ms["flash_bwd_dq"]
-    print(f"[kernel] flash_bwd_kv + flash_bwd_dq {both:.4f} ms against SDPA's "
-          f"backward {lib_ms:.4f} ms: {both / lib_ms:.2f}x")
-    return entries
+    print(f"[kernel] flash_bwd_kv + flash_bwd_dq {shape} {both:.4f} ms "
+          f"against SDPA's backward {lib_ms:.4f} ms: {both / lib_ms:.2f}x")
+    return out
 
 
-def train_run(cfg, params, batch, steps, timed=0, label="train"):
+def train_run(cfg, params, batch, steps, timed=0, label="train",
+              loss_fn=None, tx=None):
     """``steps`` make_train_step steps on one batch from a copy of
     ``params``, then ``timed`` more and one under torch.profiler.  The
+    loss is ``loss_fn(params, batch, cfg)`` (the GPT's by default) and the
+    optimizer ``tx`` (AdamW(3e-4, weight_decay=0.1) by default).  The
     launch counters are zeroed just before the first step and read after
     each of the ``steps``.  Returns (losses, grad norms, step ms from
     CUDA events over all steps, per-step launches of (flash_fwd,
@@ -1057,8 +1143,9 @@ def train_run(cfg, params, batch, steps, timed=0, label="train"):
     from ray_tpu_torch.train import adamw, make_train_step
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
-    init_fn, step_fn = make_train_step(lambda p, b: gpt.loss_fn(p, b, cfg),
-                                       adamw(3e-4, weight_decay=0.1))
+    loss_fn = loss_fn or gpt.loss_fn
+    init_fn, step_fn = make_train_step(
+        lambda p, b: loss_fn(p, b, cfg), tx or adamw(3e-4, weight_decay=0.1))
     state = init_fn(params)
     n = steps + timed
     events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
@@ -1093,7 +1180,7 @@ def train_run(cfg, params, batch, steps, timed=0, label="train"):
             kernel_ms[kname] = sum(e.self_device_time_total for e in cuda
                                    if f"{kname}_kernel<" in e.key) / 1e3
         top = sorted(cuda, key=lambda e: -e.self_device_time_total)[:8]
-        print(f"[{label} {cfg.remat_policy}] profiled step, top kernels by "
+        print(f"[{label}] profiled step, top kernels by "
               f"device ms: " + "; ".join(
                   f"{e.key[:70]} x{e.count} "
                   f"{e.self_device_time_total / 1e3:.3f}" for e in top))
@@ -1139,7 +1226,7 @@ def train_policies(name: str, card: str, base, params, n_flop_params: int,
     for policy, fwd_per_step in (("dots", 2 * L), ("dots_flash", L)):
         cfg = dataclasses.replace(base, remat_policy=policy)
         losses, norms, step_ms, counts, kernel_ms = train_run(
-            cfg, params, batch, steps, timed=10, label=label)
+            cfg, params, batch, steps, timed=10, label=f"{label} {policy}")
         steady = statistics.median(step_ms[steps:])
         tps = batch_n * seq / (steady / 1e3)
         print(f"[{label} {policy}] b{batch_n} s{seq} bf16 on {card}: losses "
@@ -1791,6 +1878,340 @@ def phase_replica_contract(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ other models
+
+def f32_err(got, ref):
+    """(max abs error, whether it is within 1e-4 (1 + max |ref|)): an f32
+    result on the card against the same call on the CPU."""
+    err = (got.detach().cpu().float() - ref.float()).abs().max().item()
+    return err, err <= 1e-4 * (1 + ref.abs().max().item())
+
+
+def held_f32(label: str, pairs) -> None:
+    """Check every (got on the card, ref on the CPU) pair with f32_err."""
+    worst, scale = 0.0, 0.0
+    for got, ref in pairs:
+        err, ok = f32_err(got, ref)
+        check(bool(torch.isfinite(got).all()), f"{label}: non-finite output")
+        check(ok, f"{label}: card and CPU differ by {err} (scale "
+                  f"{ref.abs().max().item():.3g})")
+        worst = max(worst, err)
+        scale = max(scale, ref.abs().max().item())
+    print(f"[models] {label}: card vs CPU f32 max_abs_err {worst:.3e} "
+          f"(bound 1e-4 x (1 + {scale:.3g})) ok")
+
+
+def flash_launches():
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    return (fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches)
+
+
+def to_card(tree):
+    from ray_tpu_torch.models.convert import _map
+
+    return _map(lambda t: t.to("cuda"), tree)
+
+
+def resnet_parity(card: str):
+    """ResNet tiny at 16x16 and 15x15 (even and odd SAME padding) and
+    ResNet-50 at width 8 with the ImageNet stem at 64x64 (7x7/2 conv, -inf
+    max-pool), train=True and then train=False on the stats it returned:
+    logits and BN state on the card against the CPU."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.models.convert import _leaves
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+    cases = [("tiny 16x16", resnet.ResNetConfig.tiny(num_classes=4), 16),
+             ("tiny 15x15", resnet.ResNetConfig.tiny(num_classes=4), 15),
+             ("resnet50 width 8 64x64", resnet.ResNetConfig.resnet50(
+                 num_filters=8, cifar_stem=False, dtype=torch.float32), 64)]
+    for label, cfg, size in cases:
+        params, state = resnet.init_params(cfg, SEED, device="cpu")
+        x = torch.randn((4, size, size, 3), generator=gen)
+        outs = {}
+        with torch.no_grad():
+            for dev, (p, st, xx) in (
+                    ("cpu", (params, state, x)),
+                    ("cuda", (to_card(params), to_card(state),
+                              x.to("cuda")))):
+                logits, st1 = resnet.forward(p, st, xx, cfg, train=True)
+                ev, st2 = resnet.forward(p, st1, xx, cfg, train=False)
+                check(all(a is b for a, b in zip(_leaves(st1),
+                                                  _leaves(st2))),
+                      f"resnet {label}: train=False changed the state")
+                outs[dev] = [logits, ev, *_leaves(st1)]
+        held_f32(f"resnet {label} (logits train/eval, BN state)",
+                 zip(outs["cuda"], outs["cpu"]))
+
+
+def resnet18_training(card: str):
+    """ResNet-18 at CIFAR-10 widths, bf16 activations and f32 params, b256
+    of seeded random 32x32x3 images and labels: 5 checked hand-written
+    steps (value and grad of loss_fn's loss, AdamW(1e-3) over the leaves,
+    the BN state carried) and 10 timed."""
+    from ray_tpu_torch.models import resnet
+    from ray_tpu_torch.models.convert import _leaves, _map
+    from ray_tpu_torch.train import adamw
+
+    cfg = resnet.ResNetConfig.resnet18(num_classes=10)
+    params, state = resnet.init_params(cfg, SEED)
+    params = _map(lambda t: t.requires_grad_(True), params)
+    leaves = _leaves(params)
+    opt = adamw(1e-3)(leaves)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    batch = {"x": torch.randn((256, 32, 32, 3), generator=gen,
+                              device="cuda"),
+             "y": torch.randint(0, 10, (256,), generator=gen,
+                                device="cuda")}
+    state0 = _map(lambda t: t.clone(), state)
+
+    def step(state):
+        loss, (state, _) = resnet.loss_fn(params, state, batch, cfg)
+        for p, g in zip(leaves, torch.autograd.grad(loss, leaves)):
+            p.grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+        return loss.detach(), state
+
+    losses, steps, timed = [], 5, 10
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(steps + timed + 1)]
+    events[0].record()
+    for i in range(steps + timed):
+        loss, state = step(state)
+        events[i + 1].record()
+        if i < steps:
+            losses.append(loss)
+    torch.cuda.synchronize()
+    losses = [x.item() for x in losses]
+    step_ms = [events[i].elapsed_time(events[i + 1])
+               for i in range(steps + timed)]
+    steady = statistics.median(step_ms[steps:])
+    print(f"[models] resnet18 CIFAR-10 widths b256 bf16 on {card}: "
+          f"{resnet.num_params(params)} params, losses "
+          f"{[round(x, 5) for x in losses]}; steady step (median of 10) "
+          f"{steady:.3f} ms, {256 / (steady / 1e3):.1f} images/s; step ms "
+          f"{[round(x, 3) for x in step_ms]}")
+    check(all(np.isfinite(losses)), f"resnet18: non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"resnet18: loss did not fall over "
+          f"{steps} steps on one batch: {losses}")
+    moved = [not torch.equal(a, b)
+             for a, b in zip(_leaves(state), _leaves(state0))]
+    check(all(moved), f"resnet18: {moved.count(False)} running stats "
+          f"did not move")
+    with torch.no_grad():
+        _, st = resnet.forward(params, state, batch["x"], cfg, train=False)
+    check(all(torch.equal(a, b) for a, b in zip(_leaves(st),
+                                                  _leaves(state))),
+          "resnet18: train=False changed the running stats")
+    print("[models] resnet18: loss falls, every running stat moved, "
+          "train=False leaves the state equal")
+
+
+def bert_batch(cfg, b: int, s: int, seed: int) -> dict:
+    """Seeded tokens with 15% of positions labelled, the rest
+    ``ignore_index``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device="cuda")
+    picked = torch.rand((b, s), generator=gen, device="cuda") < 0.15
+    return {"input_ids": ids,
+            "labels": torch.where(picked, ids, cfg.ignore_index)}
+
+
+def bert_training(name: str, card: str) -> dict:
+    """BERT-base (vocab 30592, 12 layers, d 768, 12 heads, d_ff 3072, bf16
+    activations, f32 params, remat on), b32 s512: make_train_step with
+    AdamW(1e-4, weight_decay=0.01), 5 checked steps and 10 timed.  Every
+    step must launch the flash forward 24 times (12 + 12 recomputed) and
+    each backward kernel 12 times; loss and grad_norm finite, the loss
+    falling, step 1 within 5e-3 / 5e-2 of plain attention; a padded batch
+    launches nothing.  Returns {path: [flash_fwd, flash_bwd_kv,
+    flash_bwd_dq launches]}."""
+    from ray_tpu_torch.models import bert
+    from ray_tpu_torch.train import adamw
+
+    cfg = bert.BERTConfig.bert_base()
+    L, d, (b, _, s, _) = cfg.n_layers, cfg.d_model, BERT_SHAPE
+    params = bert.init_params(cfg, SEED)
+    n_params = bert.num_params(params)
+    batch = bert_batch(cfg, b, s, SEED + 8)
+    tx = adamw(1e-4, weight_decay=0.01)
+    steps = 5
+    losses, norms, step_ms, counts, kernel_ms = train_run(
+        cfg, params, batch, steps, timed=10, label="train_bert",
+        loss_fn=bert.loss_fn, tx=tx)
+    steady = statistics.median(step_ms[steps:])
+    tps = b * s / (steady / 1e3)
+    flops_per_token = 6 * n_params + 12 * L * d * s
+    peak = rates(name)[1]
+    print(f"[train_bert] BERT-base {n_params} params, b{b} s{s} bf16 remat "
+          f"on {card}: losses {[round(x, 5) for x in losses]}, grad norms "
+          f"{[round(x, 5) for x in norms]}")
+    print(f"[train_bert] step ms {[round(x, 3) for x in step_ms]}; steady "
+          f"step (median of the last 10) {steady:.3f} ms, {tps:.1f} "
+          f"tokens/s, MFU {flops_per_token * tps / peak:.4f} "
+          f"({flops_per_token} FLOPs per token of {peak:.3g} FLOP/s)")
+    print(f"[train_bert] one profiled step, device ms per kernel and share "
+          f"of the steady step: " + (", ".join(
+              f"{k} {v:.3f} ({v / steady:.3f})" for k, v in kernel_ms.items())
+              if kernel_ms["all kernels"] > 0 else "not measured (the "
+              "profiler saw no device time)"))
+    print(f"[train_bert] launches per step (flash_fwd, flash_bwd_kv, "
+          f"flash_bwd_dq): {counts}")
+    for c in counts:
+        check(c == (2 * L, L, L), f"train_bert: a step launched {c}, "
+              f"expected ({2 * L}, {L}, {L})")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "train_bert: non-finite loss or grad norm")
+    check(losses[-1] < losses[0], f"train_bert: loss did not fall over "
+          f"{steps} steps on one batch: {losses}")
+    launches = {"train_bert": [sum(c[i] for c in counts) for i in range(3)]}
+
+    # step 1 on plain attention, the same params and batch (phase 7's
+    # bf16 bound)
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    ref_losses, ref_norms, _, ref_counts, _ = train_run(
+        ref_cfg, params, batch, 1, loss_fn=bert.loss_fn, tx=tx)
+    check(ref_counts == [(0, 0, 0)], f"plain attention launched {ref_counts}")
+    dl = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    dn = abs(norms[0] - ref_norms[0]) / abs(ref_norms[0])
+    ok = dl <= 5e-3 and dn <= 5e-2
+    print(f"[train_bert] step 1 vs plain attention: loss {losses[0]:.6f} vs "
+          f"{ref_losses[0]:.6f} (rel {dl:.2e}, bound 5e-3), grad_norm "
+          f"{norms[0]:.6f} vs {ref_norms[0]:.6f} (rel {dn:.2e}, bound 5e-2) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "train_bert: step 1 disagrees with plain attention")
+
+    # a padded batch: the last 64 positions of half the rows masked; it
+    # takes plain attention and launches no kernel
+    mask = torch.ones((b, s), dtype=torch.long, device="cuda")
+    mask[: b // 2, -64:] = 0
+    masked = {**batch, "attention_mask": mask}
+    m_losses, m_norms, _, m_counts, _ = train_run(
+        cfg, params, masked, 1, label="bert_masked", loss_fn=bert.loss_fn,
+        tx=tx)
+    print(f"[train_bert] padded batch: loss {m_losses[0]:.6f}, grad_norm "
+          f"{m_norms[0]:.6f}, launches {m_counts}")
+    check(m_counts == [(0, 0, 0)], f"the padded batch launched {m_counts}")
+    check(np.isfinite(m_losses[0]) and np.isfinite(m_norms[0]),
+          "the padded batch gave a non-finite loss")
+    launches["bert_masked"] = list(m_counts[0])
+    del params
+    torch.cuda.empty_cache()
+
+    # the JAX package's mask check in f32 on a tiny config whose head dim
+    # (64) and length (128) take the f32 flash kernel: the loss without a
+    # mask (the kernel) equals the loss with an all-ones mask (plain
+    # attention)
+    tiny = bert.BERTConfig.tiny(d_model=128, n_heads=2)
+    tp = bert.init_params(tiny, SEED)
+    tb = bert_batch(tiny, 4, 128, SEED + 9)
+    with torch.no_grad():
+        n0 = flash_launches()
+        plain = bert.loss_fn(tp, tb, tiny).item()
+        n1 = flash_launches()
+        ones = bert.loss_fn(tp, {**tb, "attention_mask": torch.ones_like(
+            tb["input_ids"])}, tiny).item()
+        n2 = flash_launches()
+    rel = abs(plain - ones) / abs(ones)
+    print(f"[train_bert] tiny f32 (d 128, 2 heads, s 128): loss without a "
+          f"mask {plain:.7f} ({n1[0] - n0[0]} flash launches) vs all-ones "
+          f"mask {ones:.7f} ({n2[0] - n1[0]}), rel {rel:.2e} (bound 1e-5)")
+    check(n1[0] - n0[0] == tiny.n_layers and n2 == n1,
+          f"tiny BERT launches {n0} -> {n1} -> {n2}")
+    check(rel <= 1e-5, f"tiny BERT: all-ones mask loss differs by {rel}")
+    return launches
+
+
+def rl_and_mlp_parity(card: str):
+    """ActorCritic of each kind and the MLP at their published widths in
+    f32 on the card against the CPU: fcnet obs (4,) hiddens (256, 256)
+    b256; visionnet 84x84x4 uint8, 6 actions, b64 (Atari PPO's policy);
+    lstm cell 256, b32, two windows of T 32 with the carry threaded;
+    gtrxl attn_dim 64, 2 layers, b32 T64; MLP 784-128-128-10 b256
+    forward and loss.  Prints forward ms per batch (CUDA events per
+    call)."""
+    from ray_tpu_torch.models import mlp, zoo
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    cases = [("fcnet", dict(kind="fcnet", obs_shape=(4,)), (256, 4)),
+             ("visionnet", dict(kind="visionnet", obs_shape=(84, 84, 4),
+                                num_actions=6), (64, 84, 84, 4)),
+             ("lstm", dict(kind="lstm", obs_shape=(4,), cell_size=256),
+              (32, 32, 4)),
+             ("gtrxl", dict(kind="gtrxl", obs_shape=(4,), attn_dim=64,
+                            attn_layers=2), (32, 64, 4))]
+    for label, kw, shape in cases:
+        ac = zoo.ActorCritic(zoo.ModelConfig(**kw))
+        params = ac.init(SEED, device="cpu")
+        if ac.cfg.kind == "visionnet":
+            obs = torch.randint(0, 256, shape, generator=gen,
+                                dtype=torch.uint8)
+        else:
+            obs = torch.randn(shape, generator=gen)
+        card_params, card_obs = to_card(params), obs.to("cuda")
+        with torch.no_grad():
+            if ac.is_recurrent:
+                second = obs + 0.5
+                outs = {}
+                for dev, p, o1, o2 in (
+                        ("cpu", params, obs, second),
+                        ("cuda", card_params, card_obs, second.to("cuda"))):
+                    l1, v1, st = ac.apply_seq(p, o1)
+                    l2, v2, st = ac.apply_seq(p, o2, st)
+                    outs[dev] = [l1, v1, l2, v2] + (list(st) if st else [])
+
+                def fwd():
+                    return ac.apply_seq(card_params, card_obs)
+            else:
+                outs = {dev: list(ac.apply(p, o)) for dev, p, o in (
+                    ("cpu", params, obs), ("cuda", card_params, card_obs))}
+
+                def fwd():
+                    return ac.apply(card_params, card_obs)
+            held_f32(f"ActorCritic {label} {list(shape)}",
+                     zip(outs["cuda"], outs["cpu"]))
+            print(f"[models] ActorCritic {label} {list(shape)} forward on "
+                  f"{card}: {time_ms(fwd, reps=5, inner=3):.4f} ms per batch")
+
+    cfg = mlp.MLPConfig()
+    params = mlp.init_params(cfg, SEED, device="cpu")
+    batch = {"x": torch.randn((256, cfg.in_dim), generator=gen),
+             "y": torch.randint(0, cfg.out_dim, (256,), generator=gen)}
+    card_params = to_card(params)
+    card_batch = {k: v.to("cuda") for k, v in batch.items()}
+    with torch.no_grad():
+        held_f32("MLP 784-128-128-10 b256 (logits, loss)", [
+            (mlp.forward(card_params, card_batch["x"], cfg),
+             mlp.forward(params, batch["x"], cfg)),
+            (mlp.loss_fn(card_params, card_batch, cfg),
+             mlp.loss_fn(params, batch, cfg))])
+        ms = time_ms(lambda: mlp.forward(card_params, card_batch["x"], cfg),
+                     reps=5, inner=3)
+    print(f"[models] MLP b256 forward on {card}: {ms:.4f} ms per batch")
+
+
+def phase_other_models(name: str, card: str) -> dict:
+    """ResNet, BERT, the RL catalog and the MLP.  The parity parts run in
+    f32 with TF32 off (cuDNN's TF32 too) and must launch no flash kernel;
+    BERT-base trains on the kernels.  Returns {path: [flash_fwd,
+    flash_bwd_kv, flash_bwd_dq launches]}."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    n0 = flash_launches()
+    resnet_parity(card)
+    resnet18_training(card)
+    check(flash_launches() == n0, f"ResNet launched flash kernels: {n0} -> "
+          f"{flash_launches()}")
+    launches = bert_training(name, card)
+    n0 = flash_launches()
+    rl_and_mlp_parity(card)
+    check(flash_launches() == n0, f"the RL trunks or the MLP launched flash "
+          f"kernels: {n0} -> {flash_launches()}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1815,12 +2236,14 @@ def main() -> int:
     moe_serve_launches = run(phase_moe_serving, card)
     prefix_launches = run(phase_prefix_plane, card)
     replica_launches = run(phase_replica_contract, card)
+    model_launches = run(phase_other_models, name, card)
     train_launches = run(phase_training, name, card)
     train_launches.update(run(phase_moe_training, name, card))
+    train_launches.update(model_launches)
     # launches on each main path's run: the bf16 serving requests, the
     # f32 engines' requests, the MoE engines', the prefix plane's and the
-    # replica contract's requests, and the five training steps under each
-    # remat policy
+    # replica contract's requests, the five training steps under each
+    # remat policy, BERT-base's five steps and its padded batch
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

@@ -37,3 +37,11 @@ def params_to_numpy(params) -> dict:
 def _map(fn, tree):
     return {k: (_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
+
+
+def _leaves(tree) -> list:
+    """The tree's tensors in insertion order, depth first."""
+    out = []
+    for v in tree.values():
+        out.extend(_leaves(v) if isinstance(v, dict) else [v])
+    return out

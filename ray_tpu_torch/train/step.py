@@ -19,7 +19,7 @@ from typing import Any, Callable
 
 import torch
 
-from ray_tpu_torch.models.convert import _map
+from ray_tpu_torch.models.convert import _leaves, _map
 
 
 @dataclass
@@ -37,13 +37,6 @@ def adamw(lr: float, *, b1: float = 0.9, b2: float = 0.999,
     list of leaves and returns the optimizer."""
     return functools.partial(torch.optim.AdamW, lr=lr, betas=(b1, b2),
                              eps=eps, weight_decay=weight_decay)
-
-
-def _leaves(tree) -> list:
-    out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out
 
 
 def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None):
@@ -74,7 +67,9 @@ def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None):
     def step_fn(state: TrainState, batch):
         leaves = _leaves(state.params)
         loss = loss_fn(state.params, batch)
-        grads = torch.autograd.grad(loss, leaves)
+        # a leaf the loss does not use (BERT's wtype without token types)
+        # gets a zero gradient, as under jax.grad
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         grad_norm = torch.linalg.vector_norm(torch.stack(
             [torch.linalg.vector_norm(g, dtype=torch.float32)
              for g in grads]))
