@@ -128,8 +128,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    within 1e-5.  Prints step ms, images/s or tokens/s and MFU, and the
    kernel share of a profiled BERT step.
 
-``main`` runs phases 8, 10, 11 and 12 before phase 7: no serving phase
-runs after the profiler.  The line before the last is the kernels' JSON
+13. the trainer loop: GPT-2 124M at full width and depth, b16 s1024 bf16,
+   remat "dots", AdamW(3e-4, weight_decay=0.1), through ``Trainer.fit``
+   for 12 steps (report every 2, checkpoint every 4, keep 2) on distinct
+   seeded host batches through ``device_batches``.  The first fit's data
+   raises at step 7, so it resumes from the step-4 checkpoint; a second
+   fit runs the same batches uninterrupted.  Gates: the resume starts at
+   step 4; every reported loss of the first fit equals the second's
+   within rel 1e-5; every step launches 24 / 12 / 12; the loss is finite
+   and falls; the last checkpoint loads into a fresh state bit-equal to
+   the run's final params, moments and step; ``TorchPredictor.
+   from_checkpoint`` gives the forward's logits within 1e-6.  Prints the
+   steady step ms (from the trainer's reported throughput) beside phase
+   7's "dots" step, tokens/s, MFU, the checkpoint's bytes, the D2H
+   snapshot's ms and GB/s, the async write, the restore and the feed's
+   wait per step;
+14. PPO on CartPole at tests/test_rllib.py's settings for 18 iterations,
+   learner and policies on the card.  Gates: best mean return above 60;
+   one update on a fixed batch with fixed permutations equal on the card
+   and the CPU within 1e-4 (1 + scale), f32 with TF32 off;
+   ``save``/``restore`` round-trips; no flash launch.  Prints env steps/s
+   and rollout and learner ms per iteration.
+
+``main`` runs phases 8, 10, 11, 12, 13 and 14 before phase 7: no serving
+phase runs after the profiler.  The line before the last is the kernels' JSON
 record; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -143,9 +165,11 @@ import json
 import os
 import random
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -1189,7 +1213,7 @@ def train_run(cfg, params, batch, steps, timed=0, label="train",
     return losses, norms, step_ms, counts, kernel_ms
 
 
-def phase_training(name: str, card: str) -> dict:
+def phase_training(name: str, card: str):
     from ray_tpu_torch.models import gpt
 
     base = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
@@ -1213,21 +1237,22 @@ def train_policies(name: str, card: str, base, params, n_flop_params: int,
     step (2L / L flash forwards, L of each backward kernel), finite and
     falling loss, step 1 against plain attention.  MFU counts
     ``6 * n_flop_params + 12 L d s`` FLOPs per token (bench.py's
-    formula) against the card's dense bf16 peak.  Returns {path: [flash
-    forward, bwd_kv, bwd_dq launches over the five steps]}."""
+    formula) against the card's dense bf16 peak.  Returns ({path: [flash
+    forward, bwd_kv, bwd_dq launches over the five steps]}, {policy:
+    steady step ms})."""
     L, seq, steps = base.n_layers, 1024, 5
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = {"tokens": torch.randint(0, base.vocab_size, (batch_n, seq + 1),
                                      generator=gen, device="cuda")}
     flops_per_token = 6 * n_flop_params + 12 * L * base.d_model * seq
     peak = rates(name)[1]
-    launches = {}
+    launches, steady_ms = {}, {}
     first = {}
     for policy, fwd_per_step in (("dots", 2 * L), ("dots_flash", L)):
         cfg = dataclasses.replace(base, remat_policy=policy)
         losses, norms, step_ms, counts, kernel_ms = train_run(
             cfg, params, batch, steps, timed=10, label=f"{label} {policy}")
-        steady = statistics.median(step_ms[steps:])
+        steady = steady_ms[policy] = statistics.median(step_ms[steps:])
         tps = batch_n * seq / (steady / 1e3)
         print(f"[{label} {policy}] b{batch_n} s{seq} bf16 on {card}: losses "
               f"{[round(x, 5) for x in losses]}, grad norms "
@@ -1272,7 +1297,7 @@ def train_policies(name: str, card: str, base, params, n_flop_params: int,
               f"grad_norm {norm:.6f} vs {norms[0]:.6f} (rel {dn:.2e}, "
               f"bound 5e-2) {'ok' if ok else 'FAIL'}")
         check(ok, f"{label} {policy}: step 1 disagrees with plain attention")
-    return launches
+    return launches, steady_ms
 
 
 # ------------------------------------------------ mixture of experts
@@ -1413,7 +1438,7 @@ def phase_moe_training(name: str, card: str) -> dict:
           f"factor {base.capacity_factor}: {n_params} params, {n_active} "
           f"active per token; MFU counts 6 * {n_active} + 12 L d s FLOPs "
           f"per token")
-    launches = train_policies(name, card, base, params, n_active,
+    launches, _ = train_policies(name, card, base, params, n_active,
                               "train_moe")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     batch = {"tokens": torch.randint(0, base.vocab_size, (16, 1025),
@@ -2212,6 +2237,347 @@ def phase_other_models(name: str, card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------------------ the trainer
+
+class HostBatches:
+    """``n`` distinct seeded token batches [b, s + 1] int32 over the first
+    ``vocab`` ids (so the loss has somewhere to fall), made once on the
+    host and given again on every pass; with ``fail_at`` the first pass
+    raises instead of giving that step's batch (1-based)."""
+
+    def __init__(self, n, b, s, vocab, seed, fail_at=None):
+        rng = np.random.default_rng(seed)
+        self.batches = [{"tokens": rng.integers(0, vocab, (b, s + 1),
+                                                dtype=np.int32)}
+                        for _ in range(n)]
+        self.fail_at, self.passes = fail_at, 0
+
+    def __iter__(self):
+        self.passes += 1
+        first = self.passes == 1
+        for i, batch in enumerate(self.batches):
+            if first and i + 1 == self.fail_at:
+                raise RuntimeError(f"injected data failure at step {i + 1}")
+            yield batch
+
+
+def phase_trainer(name: str, card: str) -> dict:
+    """GPT-2 124M at full width and depth, b16 s1024 bf16, remat "dots",
+    AdamW(3e-4, weight_decay=0.1), through ``Trainer.fit`` for 12 steps
+    (report every 2, checkpoint every 4, keep 2) on distinct host batches
+    through ``device_batches``.  The first fit's data fails at step 7, so
+    it resumes from the step-4 checkpoint; a second fit runs the same
+    batches without a failure.  Gates: the resumed attempt starts at step
+    4; its reported losses (steps 6-12) and the first attempt's equal
+    the uninterrupted run's within rel 1e-5; every step launches the
+    flash kernels 24 / 12 / 12 times; the loss is finite and falls; the
+    last checkpoint loads into a fresh state equal, bit for bit, to the
+    run's final params and moments; ``TorchPredictor.from_checkpoint``
+    gives the model's logits within 1e-6.  Prints the steady step ms from
+    the trainer's own throughput, tokens/s and MFU, checkpoint bytes, the
+    snapshot's ms and GB/s, the async write, the restore and the feed's
+    wait.  Returns {"launches": {path: [fwd, kv, dq]}, "step_ms": ms}."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.convert import _leaves
+    from ray_tpu_torch.train import (Checkpoint, CheckpointManager,
+                                     TorchPredictor, Trainer, adamw,
+                                     load_state, make_train_step,
+                                     state_to_host)
+    from ray_tpu_torch.train.step import adam_state
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L, b, s, steps = cfg.n_layers, 16, 1024, 12
+    marks = []       # launch counters at the start of every step
+
+    def loss_fn(p, batch):
+        marks.append(flash_launches())
+        return gpt.loss_fn(p, batch, cfg)
+
+    def trainer(data, path):
+        return Trainer(loss_fn=loss_fn,
+                       init_params=lambda seed: gpt.init_params(cfg, seed),
+                       optimizer=adamw(3e-4, weight_decay=0.1),
+                       train_data=data, num_steps=steps, report_every=2,
+                       checkpoint_every=4, seed=SEED, storage_path=path,
+                       num_to_keep=2, max_failures=1)
+
+    def per_step(label):
+        ends = marks[1:] + [flash_launches()]
+        counts = [tuple(e - m for e, m in zip(end, start))
+                  for start, end in zip(marks, ends)]
+        for c in counts:
+            check(c == (2 * L, L, L), f"{label}: a step launched {c}, "
+                  f"expected ({2 * L}, {L}, {L})")
+        return counts
+
+    root = tempfile.mkdtemp(prefix="_chip_smoke_ckpt_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        launches = {}
+        runs = {}
+        for label, fail_at in (("trainer_failover", 7), ("trainer", None)):
+            data = HostBatches(steps, b, s, 4096, SEED + 20, fail_at)
+            tr = trainer(data, os.path.join(root, label))
+            torch.cuda.synchronize()
+            marks.clear()
+            fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+            t0 = time.perf_counter()
+            res = tr.fit()
+            wall = time.perf_counter() - t0
+            counts = per_step(label)
+            launches[label] = [sum(c[i] for c in counts) for i in range(3)]
+            hist = [(m["step"], m["loss"], m["throughput"])
+                    for m in res.metrics_history]
+            print(f"[{label}] {data.passes} pass(es) over the data, last "
+                  f"attempt from step {tr.start_step}, {len(counts)} steps "
+                  f"in {wall:.1f} s on {card}; reported (step, loss): "
+                  f"{[(st, round(lo, 6)) for st, lo, _ in hist]}")
+            runs[label] = (tr, res, hist, data)
+
+        tr_f, _, hist_f, data_f = runs["trainer_failover"]
+        tr, res, hist, _ = runs["trainer"]
+        check(data_f.passes == 2 and tr_f.start_step == 4,
+              f"the failover run resumed from step {tr_f.start_step} after "
+              f"{data_f.passes} passes, expected step 4 after 2")
+        check([h[0] for h in hist_f] == [2, 4, 6, 6, 8, 10, 12]
+              and [h[0] for h in hist] == [2, 4, 6, 8, 10, 12],
+              f"reported steps {[h[0] for h in hist_f]} and "
+              f"{[h[0] for h in hist]}")
+        want = dict((st, lo) for st, lo, _ in hist)
+        rel = [abs(lo - want[st]) / abs(want[st]) for st, lo, _ in hist_f]
+        print(f"[trainer] failover run vs uninterrupted run, reported "
+              f"losses: largest relative difference {max(rel):.3e} (bound "
+              f"1e-5; 0 expected, the kernels use no atomics)")
+        check(max(rel) <= 1e-5, f"the resumed losses differ by {max(rel)}")
+        losses = [lo for _, lo, _ in hist]
+        check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"loss not finite or not falling: {losses}")
+        final, final_f = tr.final_state, tr_f.final_state
+        diff = max((a.float() - c.float()).abs().max().item() for a, c in
+                   zip(_leaves(final.params), _leaves(final_f.params)))
+        print(f"[trainer] final params, failover vs uninterrupted: max abs "
+              f"difference {diff:.3e}")
+        del final_f, tr_f.final_state
+
+        # the trainer's steady step: its reported throughput gives the
+        # time at each report; 6->8 and 10->12 hold no snapshot
+        at = {st: st * b * s / thr for st, _, thr in hist}
+        spans = [(at[8] - at[6]) / 2 * 1e3, (at[12] - at[10]) / 2 * 1e3]
+        step_ms = statistics.median(spans)
+        n_params = count_params(final.params)
+        flops_per_token = 6 * n_params + 12 * L * cfg.d_model * s
+        tps = b * s / (step_ms / 1e3)
+        peak = rates(name)[1]
+        print(f"[trainer] steady step (steps 6->8, 10->12, from the reported "
+              f"throughput) {spans[0]:.3f} / {spans[1]:.3f} ms, median "
+              f"{step_ms:.3f} ms, {tps:.1f} tokens/s, MFU "
+              f"{flops_per_token * tps / peak:.4f} on {card}")
+        waits = [w * 1e3 for w in tr.feed_wait_s]
+        print(f"[trainer] feed wait per step (host ms in next()): median "
+              f"{statistics.median(waits):.3f}, max {max(waits):.3f}, "
+              f"first {waits[0]:.3f}")
+
+        # checkpoint: snapshot, async write, restore
+        # the params and Adam's two moments
+        nbytes = 3 * sum(t.numel() * t.element_size()
+                         for t in _leaves(final.params))
+        snap_ms, payload = [], None
+        for _ in range(3):
+            # the previous snapshot's pinned block goes back to torch's
+            # cache first, so each snapshot reuses it, as the trainer's do
+            payload = None
+            t0 = time.perf_counter()
+            payload = state_to_host(final)
+            snap_ms.append((time.perf_counter() - t0) * 1e3)
+        mgr = CheckpointManager(os.path.join(root, "timing"))
+        t0 = time.perf_counter()
+        mgr.save(payload)
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        mgr.flush()
+        write_ms = (time.perf_counter() - t0) * 1e3
+        del payload
+        ck = res.checkpoint
+        ck_bytes = os.path.getsize(os.path.join(ck.path, Checkpoint.PAYLOAD))
+        print(f"[trainer] checkpoint {ck_bytes} bytes on disk ({nbytes} of "
+              f"params and moments); D2H snapshot through pinned memory "
+              f"{', '.join(f'{t:.1f}' for t in snap_ms)} ms "
+              f"({', '.join(f'{nbytes / t / 1e6:.2f}' for t in snap_ms)} "
+              f"GB/s, the pinned block reused); async write: "
+              f"save returned in {queued_ms:.1f} ms, on disk after "
+              f"{write_ms:.1f} ms")
+        init_fn, _ = make_train_step(lambda p, bt: gpt.loss_fn(p, bt, cfg),
+                                     adamw(3e-4, weight_decay=0.1))
+        fresh = init_fn(gpt.init_params(cfg, SEED + 1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = ck.to_dict()
+        t1 = time.perf_counter()
+        load_state(fresh, payload)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"[trainer] restore of the step-{payload['step']} checkpoint: "
+              f"unpickle {(t1 - t0) * 1e3:.1f} ms, load into the state "
+              f"{(t2 - t1) * 1e3:.1f} ms")
+        check(payload["step"] == steps and int(fresh.step) == steps,
+              f"restored step {int(fresh.step)}")
+        got, live = adam_state(fresh.opt_state, fresh.params), \
+            adam_state(final.opt_state, final.params)
+        check(got["count"] == live["count"] == payload["opt_state"]["count"]
+              == steps, f"Adam counts {got['count']} {live['count']}")
+        for key in ("mu", "nu"):
+            for g, w, h in zip(_leaves(got[key]), _leaves(live[key]),
+                               _leaves(payload["opt_state"][key])):
+                check(torch.equal(g, w) and np.array_equal(
+                    g.cpu().numpy(), h), f"restored {key} differs")
+        for g, w in zip(_leaves(fresh.params), _leaves(final.params)):
+            check(torch.equal(g, w), "restored params differ")
+        print("[trainer] restored params, moments and step equal the run's "
+              "final state bit for bit")
+        del fresh, payload
+
+        # the predictor on the last checkpoint against the model's forward
+        x = data_f.batches[0]["tokens"][:2, :256]
+        n0 = flash_launches()
+        pred = TorchPredictor.from_checkpoint(
+            ck, apply_fn=lambda p, t: gpt.forward(p, t, cfg))
+        out = pred.predict({"x": x, "row": np.arange(2)})
+        launches["trainer_predictor"] = [
+            a - c for a, c in zip(flash_launches(), n0)]
+        with torch.no_grad():
+            ref = gpt.forward(final.params,
+                              torch.from_numpy(x).to("cuda"), cfg)
+        err = np.abs(out["predictions"] - ref.cpu().numpy()).max()
+        print(f"[trainer] TorchPredictor.from_checkpoint logits "
+              f"{list(out['predictions'].shape)} vs forward on the final "
+              f"params: max abs {err:.3e} (bound 1e-6); launches "
+              f"{launches['trainer_predictor']}")
+        check(err <= 1e-6 and list(out["row"]) == [0, 1],
+              f"predictor logits differ by {err}")
+        check(launches["trainer_predictor"] == [L, 0, 0],
+              f"predictor launched {launches['trainer_predictor']}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"launches": launches, "step_ms": step_ms}
+
+
+# ------------------------------------------------------------------- PPO
+
+def phase_ppo(card: str) -> dict:
+    """PPO on CartPole at the settings of tests/test_rllib.py's PPO test
+    (8 envs x 64 steps, train batch 512, minibatch 128, 6 epochs, lr
+    3e-3, entropy 0.01, seed 0) for 18 iterations, learner and policies
+    on the card.  Gates: the best mean return is above 60; one update on
+    a fixed batch with fixed permutations gives the same params on the
+    card as on the CPU within 1e-4 (1 + scale), f32 with TF32 off;
+    ``save``/``restore`` round-trips; no flash launch.  Prints env
+    steps/s and the learner's and the rollouts' ms per iteration."""
+    from ray_tpu_torch.data.feed import to_device
+    from ray_tpu_torch.models.convert import (_leaves, _map,
+                                              params_from_numpy,
+                                              params_to_numpy)
+    from ray_tpu_torch.rllib import ppo
+    from ray_tpu_torch.rllib import sample_batch as SB
+    from ray_tpu_torch.rllib.policy import PolicyConfig, init_policy_params
+    from ray_tpu_torch.train import adam
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n0 = flash_launches()
+    settings = dict(env="CartPole-v1", num_rollout_workers=0,
+                    num_envs_per_worker=8, rollout_length=64,
+                    train_batch_size=512, minibatch_size=128, num_epochs=6,
+                    lr=3e-3, entropy_coeff=0.01)
+
+    # one update, card vs CPU, on a fixed batch and fixed permutations
+    cfg = ppo.PPOConfig(**settings)
+    rng = np.random.default_rng(SEED + 30)
+    n = cfg.train_batch_size
+    batch = {SB.OBS: rng.standard_normal((n, 4)).astype(np.float32),
+             SB.ACTIONS: rng.integers(0, 2, n),
+             SB.LOGP: (np.log(0.5) + 0.05 * rng.standard_normal(n))
+             .astype(np.float32),
+             SB.VF_PREDS: rng.standard_normal(n).astype(np.float32),
+             SB.ADVANTAGES: rng.standard_normal(n).astype(np.float32),
+             SB.VALUE_TARGETS: rng.standard_normal(n).astype(np.float32)}
+    perms = [rng.permutation(n) for _ in range(cfg.num_epochs)]
+    p0 = params_to_numpy(init_policy_params(PolicyConfig(4, 2), SEED,
+                                            device="cpu"))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = _map(lambda t: t.requires_grad_(True),
+                 params_from_numpy(p0, device=dev))
+        opt = adam(cfg.lr)(_leaves(p))
+        p, _, m = ppo.make_ppo_update(cfg)(p, opt, to_device(batch, dev),
+                                           perms=perms)
+        out[dev] = ([t.detach() for t in _leaves(p)],
+                    [v.detach() for v in m.values()])
+    worst = 0.0
+    for got, ref in zip(out["cuda"][0] + out["cuda"][1],
+                        out["cpu"][0] + out["cpu"][1]):
+        err, ok = f32_err(got, ref)
+        check(ok, f"PPO update: card and CPU differ by {err}")
+        worst = max(worst, err)
+    print(f"[ppo] one update (6 epochs x 4 minibatches of 128), card vs "
+          f"CPU f32: params and metrics max_abs_err {worst:.3e} "
+          f"(bound 1e-4 x (1 + scale)) ok")
+
+    # the learning run
+    algo = ppo.PPOConfig(seed=SEED, **settings).build()
+    sample = algo.workers.sample_sync
+    rollout_s = []
+
+    def timed_sample():
+        t0 = time.perf_counter()
+        got = sample()
+        rollout_s.append(time.perf_counter() - t0)
+        return got
+
+    algo.workers.sample_sync = timed_sample
+    best, rewards, iter_s, sps = 0.0, [], [], []
+    for _ in range(18):
+        k = len(rollout_s)
+        t0 = time.perf_counter()
+        r = algo.train()
+        iter_s.append((time.perf_counter() - t0, sum(rollout_s[k:])))
+        rew = r.get("episode_reward_mean", 0.0)
+        rewards.append(round(rew, 2))
+        sps.append(r["env_steps_per_sec"])
+        best = max(best, rew)
+        check(np.isfinite(r["total_loss"]), f"PPO loss {r['total_loss']}")
+    learn = [(t - ro) * 1e3 for t, ro in iter_s]
+    roll = [ro * 1e3 for _, ro in iter_s]
+    print(f"[ppo] CartPole 18 iterations of 512 env steps on {card}: mean "
+          f"return per iteration {rewards}, best {best:.2f} (bar 60)")
+    print(f"[ppo] env steps/s median {statistics.median(sps):.1f}; per "
+          f"iteration: rollout median {statistics.median(roll):.2f} ms, "
+          f"learner median {statistics.median(learn):.2f} ms "
+          f"(iterations 2-18: rollout {statistics.median(roll[1:]):.2f}, "
+          f"learner {statistics.median(learn[1:]):.2f})")
+    check(best > 60.0, f"PPO did not learn CartPole: best {best}")
+
+    saved = algo.save()
+    other = ppo.PPOConfig(seed=SEED + 1, **settings).build()
+    other.restore(saved)
+    for a, c in zip(_leaves(algo.params), _leaves(other.params)):
+        check(torch.equal(a, c), "PPO restore: params differ")
+    back = other.save()["payload"]
+    for x, y in zip(_leaves(saved["payload"]["opt_state"]["mu"]),
+                    _leaves(back["opt_state"]["mu"])):
+        check(np.array_equal(x, y), "PPO restore: moments differ")
+    r = other.train()
+    check(np.isfinite(r["total_loss"]) and other.iteration == 19,
+          f"PPO after restore: {r['total_loss']}, iteration "
+          f"{other.iteration}")
+    print("[ppo] save/restore round trip: params and moments equal, one "
+          "more iteration trains")
+    check(flash_launches() == n0, "PPO launched a flash kernel")
+    algo.cleanup()
+    other.cleanup()
+    return {"best": best}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2237,13 +2603,21 @@ def main() -> int:
     prefix_launches = run(phase_prefix_plane, card)
     replica_launches = run(phase_replica_contract, card)
     model_launches = run(phase_other_models, name, card)
-    train_launches = run(phase_training, name, card)
+    trainer = run(phase_trainer, name, card)
+    run(phase_ppo, card)
+    train_launches, steady_ms = run(phase_training, name, card)
+    print(f"[trainer] steady step {trainer['step_ms']:.3f} ms (Trainer.fit "
+          f"on distinct batches through the feed) vs phase 7's \"dots\" "
+          f"step {steady_ms['dots']:.3f} ms (one repeated batch), ratio "
+          f"{trainer['step_ms'] / steady_ms['dots']:.3f}, on {card}")
     train_launches.update(run(phase_moe_training, name, card))
     train_launches.update(model_launches)
+    train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
     # f32 engines' requests, the MoE engines', the prefix plane's and the
     # replica contract's requests, the five training steps under each
-    # remat policy, BERT-base's five steps and its padded batch
+    # remat policy, BERT-base's five steps and its padded batch, the two
+    # trainer fits (14 and 12 steps) and the predictor's forward
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

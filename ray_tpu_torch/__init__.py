@@ -1,7 +1,8 @@
 """ray_tpu_torch: the PyTorch/CUDA port of ray_tpu's compute path.
 
 The package mirrors ``ray_tpu``'s layout (``core/``, ``ops/``,
-``models/``, ``inference/``, ``serve/``) and imports torch and numpy,
+``models/``, ``inference/``, ``serve/``, ``train/``, ``data/``,
+``rllib/``) and imports torch and numpy,
 never jax and never ``ray_tpu``.  Entry points take ``device=None``,
 which means the CUDA card; with no card that raises.  The CPU runs only when a caller
 passes ``device="cpu"``, as the tests do.  Every kernel is hand-written

@@ -1,5 +1,17 @@
-"""Training: the single-device train step of ``ray_tpu/train/step.py``."""
+"""Training on one device: the train step (``step.py``), checkpoints
+(``checkpoint.py``), the trainer loop with failover resume
+(``trainer.py``, its session in ``session.py``) and the predictor
+(``predictor.py``), ports of the same modules of ``ray_tpu/train``."""
 
-from ray_tpu_torch.train.step import TrainState, adamw, make_train_step
+from ray_tpu_torch.train.checkpoint import (AsyncCheckpointer, Checkpoint,
+                                            CheckpointManager)
+from ray_tpu_torch.train.predictor import Predictor, TorchPredictor
+from ray_tpu_torch.train.step import (TrainState, adam, adamw, device_batch,
+                                      load_state, make_train_step,
+                                      state_to_host)
+from ray_tpu_torch.train.trainer import Result, Trainer, TrainingFailedError
 
-__all__ = ["TrainState", "adamw", "make_train_step"]
+__all__ = ["AsyncCheckpointer", "Checkpoint", "CheckpointManager",
+           "Predictor", "TorchPredictor", "TrainState", "adam", "adamw",
+           "device_batch", "load_state", "make_train_step", "state_to_host",
+           "Result", "Trainer", "TrainingFailedError"]
