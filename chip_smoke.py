@@ -149,9 +149,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and the CPU within 1e-4 (1 + scale), f32 with TF32 off;
    ``save``/``restore`` round-trips; no flash launch.  Prints env steps/s
    and rollout and learner ms per iteration.
+15. the sharded training step, GPT-2 124M at full width and depth, bf16,
+   remat "dots", AdamW(3e-4, weight_decay=0.1).  15a: NCCL at world
+   size 1, ``create_mesh({"dp": 1})``, b16 s1024, three checked steps
+   and ten timed of ``make_train_step(mesh=, params_logical=)``: each
+   loss within rel 1e-5 of the single-device step on the same params
+   and batch, 24 / 12 / 12 launches a step; prints the steady step ms
+   beside one device's.  15b: four ranks as threads sharing the card
+   (the threaded process group), b8 s1024, on dp2.tp2 and dp2.sp2,
+   three steps each: every rank's loss within rel 5e-3 and grad_norm
+   within rel 5e-2 of the single-device step; on dp2.tp2 every rank
+   launches 24 / 12 / 12 a step at [4, 6, 1024, 64], on dp2.sp2 none
+   (ring attention).  Then the three kernels at [4, 6, 1024, 64] bf16
+   causal against their plain versions, timed beside their bound, the
+   plain versions and SDPA (the kernels' ``tp_shape`` records).
 
-``main`` runs phases 8, 10, 11, 12, 13 and 14 before phase 7: no serving
-phase runs after the profiler.  The line before the last is the kernels' JSON
+``main`` runs phases 8, 10, 11, 12, 13 and 14 before phase 7, and 15
+after 9: no serving phase runs after the profiler.  The line before the last is the kernels' JSON
 record; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2578,6 +2592,226 @@ def phase_ppo(card: str) -> dict:
     return {"best": best}
 
 
+# ------------------------------------------------ sharded training
+
+# [batch, heads, seq, head dim] each rank gives the flash kernels on phase
+# 15b's dp2.tp2 mesh: b8 over dp2, GPT-2's 12 heads over tp2
+TP_SHAPE = (4, 6, 1024, 64)
+
+
+def tp_shape_times(name: str, card: str) -> dict:
+    """The three kernels at ``TP_SHAPE`` bf16 causal against their plain
+    versions (max abs error) and timed beside their bound, the plain
+    versions and SDPA: {kernel: record}."""
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=torch.float32).to(dtype)
+
+    b, h, s, d = TP_SHAPE
+    q, k, v, do = (rand(TP_SHAPE, torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    fwd_err = (out.float() - ref.float()).abs().max().item()
+    delta = fa._delta(out, do)
+    scale = d ** -0.5
+    dk, dv = fa._launch_bwd_kv(q, k, v, do, lse, delta, scale, True)
+    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale, True)
+    rdk, rdv = fa._bwd_kv_reference(q, k, v, do, lse, delta, scale, True,
+                                    512, 512)
+    rdq = fa._bwd_dq_reference(q, k, v, do, lse, delta, scale, True, 512,
+                               512)
+    held = {"flash_fwd": [(fwd_err, fwd_err <= TOL[torch.bfloat16])],
+            "flash_bwd_kv": [grad_err(dk, rdk, torch.bfloat16),
+                             grad_err(dv, rdv, torch.bfloat16)],
+            "flash_bwd_dq": [grad_err(dq, rdq, torch.bfloat16)]}
+    errs = {}
+    for kname, pairs in held.items():
+        errs[kname] = max(e for e, _ in pairs)
+        ok = all(o for _, o in pairs)
+        print(f"[sharded] {kname} [{b},{h},{s},{d}] bf16 causal (a dp2.tp2 "
+              f"rank's shape) max_abs_err {errs[kname]:.3e} against its "
+              f"plain version {'ok' if ok else 'FAIL'}")
+        check(ok, f"{kname} at {TP_SHAPE}: error {errs[kname]}")
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+    plain_ms = device_ms(lambda: fa.flash_attention_reference(
+        q, k, v, causal=True), 3)
+    lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    bw, flops = rates(name)
+    nbytes, nflop = attention_work(b, h, s, s, d, True, 2)
+    t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
+    print(f"[sharded] flash_fwd [{b},{h},{s},{d}] bf16 causal on {card}: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms")
+    out = {"flash_fwd": {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}}
+    out.update(backward_times(name, card, rand, b, h, s, d, True))
+    for kname, err in errs.items():
+        out[kname]["max_abs_err"] = err
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_steps(mesh, cfg, params, tokens, steps, *, on_step=None):
+    """``steps`` of make_train_step (AdamW(3e-4, weight_decay=0.1)) on
+    ``mesh`` (None: one device) from a copy of ``params`` on one host
+    batch ``tokens`` (numpy): [(loss, grad_norm)] and the CUDA-event ms
+    of each step.  ``on_step(i)`` runs after step i's metrics are read."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import adamw, make_train_step
+    from ray_tpu_torch.train.step import device_batch
+
+    logical = gpt.param_logical_axes(cfg) if mesh is not None else None
+    init_fn, step_fn = make_train_step(
+        lambda p, b: gpt.loss_fn(p, b, cfg, mesh=mesh),
+        adamw(3e-4, weight_decay=0.1), mesh=mesh, params_logical=logical)
+    state = init_fn(params)
+    batch = device_batch({"tokens": tokens}, "cuda", mesh=mesh)
+    out, ms = [], []
+    for i in range(steps):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        a.record()
+        state, m = step_fn(state, batch)
+        z.record()
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+        ms.append(a.elapsed_time(z))
+        if on_step is not None:
+            on_step(i)
+    del state
+    return out, ms
+
+
+def phase_sharded_training(name: str, card: str) -> dict:
+    """15a: NCCL at world size 1, the dp mesh of one card, against the
+    single-device step; 15b: four ranks as threads on the one card (the
+    threaded process group) on dp2.tp2 and dp2.sp2.  Returns {path:
+    [flash_fwd, flash_bwd_kv, flash_bwd_dq launches in its run]} and the
+    kernels' records at the tp-local shape."""
+    import logging
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import create_mesh, run_ranks
+
+    # DTensor warns at every redistribute that sums over two mesh dims
+    # (two all-reduces where a flattened dim would take one), thousands
+    # of lines here
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L = cfg.n_layers
+    params = gpt.init_params(cfg, SEED)
+    rng = np.random.default_rng(SEED + 15)
+    launches = {}
+
+    # 15a: NCCL at world size 1, b16 s1024
+    tokens = rng.integers(0, cfg.vocab_size, (16, 1025)).astype(np.int64)
+    single, single_ms = sharded_steps(None, cfg, params, tokens, 13)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = create_mesh({"dp": 1})
+        counts = []
+
+        def count(i):
+            if i < 3:
+                counts.append((fa.launches, fa.bwd_kv_launches,
+                               fa.bwd_dq_launches))
+                fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+
+        torch.cuda.synchronize()
+        fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+        sharded, sharded_ms = sharded_steps(mesh, cfg, params, tokens, 13,
+                                            on_step=count)
+    finally:
+        dist.destroy_process_group()
+    launches["sharded_nccl_dp1"] = [sum(c[i] for c in counts)
+                                    for i in range(3)]
+    for i in range(3):
+        (l1, n1), (l2, n2) = single[i], sharded[i]
+        rel = abs(l2 - l1) / abs(l1)
+        print(f"[sharded 15a] step {i + 1}: loss {l2:.6f} vs one device "
+              f"{l1:.6f} (rel {rel:.2e}, bound 1e-5), grad_norm {n2:.5f} "
+              f"vs {n1:.5f}, launches {counts[i]}")
+        check(rel <= 1e-5, f"15a step {i + 1}: loss {l2} vs {l1}")
+        check(counts[i] == (2 * L, L, L), f"15a step {i + 1} launched "
+              f"{counts[i]}, expected ({2 * L}, {L}, {L})")
+    one = statistics.median(single_ms[3:])
+    dt = statistics.median(sharded_ms[3:])
+    print(f"[sharded 15a] GPT-2 124M b16 s1024 bf16 \"dots\", NCCL world "
+          f"size 1, mesh dp1 on {card}: steady step {dt:.3f} ms vs one "
+          f"device {one:.3f} ms (median of 10): DTensor and the mesh arm "
+          f"add {dt - one:.3f} ms ({(dt - one) / one:.3%})")
+
+    # 15b: four ranks as threads on the card, b8 s1024
+    tokens = rng.integers(0, cfg.vocab_size, (8, 1025)).astype(np.int64)
+    ref, _ = sharded_steps(None, cfg, params, tokens, 3)
+    for axes, attn in ((("dp", 2), ("tp", 2)), "flash"), \
+            ((("dp", 2), ("sp", 2)), "ring"):
+        label = ".".join(f"{a}{n}" for a, n in axes)
+
+        def rank(r, axes=axes):
+            mesh = create_mesh(dict(axes))
+            per_step = []
+
+            def count(i):
+                per_step.append(dict(fa.thread_launches()))
+                fa.reset_thread_launches()
+
+            fa.reset_thread_launches()
+            got, ms = sharded_steps(mesh, cfg, params, tokens, 3,
+                                    on_step=count)
+            return got, ms, per_step
+
+        torch.cuda.synchronize()
+        fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+        t = time.perf_counter()
+        results = run_ranks(rank, 4, timeout=300)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches[f"sharded_threads_{label}"] = [
+            fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches]
+        for r, (got, ms, per_step) in enumerate(results):
+            for i, ((l2, n2), (l1, n1)) in enumerate(zip(got, ref)):
+                dl, dn = abs(l2 - l1) / abs(l1), abs(n2 - n1) / abs(n1)
+                if r == 0:
+                    print(f"[sharded 15b {label}] step {i + 1}: loss "
+                          f"{l2:.6f} vs one device {l1:.6f} (rel {dl:.2e}, "
+                          f"bound 5e-3), grad_norm {n2:.5f} vs {n1:.5f} "
+                          f"(rel {dn:.2e}, bound 5e-2)")
+                check(dl <= 5e-3 and dn <= 5e-2, f"15b {label} rank {r} "
+                      f"step {i + 1}: loss {l2} vs {l1}, norm {n2} vs {n1}")
+            for i, seen in enumerate(per_step):
+                want = ({("fwd", TP_SHAPE): 2 * L, ("bwd_kv", TP_SHAPE): L,
+                         ("bwd_dq", TP_SHAPE): L} if attn == "flash" else {})
+                check(seen == want, f"15b {label} rank {r} step {i + 1} "
+                      f"launched {seen}, expected {want}")
+        print(f"[sharded 15b {label}] 4 ranks as threads sharing {card}: "
+              f"per-step launches on each rank "
+              f"{'24 / 12 / 12 at ' + str(list(TP_SHAPE)) if attn == 'flash' else '0 (ring attention)'}; "
+              f"step ms on rank 0 {[round(x, 1) for x in results[0][1]]}, "
+              f"{wall:.1f} s for the 3 steps of all ranks (four ranks share "
+              f"one card and one host: not a throughput)")
+    return launches, tp_shape_times(name, card)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2611,13 +2845,18 @@ def main() -> int:
           f"step {steady_ms['dots']:.3f} ms (one repeated batch), ratio "
           f"{trainer['step_ms'] / steady_ms['dots']:.3f}, on {card}")
     train_launches.update(run(phase_moe_training, name, card))
+    sharded_launches, tp_records = run(phase_sharded_training, name, card)
+    train_launches.update(sharded_launches)
+    for k in kernels:
+        k["tp_shape"] = tp_records[k["name"]]
     train_launches.update(model_launches)
     train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
     # f32 engines' requests, the MoE engines', the prefix plane's and the
     # replica contract's requests, the five training steps under each
     # remat policy, BERT-base's five steps and its padded batch, the two
-    # trainer fits (14 and 12 steps) and the predictor's forward
+    # trainer fits (14 and 12 steps) and the predictor's forward, and the
+    # sharded steps: 15a's three checked ones, 15b's three per rank
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

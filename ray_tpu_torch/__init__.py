@@ -2,7 +2,7 @@
 
 The package mirrors ``ray_tpu``'s layout (``core/``, ``ops/``,
 ``models/``, ``inference/``, ``serve/``, ``train/``, ``data/``,
-``rllib/``) and imports torch and numpy,
+``rllib/``, ``parallel/``) and imports torch and numpy,
 never jax and never ``ray_tpu``.  Entry points take ``device=None``,
 which means the CUDA card; with no card that raises.  The CPU runs only when a caller
 passes ``device="cpu"``, as the tests do.  Every kernel is hand-written

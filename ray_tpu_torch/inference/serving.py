@@ -62,7 +62,8 @@ def _no_mesh(mesh, rules) -> None:
     if mesh is not None or rules is not None:
         raise NotImplementedError(
             "tensor-parallel serving (mesh/rules) is not ported yet: the "
-            "port serves on one device")
+            "tp-sharded paged decode (POOL_AXES, infer_shard_commit) comes "
+            "with a later slice; the port serves on one device")
 
 
 class GPTServer:

@@ -16,8 +16,14 @@ layer runs under ``torch.utils.checkpoint`` and is recomputed in full in
 the backward pass, so a training step runs the flash forward twice per
 layer and each backward kernel once.
 
-Single device only: the ``mesh``/``rules`` arguments and with them the
-pipelined (pp) encoder come with the port of parallelism.
+The mesh arm (``encode``/``loss_fn`` with ``mesh=``): as GPT's (see
+``models/gpt.py``), the params and the batch are DTensors placed by their
+logical axes and ``rules``, each stretch of a layer between two of the
+JAX package's sharding constraints runs on local shards, attention runs
+on each rank's heads and batch rows with the sequence whole (the JAX
+package's plain attention on an sp mesh gathers it too), and the MLM
+loss is a vocab-parallel cross-entropy.  A mesh with pp > 1 (the
+pipelined encoder) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,8 +38,13 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import _leaves
-from ray_tpu_torch.models.gpt import _layer_norm  # shared f32 layernorm
+# the shared f32 layer norm and the mesh arm's attention stretch
+from ray_tpu_torch.models.gpt import (_check_mesh, _layer_norm,
+                                      _sharded_attention)
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.parallel import spmd
+from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
+                                             constrain, sharding_for)
 
 
 @dataclass(frozen=True)
@@ -153,13 +164,6 @@ def init_params(cfg: BERTConfig, seed: int = 0, *, device=None,
     }
 
 
-def _refuse_mesh(mesh, rules):
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "BERT on a mesh (sharding rules, the pp pipeline) is not ported "
-            "yet; the port runs on one device")
-
-
 def _encoder_layer(x, lp, attn_mask, cfg: BERTConfig):
     """One post-LN block; x [b, s, d], lp = one layer's params."""
     b, s, _ = x.shape
@@ -188,11 +192,15 @@ def _encoder_layer(x, lp, attn_mask, cfg: BERTConfig):
 def encode(params, tokens, cfg: BERTConfig, *,
            attention_mask: Optional[torch.Tensor] = None,
            token_type_ids: Optional[torch.Tensor] = None,
-           mesh=None, rules=None):
+           mesh=None, rules: Rules = DEFAULT_LLM_RULES):
     """tokens [b, s] int -> hidden [b, s, d] (cfg.dtype).  The embedding
     sum runs in the params' dtype and is cast to ``cfg.dtype`` before its
-    layer norm."""
-    _refuse_mesh(mesh, rules)
+    layer norm.  On a mesh everything is DTensors and so is the result,
+    placed ("batch", "seq", "embed")."""
+    if mesh is not None:
+        _check_mesh(mesh, cfg, "BERT")
+        return _sharded_encode(params, tokens, cfg, mesh, rules,
+                               attention_mask, token_type_ids)
     s = tokens.shape[1]
     x = params["wte"][tokens.long()] + params["wpe"][:s][None, :, :]
     if token_type_ids is not None:
@@ -237,15 +245,21 @@ def pool(params, hidden):
                       + params["pooler_b"].to(cls.dtype))
 
 
-def loss_fn(params, batch, cfg: BERTConfig, *, mesh=None, rules=None):
+def loss_fn(params, batch, cfg: BERTConfig, *, mesh=None,
+            rules: Rules = DEFAULT_LLM_RULES):
     """Masked-LM cross-entropy, the mean over labelled positions (at
     least one).  batch = {"input_ids": [b, s] int, "labels": [b, s] int
     with ``ignore_index`` where not masked, optional "attention_mask" and
-    "token_type_ids": [b, s]}."""
+    "token_type_ids": [b, s]}.  On a mesh the batch holds DTensors and
+    the loss is a replicated 0-d DTensor."""
     hidden = encode(params, batch["input_ids"], cfg,
                     attention_mask=batch.get("attention_mask"),
                     token_type_ids=batch.get("token_type_ids"),
                     mesh=mesh, rules=rules)
+    if mesh is not None:
+        logits = _sharded_mlm_logits(params, hidden, cfg, mesh, rules)
+        return spmd.mean_nll(logits, batch["labels"], mesh,
+                             ignore_index=cfg.ignore_index)
     logits = mlm_logits(params, hidden, cfg)
     labels = batch["labels"].long()
     valid = labels != cfg.ignore_index
@@ -253,6 +267,108 @@ def loss_fn(params, batch, cfg: BERTConfig, *, mesh=None, rules=None):
     gold = logits.gather(-1, safe[..., None])[..., 0]
     nll = torch.where(valid, torch.logsumexp(logits, dim=-1) - gold, 0.0)
     return nll.sum() / valid.sum().clamp_min(1)
+
+
+# -- the mesh arm ----------------------------------------------------------
+
+def _sharded_layer(x, lp, mask, cfg: BERTConfig, mesh, rules: Rules):
+    """``_encoder_layer`` on a mesh: x [b, s, d] placed ("batch", "seq",
+    "embed"), lp the layer's DTensors, mask the [b, s] attention mask
+    DTensor or None."""
+    dt = cfg.dtype
+    X = sharding_for(("batch", "seq", "embed"), rules, mesh)
+
+    def proj(x, w):
+        return x @ w.to(dt)
+
+    def post_ln(x, y, bias, scale, shift):
+        return _layer_norm(x + (y + bias.to(dt)), scale, shift)
+
+    def up(x, w, b):
+        return F.gelu(x @ w.to(dt) + b.to(dt), approximate="tanh")
+
+    qkv = spmd.run(proj, mesh,
+                   sharding_for(("batch", "seq", "qkv"), rules, mesh),
+                   x, lp["wqkv"])
+    if mask is None:
+        def attend(q, k, v):
+            return attention(q, k, v, causal=False, impl=cfg.attn_impl)
+    else:
+        # the padded path: plain attention under this rank's rows of the
+        # [b, s] mask, broadcast [b, 1, 1, s]
+        def attend(q, k, v, m):
+            return attention(q, k, v, causal=False,
+                             mask=m[:, None, None, :].bool(),
+                             impl="reference")
+    o = _sharded_attention(qkv, cfg.n_heads, mesh, rules, attend, seq=None,
+                           mask=mask)
+    o = constrain(spmd.dense(o, lp["wo"], mesh, dt),
+                  ("batch", "seq", "embed"), rules, mesh)
+    x = spmd.run(post_ln, mesh, X, x, o, lp["bo"], lp["ln1_scale"],
+                 lp["ln1_bias"])
+    u = spmd.run(up, mesh, sharding_for(("batch", "seq", "mlp"), rules,
+                                        mesh), x, lp["w_up"], lp["b_up"])
+    dn = constrain(spmd.dense(u, lp["w_down"], mesh, dt),
+                   ("batch", "seq", "embed"), rules, mesh)
+    return spmd.run(post_ln, mesh, X, x, dn, lp["b_down"], lp["ln2_scale"],
+                    lp["ln2_bias"])
+
+
+def _sharded_encode(params, tokens, cfg: BERTConfig, mesh, rules: Rules,
+                    attention_mask, token_type_ids):
+    """``encode`` on a mesh."""
+    dt = cfg.dtype
+    params = spmd.place_tree(params, PARAM_AXES, rules, mesh)
+    X = sharding_for(("batch", "seq", "embed"), rules, mesh)
+    b, s = tokens.shape
+    ids = constrain(tokens, ("batch", "seq"), rules, mesh)
+    # a vocab-split table gives a partial sum: the constraint completes it
+    x = constrain(spmd.embed(params["wte"], ids, mesh),
+                  ("batch", "seq", "embed"), rules, mesh)
+    p0, _ = spmd.local_span((b, s, cfg.d_model), mesh, X, 1)
+
+    def emb(x, wpe, scale, bias, *tt):
+        x = x + wpe[p0:p0 + x.shape[1]][None]
+        if tt:
+            x = x + tt[0]
+        return _layer_norm(x.to(dt), scale, bias)
+
+    extra = ()
+    if token_type_ids is not None:
+        tt = constrain(token_type_ids, ("batch", "seq"), rules, mesh)
+        extra = (constrain(spmd.embed(params["wtype"], tt, mesh),
+                           ("batch", "seq", "embed"), rules, mesh),)
+    x = spmd.run(emb, mesh, X, x, params["wpe"], params["ln_emb_scale"],
+                 params["ln_emb_bias"], *extra)
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in spmd.layer_slices(params["layers"], cfg.n_layers, mesh):
+        if remat:
+            x = checkpoint(_sharded_layer, x, lp, attention_mask, cfg, mesh,
+                           rules, use_reentrant=False,
+                           context_fn=noop_context_fn)
+        else:
+            x = _sharded_layer(x, lp, attention_mask, cfg, mesh, rules)
+    return x
+
+
+def _sharded_mlm_logits(params, hidden, cfg: BERTConfig, mesh,
+                        rules: Rules):
+    """``mlm_logits`` on a mesh: [b, s, vocab] f32 placed ("batch",
+    "seq", "vocab")."""
+    params = spmd.place_tree(params, PARAM_AXES, rules, mesh)
+
+    def head(h, w, b, scale, shift, wte, bias):
+        dt = h.dtype
+        y = F.gelu(h @ w.to(dt) + b.to(dt), approximate="tanh")
+        y = _layer_norm(y, scale, shift)
+        return (y @ wte.to(dt).T).float() + bias.float()
+
+    return spmd.run(head, mesh,
+                    sharding_for(("batch", "seq", "vocab"), rules, mesh),
+                    hidden, params["mlm_dense_w"], params["mlm_dense_b"],
+                    params["mlm_ln_scale"], params["mlm_ln_bias"],
+                    params["wte"], params["mlm_bias"])
 
 
 def num_params(params) -> int:

@@ -3,6 +3,11 @@ the port's params dict.  Both use the same leaf names and the stacked
 ``[n_layers, ...]`` layout, so the bridge only moves bytes: the round
 trip ``params_to_numpy(params_from_numpy(tree))`` is bit-exact.
 
+On a mesh (``params_from_numpy(..., mesh=, logical=)``) each leaf becomes
+a DTensor placed by its logical axes, every rank copying only its own
+block to its device (no scatter); ``params_to_numpy`` gathers DTensor
+leaves back whole (``full_tensor``, a collective every rank must join).
+
 ``optax_adam_to_torch`` and ``torch_adam_to_optax`` do the same for Adam's
 state: optax's ``ScaleByAdamState(count, mu, nu)`` as numpy trees, and the
 port's checkpoint layout ``{"count": int, "mu": tree, "nu": tree}`` (what
@@ -16,29 +21,49 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
+                                             local_shard, sharding_for)
 
 
 def params_from_numpy(tree, device=None,
-                      dtype: Optional[torch.dtype] = None) -> dict:
+                      dtype: Optional[torch.dtype] = None, *, mesh=None,
+                      logical=None, rules: Rules = DEFAULT_LLM_RULES) -> dict:
     """Nested dict of numpy arrays -> same nesting of torch tensors on
     ``device`` (None = the CUDA card).  ``dtype`` recasts floating leaves;
-    by default each leaf keeps its own dtype."""
-    dev = resolve_device(device)
-
-    def conv(a):
-        t = torch.from_numpy(np.array(a, copy=True))
+    by default each leaf keeps its own dtype.  With ``mesh`` the leaves
+    are DTensors on it, placed as ``logical`` (the model's logical axes,
+    a tree like ``tree``) and ``rules`` say, replicated without
+    ``logical``; the device is the mesh's."""
+    def conv(a, axes=None):
+        t = torch.from_numpy(np.array(a, copy=mesh is None))
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
-        return t.to(dev)
+        if mesh is None:
+            return t.to(dev)
+        pl = (sharding_for(axes, rules, mesh) if axes is not None
+              else [Replicate()] * mesh.ndim)
+        return local_shard(t, mesh, pl, device=dev)
 
-    return _map(conv, tree)
+    if mesh is None:
+        dev = resolve_device(device)
+        return _map(conv, tree)
+    dev = torch.device(mesh.device_type)
+    if logical is None:
+        return _map(conv, tree)
+    return _map2(conv, tree, logical)
 
 
 def params_to_numpy(params) -> dict:
-    """The port's params -> nested dict of numpy arrays on the host."""
-    return _map(lambda t: t.detach().cpu().numpy(), params)
+    """The port's params -> nested dict of numpy arrays on the host
+    (DTensor leaves gathered whole)."""
+    def conv(t):
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
+        return t.detach().cpu().numpy()
+    return _map(conv, params)
 
 
 def optax_adam_to_torch(opt_state) -> dict:
@@ -90,6 +115,12 @@ def _adam_node(state):
 def _map(fn, tree):
     return {k: (_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other's leaf)`` over ``tree``, ``other`` nested alike."""
+    return {k: (_map2(fn, v, other[k]) if isinstance(v, dict)
+                else fn(v, other[k])) for k, v in tree.items()}
 
 
 def _pick(like, tree) -> dict:

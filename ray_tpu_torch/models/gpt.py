@@ -17,8 +17,21 @@ MoE (``n_experts > 0``): every layer's MLP is a top-k routed expert layer
 in the GShard/Switch formulation (``_moe_mlp``), without expert
 parallelism; ``loss_fn`` adds the load-balance aux loss.
 
-Not ported yet: meshes (and with them ep), ring attention and the
-pipelined forward.
+The mesh arm (``forward``/``loss_fn`` with ``mesh=``, a ``DeviceMesh``
+from ``parallel.mesh``): params and tokens are DTensors, the params are
+placed by their logical axes and ``rules`` (``PARAM_AXES``), and the
+activations are redistributed at the JAX package's
+``with_sharding_constraint`` points.  Between two such points each
+stretch of the layer runs on local shards (``parallel.spmd``):
+column-parallel qkv and MLP-up projections, attention on each rank's
+batch rows and heads (the Hopper kernels at the local shape, or ring
+attention when the sequence is split over sp), row-parallel output
+projections whose partial sums the next constraint completes, a
+vocab-split embedding and a vocab-parallel cross-entropy.
+
+Not ported yet, each raising ``NotImplementedError``: a mesh with pp > 1
+(the pipelined forward), MoE on a mesh (ep), and the prefill
+(``return_kv``) on a mesh, which feeds the tp-sharded decode.
 """
 
 from __future__ import annotations
@@ -37,6 +50,11 @@ from torch.utils.checkpoint import (checkpoint,
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel import spmd
+from ray_tpu_torch.parallel.mesh import mesh_shape
+from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
+                                             constrain, sharding_for)
 
 
 @dataclass(frozen=True)
@@ -367,7 +385,8 @@ def _remat_context(cfg: GPTConfig):
     return functools.partial(create_selective_checkpoint_contexts, ops)
 
 
-def forward(params, tokens, cfg: GPTConfig, *, return_aux: bool = False,
+def forward(params, tokens, cfg: GPTConfig, *, mesh=None,
+            rules: Rules = DEFAULT_LLM_RULES, return_aux: bool = False,
             return_kv: bool = False):
     """tokens [b, s] int -> logits [b, s, vocab] f32.  ``return_aux`` also
     returns the MoE load-balance aux loss summed over layers (a Python
@@ -376,7 +395,17 @@ def forward(params, tokens, cfg: GPTConfig, *, return_aux: bool = False,
     ``logits``, ``(logits, aux)``, ``(logits, (k, v))`` or ``(logits,
     aux, (k, v))``.  With ``cfg.remat``, and a gradient to take, each
     layer is rematerialised in the backward pass as its ``remat_policy``
-    says."""
+    says.  With ``mesh`` (the module note) params and tokens are
+    DTensors on it and so are the logits: batch over the data axes, seq
+    over sp, vocab over tp."""
+    if mesh is not None:
+        _check_mesh(mesh, cfg, "GPT")
+        if return_kv:
+            raise NotImplementedError(
+                "return_kv (the prefill) on a mesh: the tp-sharded decode "
+                "is not ported yet")
+        logits = _sharded_forward(params, tokens, cfg, mesh, rules)
+        return (logits, 0.0) if return_aux else logits
     x = _embed(params, tokens, cfg)
     # one unbind per stacked leaf: its backward stacks the per-layer
     # grads in one op
@@ -405,20 +434,150 @@ def forward(params, tokens, cfg: GPTConfig, *, return_aux: bool = False,
     return (logits, aux) if return_aux else logits
 
 
-def loss_fn(params, batch, cfg: GPTConfig):
+def loss_fn(params, batch, cfg: GPTConfig, *, mesh=None,
+            rules: Rules = DEFAULT_LLM_RULES):
     """Next-token cross-entropy, the mean of logsumexp - gold over f32
     logits, plus ``moe_aux_weight`` times the load-balance aux loss when
     the config is MoE.  batch = {"tokens": [b, s+1] int} or {"tokens":
-    [b, s], "targets": [b, s]}."""
+    [b, s], "targets": [b, s]}.  On a mesh the batch holds DTensors
+    (``train.step.shard_batch``) and the loss is a replicated 0-d
+    DTensor."""
     tokens = batch["tokens"]
     if "targets" in batch:
         inp, tgt = tokens, batch["targets"]
     else:
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    if mesh is not None:
+        logits = forward(params, inp, cfg, mesh=mesh, rules=rules)
+        return spmd.mean_nll(logits, tgt, mesh)
     logits, aux = forward(params, inp, cfg, return_aux=True)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          tgt.reshape(-1).long())
     return ce + cfg.moe_aux_weight * aux if cfg.n_experts else ce
+
+
+# -- the mesh arm ----------------------------------------------------------
+
+def _check_mesh(mesh, cfg, model: str) -> None:
+    """Raise for the mesh arms this slice does not port."""
+    if mesh_shape(mesh).get("pp", 1) > 1:
+        raise NotImplementedError(
+            f"{model} on a pp mesh: the pipeline (parallel/pipeline.py and "
+            "the pipelined forward) is not ported yet")
+    if getattr(cfg, "n_experts", 0):
+        raise NotImplementedError(
+            f"MoE {model} on a mesh: expert parallelism (ep) is not ported "
+            "yet")
+
+
+def _sharded_attention(qkv, n_heads: int, mesh, rules: Rules, attend,
+                       seq: Optional[str] = "seq", mask=None):
+    """qkv [b, s, 3d] DTensor -> the attention output [b, s, d], split
+    over heads as the rules split "heads".  q, k and v each take a third
+    of the columns, which a split of the 3d columns does not follow, so
+    qkv is gathered over them first; each rank then takes its heads and
+    runs ``attend(q, k, v)`` on [b_local, h_local, s_local, hd] views
+    (``attend(q, k, v, m)`` with its rows of a [b, s] ``mask``).
+    ``seq=None`` gathers the sequence too, for attention that needs it
+    whole."""
+    qkv = constrain(qkv, ("batch", seq, None), rules, mesh)
+    b, s, three_d = qkv.shape
+    d = three_d // 3
+    hd = d // n_heads
+    h0, hl = spmd.local_span(
+        (b, n_heads, s, hd), mesh,
+        sharding_for(("batch", "heads", seq, "kv"), rules, mesh), 1)
+
+    def local(t, *m):
+        bl, sl, _ = t.shape
+
+        def heads(u):  # [b, s, d] -> this rank's [b, hl, s, hd] (a view)
+            return u.reshape(bl, sl, n_heads, hd).transpose(1, 2)[
+                :, h0:h0 + hl]
+
+        q, k, v = t.split(d, dim=-1)
+        o = attend(heads(q), heads(k), heads(v), *m)
+        return o.transpose(1, 2).reshape(bl, sl, hl * hd)
+
+    args = (qkv,) if mask is None else (
+        qkv, constrain(mask, ("batch", None), rules, mesh))
+    return spmd.run(local, mesh, sharding_for(("batch", seq, "heads"), rules,
+                                              mesh), *args)
+
+
+def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules):
+    """``_transformer_layer`` (dense) on a mesh, x [b, s, d] a DTensor
+    placed ("batch", "seq", "embed") and lp the layer's DTensors."""
+    dt = cfg.dtype
+    X = sharding_for(("batch", "seq", "embed"), rules, mesh)
+
+    def ln_proj(x, scale, bias, w):
+        return _layer_norm(x, scale, bias) @ w.to(dt)
+
+    def residual(x, y, bias):
+        return x + (y + bias.to(dt))
+
+    def ln_up(x, scale, bias, w, b):
+        return F.gelu(ln_proj(x, scale, bias, w) + b.to(dt),
+                      approximate="tanh")
+
+    if mesh_shape(mesh).get("sp", 1) > 1:
+        def attend(q, k, v):
+            return ring_attention(q, k, v, "sp", causal=True)
+    else:
+        def attend(q, k, v):
+            return attention(q, k, v, causal=True, impl=cfg.attn_impl,
+                             block_q=cfg.attn_block_q,
+                             block_k=cfg.attn_block_k)
+
+    qkv = spmd.run(ln_proj, mesh,
+                   sharding_for(("batch", "seq", "qkv"), rules, mesh),
+                   x, lp["ln1_scale"], lp["ln1_bias"], lp["wqkv"])
+    o = _sharded_attention(qkv, cfg.n_heads, mesh, rules, attend)
+    o = constrain(spmd.dense(o, lp["wo"], mesh, dt),
+                  ("batch", "seq", "embed"), rules, mesh)
+    x = spmd.run(residual, mesh, X, x, o, lp["bo"])
+    u = spmd.run(ln_up, mesh,
+                 sharding_for(("batch", "seq", "mlp"), rules, mesh),
+                 x, lp["ln2_scale"], lp["ln2_bias"], lp["w_up"], lp["b_up"])
+    dn = constrain(spmd.dense(u, lp["w_down"], mesh, dt),
+                   ("batch", "seq", "embed"), rules, mesh)
+    return spmd.run(residual, mesh, X, x, dn, lp["b_down"])
+
+
+def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
+    """The dense forward on a mesh: tokens [b, s] DTensor -> logits
+    [b, s, vocab] f32 DTensor placed ("batch", "seq", "vocab")."""
+    dt = cfg.dtype
+    params = spmd.place_tree(params, param_logical_axes(cfg), rules, mesh)
+    X = sharding_for(("batch", "seq", "embed"), rules, mesh)
+    b, s = tokens.shape
+    ids = constrain(tokens, ("batch", "seq"), rules, mesh)
+    # a vocab-split table gives a partial sum: the constraint completes it
+    x = constrain(spmd.embed(params["wte"], ids, mesh),
+                  ("batch", "seq", "embed"), rules, mesh)
+    p0, _ = spmd.local_span((b, s, cfg.d_model), mesh, X, 1)
+    x = spmd.run(lambda x, wpe: (x + wpe[p0:p0 + x.shape[1]][None]).to(dt),
+                 mesh, X, x, params["wpe"])
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    for lp in spmd.layer_slices(params["layers"], cfg.n_layers, mesh):
+        if remat:
+            x = checkpoint(_sharded_layer, x, lp, cfg, mesh, rules,
+                           use_reentrant=False,
+                           context_fn=_remat_context(cfg))
+        else:
+            x = _sharded_layer(x, lp, cfg, mesh, rules)
+
+    def head(x, scale, bias, w):
+        w = w.to(dt)
+        w = w.T if cfg.tie_embeddings else w
+        return (_layer_norm(x, scale, bias) @ w).float()
+
+    w_out = params["wte"] if cfg.tie_embeddings else params["lm_head"]
+    return spmd.run(head, mesh,
+                    sharding_for(("batch", "seq", "vocab"), rules, mesh),
+                    x, params["ln_f_scale"], params["ln_f_bias"], w_out)
 
 
 def sample_token(logits, *, temperature: float = 1.0,

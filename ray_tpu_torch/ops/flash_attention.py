@@ -35,6 +35,7 @@ its 128-aligned tiles to a plain scan.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -42,10 +43,42 @@ from torch import Tensor
 
 # kernel launches on CUDA tensors since the count was last reset, one
 # counter per kernel; the smoke run zeroes them before driving a path and
-# reads them after.  ``launches`` counts the forward kernel.
+# reads them after.  ``launches`` counts the forward kernel.  Ranks run as
+# threads of one process add to them under ``_count_lock``; each thread
+# also keeps its own counts by kernel and shape (``thread_launches``).
 launches = 0
 bwd_kv_launches = 0
 bwd_dq_launches = 0
+_count_lock = threading.Lock()
+_thread = threading.local()
+
+
+def _count(kernel: str, shape) -> None:
+    """One launch of ``kernel`` ("fwd", "bwd_kv" or "bwd_dq") at q's
+    ``shape``."""
+    global launches, bwd_kv_launches, bwd_dq_launches
+    with _count_lock:
+        if kernel == "fwd":
+            launches += 1
+        elif kernel == "bwd_kv":
+            bwd_kv_launches += 1
+        else:
+            bwd_dq_launches += 1
+    log = thread_launches()
+    key = (kernel, tuple(shape))
+    log[key] = log.get(key, 0) + 1
+
+
+def thread_launches() -> dict:
+    """This thread's launches, ``{(kernel, q shape): n}``, since it last
+    called ``reset_thread_launches`` (or since it started)."""
+    if not hasattr(_thread, "log"):
+        _thread.log = {}
+    return _thread.log
+
+
+def reset_thread_launches() -> None:
+    _thread.log = {}
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
@@ -294,7 +327,6 @@ def _stream(t):
 def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
     """Check the inputs, allocate the outputs, launch the forward kernel
     once."""
-    global launches
     from ray_tpu_torch.ops import _build
 
     _check(q, k, v)
@@ -316,7 +348,7 @@ def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed ({rc}): "
                            f"{lib.flash_fwd_error_string(rc).decode()}")
-    launches += 1
+    _count("fwd", q.shape)
     return out, lse
 
 
@@ -342,7 +374,6 @@ def _bwd_inputs(q, k, v, do):
 def _launch_bwd_kv(q, k, v, do, lse, delta, scale: float, causal: bool):
     """Launch ``flash_bwd_kv`` once; returns ``(dk, dv)``, contiguous, in
     the inputs' dtype."""
-    global bwd_kv_launches
     _check(q, k, v)
     _check_grad_inputs(q, do, lse, delta)
     b, h, sq, d = q.shape
@@ -359,14 +390,13 @@ def _launch_bwd_kv(q, k, v, do, lse, delta, scale: float, causal: bool):
     if rc != 0:
         raise RuntimeError(f"flash_bwd_kv launch failed ({rc}): "
                            f"{lib.flash_bwd_error_string(rc).decode()}")
-    bwd_kv_launches += 1
+    _count("bwd_kv", q.shape)
     return dk, dv
 
 
 def _launch_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     """Launch ``flash_bwd_dq`` once; returns dq, contiguous, in the
     inputs' dtype."""
-    global bwd_dq_launches
     _check(q, k, v)
     _check_grad_inputs(q, do, lse, delta)
     b, h, sq, d = q.shape
@@ -382,7 +412,7 @@ def _launch_bwd_dq(q, k, v, do, lse, delta, scale: float, causal: bool):
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed ({rc}): "
                            f"{lib.flash_bwd_error_string(rc).decode()}")
-    bwd_dq_launches += 1
+    _count("bwd_dq", q.shape)
     return dq
 
 

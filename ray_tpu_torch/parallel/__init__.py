@@ -1,0 +1,23 @@
+"""Parallelism of the port: meshes (``DeviceMesh``), logical-axis sharding
+rules (DTensor placements), the in-mesh collectives and ``shard_call``
+(``local_map``, the counterpart of ``shard_map``), and threaded ranks for
+running a mesh in one process.  Ring attention is ``ops.ring_attention``.
+Gangs (``TpuGang``, ``form_gang``) are not ported yet."""
+
+from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, MeshSpec, batch_sharding,
+                                         create_hybrid_mesh, create_mesh,
+                                         data_axes, mesh_shape, replicated)
+from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, constrain,
+                                             infer_param_logical_axes, place,
+                                             placements_for, sharding_for,
+                                             spec_for, tree_shardings)
+from ray_tpu_torch.parallel.threaded import RankError, run_ranks
+
+__all__ = [
+    "AXIS_ORDER", "MeshSpec", "create_mesh", "create_hybrid_mesh",
+    "mesh_shape", "data_axes", "batch_sharding", "replicated",
+    "DEFAULT_LLM_RULES", "spec_for", "placements_for", "sharding_for",
+    "tree_shardings", "infer_param_logical_axes", "place", "constrain",
+    "collectives", "RankError", "run_ranks",
+]

@@ -1,4 +1,4 @@
-"""Training on one device: the train step (``step.py``), checkpoints
+"""Training: the train step on one device or a mesh (``step.py``), checkpoints
 (``checkpoint.py``), the trainer loop with failover resume
 (``trainer.py``, its session in ``session.py``) and the predictor
 (``predictor.py``), ports of the same modules of ``ray_tpu/train``."""
@@ -8,10 +8,12 @@ from ray_tpu_torch.train.checkpoint import (AsyncCheckpointer, Checkpoint,
 from ray_tpu_torch.train.predictor import Predictor, TorchPredictor
 from ray_tpu_torch.train.step import (TrainState, adam, adamw, device_batch,
                                       load_state, make_train_step,
+                                      shard_batch, state_shardings,
                                       state_to_host)
 from ray_tpu_torch.train.trainer import Result, Trainer, TrainingFailedError
 
 __all__ = ["AsyncCheckpointer", "Checkpoint", "CheckpointManager",
            "Predictor", "TorchPredictor", "TrainState", "adam", "adamw",
-           "device_batch", "load_state", "make_train_step", "state_to_host",
+           "device_batch", "load_state", "make_train_step", "shard_batch",
+           "state_shardings", "state_to_host",
            "Result", "Trainer", "TrainingFailedError"]

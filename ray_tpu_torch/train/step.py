@@ -10,11 +10,17 @@ square root); ``adam`` is ``optax.adam`` the same way.
 ``state_to_host`` and ``load_state`` are the checkpoint's half of the
 state: the params, Adam's moments (``{"count", "mu", "nu"}`` over the
 params' tree, ``models.convert``'s layout) and the step, as numpy.
-``device_batch`` puts a host batch on the device (``shard_batch`` on one
-device).
+``device_batch`` puts a host batch on the device.
 
-Single device only: the mesh, sharding rules, ``shard_batch`` and the
-1F1B step come with the port of parallelism.
+The mesh arm (``mesh=``, a ``DeviceMesh``): the params are DTensors
+placed by ``params_logical`` and ``rules`` (every leaf replicated when no
+logical axes are given: pure data parallelism), Adam's moments take the
+params' placements (``state_shardings``), and ``shard_batch`` gives each
+rank the rows of the batch it owns.  The gradients come back from the
+backward partial over the axes that split the batch (and the sequence),
+and are summed to the params' placements before the update; the update
+itself is elementwise on each rank's shards.  The 1F1B pipeline step is
+not ported yet (``train_step_1f1b`` raises).
 """
 
 from __future__ import annotations
@@ -23,11 +29,18 @@ import functools
 from dataclasses import dataclass
 from typing import Any, Callable
 
+import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data.feed import to_device
 from ray_tpu_torch.models.convert import _leaves, _map, _pick
+from ray_tpu_torch.parallel.collectives import allreduce
+from ray_tpu_torch.parallel.mesh import batch_sharding, replicated
+from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
+                                             local_shard, place,
+                                             tree_shardings)
 from ray_tpu_torch.train.checkpoint import host_tensor, to_host
 
 
@@ -55,19 +68,103 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999,
                              eps=eps)
 
 
-def _no_mesh(mesh, what: str):
+def _no_mesh(mesh, what: str, missing: str):
     if mesh is not None:
         raise NotImplementedError(
-            f"{what} on a mesh is not ported yet; the port trains on one "
-            "device")
+            f"{what} on a mesh is not ported yet: {missing}")
+
+
+def shard_batch(batch: dict, mesh) -> dict:
+    """A host batch (columns of numpy arrays, the same global batch on
+    every rank) -> DTensors on ``mesh`` split over its data axes
+    (``batch_sharding``): each rank copies only the rows it owns to its
+    device, with no collective.  A 0-d column is replicated."""
+    dev = torch.device(mesh.device_type)
+    return {k: local_shard(torch.as_tensor(np.asarray(v)), mesh,
+                           batch_sharding(mesh) if np.ndim(v)
+                           else replicated(mesh), device=dev)
+            for k, v in batch.items()}
 
 
 def device_batch(batch: dict, device=None, *, mesh=None) -> dict:
     """A host batch (columns of numpy arrays) -> the same columns as
-    tensors on ``device`` (None = the CUDA card): ``shard_batch`` on one
-    device."""
-    _no_mesh(mesh, "device_batch")
+    tensors on ``device`` (None = the CUDA card), or on ``mesh`` as
+    ``shard_batch`` places them."""
+    if mesh is not None:
+        return shard_batch(batch, mesh)
     return to_device(batch, resolve_device(device))
+
+
+def state_shardings(mesh, params_logical: Any, rules: Rules = DEFAULT_LLM_RULES,
+                    params: Any = None) -> "TrainState":
+    """Placements of a ``TrainState`` on ``mesh``: the params' by their
+    logical axes (all replicated without them, then ``params`` gives the
+    tree), Adam's moments the same as the params they follow, the step
+    and the count replicated."""
+    if params_logical is not None:
+        p_sh = tree_shardings(params_logical, rules, mesh)
+    else:
+        p_sh = _map(lambda _: replicated(mesh), params)
+    rep = replicated(mesh)
+    return TrainState(step=rep, params=p_sh,
+                      opt_state={"count": rep, "mu": p_sh, "nu": p_sh})
+
+
+def _fresh(t: DTensor) -> DTensor:
+    """A DTensor leaf of its own: ``t``'s shard copied, same placement."""
+    return DTensor.from_local(t.to_local().detach().clone(), t.device_mesh,
+                              t.placements, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _sum_grads(grads: list, leaves: list) -> list:
+    """The gradients placed as their params: the partial sums over the
+    data (and sequence) axes that the backward leaves are summed, one
+    all-reduce per mesh dim for all the leaves that share placements."""
+    mesh = leaves[0].device_mesh
+    names = mesh.mesh_dim_names
+    out = [None] * len(grads)
+    groups: dict = {}
+    for i, (g, p) in enumerate(zip(grads, leaves)):
+        want = tuple(p.placements)
+        have = tuple(g.placements)
+        if all(h == w or (h.is_partial() and w.is_replicate())
+               for h, w in zip(have, want)):
+            groups.setdefault((have, want), []).append(i)
+        else:
+            out[i] = g.redistribute(mesh, want)
+    for (have, want), idx in groups.items():
+        local = [grads[i].to_local() for i in idx]
+        flat = torch.cat([t.reshape(-1) for t in local])
+        for name, h in zip(names, have):
+            if h.is_partial():
+                flat = allreduce(flat, name, mesh=mesh)
+        for i, part in zip(idx, flat.split([t.numel() for t in local])):
+            out[i] = DTensor.from_local(
+                part.view(grads[i].to_local().shape), mesh, want,
+                run_check=False, shape=grads[i].shape,
+                stride=grads[i].stride())
+    return out
+
+
+def _global_norm(grads: list) -> torch.Tensor:
+    """``optax.global_norm`` over DTensor gradients: the f32 sums of
+    squares of the local shards, summed over the mesh dims that split
+    each, one all-reduce per dim for the leaves split alike."""
+    mesh = grads[0].device_mesh
+    groups: dict = {}
+    for g in grads:
+        split = tuple(p.is_shard() for p in g.placements)
+        groups.setdefault(split, []).append(torch.linalg.vector_norm(
+            g.to_local(), dtype=torch.float32).square())
+    total = []
+    for split, sq in groups.items():
+        s = torch.stack(sq).sum()
+        for name, is_split in zip(mesh.mesh_dim_names, split):
+            if is_split:
+                s = allreduce(s, name, mesh=mesh)
+        total.append(s)
+    return torch.sqrt(torch.stack(total).sum())
 
 
 def adam_state(opt: torch.optim.Optimizer, params) -> dict:
@@ -129,26 +226,44 @@ def load_state(state: "TrainState", payload: dict) -> None:
     state.step.fill_(int(payload.get("step", 0)))
 
 
-def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None):
+def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None,
+                    params_logical: Any = None,
+                    rules: Rules = DEFAULT_LLM_RULES):
     """Build ``(init_fn, step_fn)``.
 
-    loss_fn(params, batch) -> 0-d loss (closed over the model config).
+    loss_fn(params, batch) -> 0-d loss (closed over the model config; on
+    a mesh pass the mesh and rules inside, as the JAX package does).
     tx(leaves) -> a ``torch.optim.Optimizer``, e.g. ``adamw(3e-4)``.
     init_fn(params) -> TrainState over a copy of ``params``: the caller's
     tensors are left as they are (the JAX package copies them because its
-    step donates the state).
+    step donates the state).  On a mesh the copy is placed as
+    ``state_shardings`` says: ``params`` may be plain tensors (the whole
+    value on every rank: each rank keeps its shard) or DTensors.
     step_fn(state, batch) -> (state, {"loss", "grad_norm"}): value and
     grad, then the optimizer's in-place update.  Both metrics are 0-d
     device tensors (grad_norm is ``optax.global_norm``, the f32 L2 norm
-    over all leaves) and the step makes no host sync.
+    over all leaves, over every shard on a mesh), the same on every rank,
+    and the step makes no host sync.
     """
-    _no_mesh(mesh, "make_train_step")
+    def placed(params, sh):
+        return {k: (placed(v, sh[k]) if isinstance(v, dict)
+                    else _fresh(place(v.detach(), mesh, sh[k])))
+                for k, v in params.items()}
 
     def init_fn(params):
-        params = _map(lambda t: t.detach().clone().requires_grad_(True),
-                      params)
+        if mesh is None:
+            params = _map(lambda t: t.detach().clone(), params)
+        else:
+            params = placed(params, state_shardings(
+                mesh, params_logical, rules, params).params)
+        params = _map(lambda t: t.requires_grad_(True), params)
         leaves = _leaves(params)
         step = torch.zeros((), dtype=torch.int64, device=leaves[0].device)
+        if mesh is not None:
+            # the update is elementwise: the optimizer steps each rank's
+            # shards, which are the DTensors' storage
+            with torch.no_grad():
+                leaves = [p.to_local() for p in leaves]
         return TrainState(step=step, params=params, opt_state=tx(leaves))
 
     def step_fn(state: TrainState, batch):
@@ -157,9 +272,17 @@ def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None):
         # a leaf the loss does not use (BERT's wtype without token types)
         # gets a zero gradient, as under jax.grad
         grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-        grad_norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g, dtype=torch.float32)
-             for g in grads]))
+        if mesh is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g, dtype=torch.float32)
+                 for g in grads]))
+        else:
+            grads = _sum_grads(grads, leaves)
+            grad_norm = _global_norm(grads)
+            loss = loss.to_local()
+            with torch.no_grad():
+                leaves = [p.to_local() for p in leaves]
+            grads = [g.to_local() for g in grads]
         for p, g in zip(leaves, grads):
             p.grad = g
         state.opt_state.step()
@@ -168,3 +291,10 @@ def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None):
         return state, {"loss": loss.detach(), "grad_norm": grad_norm}
 
     return init_fn, step_fn
+
+
+def train_step_1f1b(cfg, mesh, **kw):
+    """The 1F1B pipeline step of the JAX package: not ported yet."""
+    raise NotImplementedError(
+        "train_step_1f1b: the 1F1B pipeline schedule "
+        "(parallel/pipeline_1f1b.py) is not ported yet")

@@ -76,7 +76,8 @@ class Trainer:
                  resume_from_checkpoint: Optional[Checkpoint] = None,
                  mesh=None,
                  device=None):
-        _no_mesh(mesh, "Trainer")
+        _no_mesh(mesh, "Trainer", "the sharded train state's checkpoints "
+                 "and the loop over a mesh come with a later slice")
         self.device = resolve_device(device)
         self.loss_fn, self.init_params = loss_fn, init_params
         self.optimizer, self.train_data = optimizer, train_data

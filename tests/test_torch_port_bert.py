@@ -12,8 +12,9 @@ inputs come from numpy seeds, and the JAX references are two jits.
 - ``remat=True`` against ``remat=False``.
 - A 3-step ``make_train_step`` trajectory with AdamW against optax's,
   and the MLP's likewise.
-- ``mesh=``/``rules=`` raise; the init tree and the configs' widths are
-  JAX's.
+- a pp mesh raises (the other meshes are held to the JAX package in
+  tests/test_torch_port_parallel.py); the init tree and the configs'
+  widths are JAX's.
 
 Tolerances, f32: forwards atol = rtol = 1e-5; grads atol = rtol = 1e-4;
 the trajectory's loss and grad_norm rel 1e-4 at every step, its params
@@ -229,12 +230,16 @@ def test_mlp_train_step_trajectory_matches_optax():
 
 
 def test_bert_refuses_a_mesh(bert_case):
+    """A pp mesh (the pipelined encoder is not ported) raises before any
+    collective; the mesh stands in with its axis names and sizes."""
+    from types import SimpleNamespace
+
     tree, batch, _ = bert_case
     cfg = tbert.BERTConfig.tiny()
     ids = torch.from_numpy(batch["input_ids"])
-    for kw in (dict(mesh=object()), dict(rules=object())):
-        with pytest.raises(NotImplementedError, match="mesh"):
-            tbert.encode(bridge(tree), ids, cfg, **kw)
+    pp_mesh = SimpleNamespace(mesh_dim_names=("pp", "dp"), shape=(2, 2))
+    with pytest.raises(NotImplementedError, match="pp mesh"):
+        tbert.encode(bridge(tree), ids, cfg, mesh=pp_mesh)
 
 
 def test_init_tree_and_widths_are_jax_s():

@@ -346,5 +346,10 @@ def test_init_fn_leaves_callers_params_untouched(model):
 
 
 def test_make_train_step_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(lambda p, b: 0.0, adamw(1e-3), mesh=object())
+    """make_train_step takes a mesh now (tests/test_torch_port_parallel*
+    hold it to the JAX package); the pipelined 1F1B step on one is still
+    refused."""
+    from ray_tpu_torch.train.step import train_step_1f1b
+
+    with pytest.raises(NotImplementedError, match="1F1B"):
+        train_step_1f1b(tgpt.GPTConfig.tiny(), mesh=object())

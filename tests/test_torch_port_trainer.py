@@ -348,10 +348,22 @@ def test_entry_points_need_a_card_unless_told(setup, monkeypatch):
 
 
 def test_trainer_and_device_batch_refuse_a_mesh(setup):
+    """The Trainer refuses a mesh; device_batch takes one now and shards
+    the batch over it (a one-rank dp mesh here; the sharded feed is held
+    to the JAX package in tests/test_torch_port_parallel.py)."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.parallel import create_mesh, run_ranks
+
     with pytest.raises(NotImplementedError, match="mesh"):
         _port_trainer(setup, [], mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        device_batch({"x": np.zeros(2)}, "cpu", mesh=object())
+
+    def one_rank(rank):
+        got = device_batch({"x": np.arange(4)}, mesh=create_mesh(
+            {"dp": 1}, device="cpu"))["x"]
+        return isinstance(got, DTensor), got.full_tensor().tolist()
+
+    assert run_ranks(one_rank, 1, timeout=60) == [(True, [0, 1, 2, 3])]
 
 
 @pytest.fixture(scope="module")
