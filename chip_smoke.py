@@ -163,9 +163,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (ring attention).  Then the three kernels at [4, 6, 1024, 64] bf16
    causal against their plain versions, timed beside their bound, the
    plain versions and SDPA (the kernels' ``tp_shape`` records).
+16. the pipelines and experts on four threaded ranks sharing the card,
+   GPT-2 124M (bf16, remat "dots", AdamW(3e-4, weight_decay=0.1)) and
+   BERT-base.  16a: GPipe on pp2.dp2, b16, M 4, three steps; 16b: one
+   GPipe and one 1F1B pass on pp4, b16, M 8 (loss within the reference's
+   1e-3 + 1e-3 |ref| of one device, grad_norm rel 5e-2, a nonzero
+   gradient on every leaf; the peak device memory each adds, printed),
+   then ``train_step_1f1b`` on pp4 (its own checks); 16c: MoE (4
+   experts, top-2, capacity factor 1.25) on dp2.ep2 and on pp2.ep2 (M
+   4), b8, three steps each; 16d: BERT-base on pp2.dp2, b32 s512, M 4,
+   one step.  Each step's loss and grad_norm on every rank within rel
+   5e-3 / 5e-2 of one device's on the same params (gathered before the
+   step) and batch; every rank's flash launches a step equal to its
+   schedule's count (every stage runs its layers at each of the M + S -
+   1 ticks; 1F1B's F without a graph, its B with the recompute).  Then
+   the three kernels at [2, 12, 1024, 64] and [4, 12, 1024, 64] bf16
+   causal and [4, 12, 512, 64] non-causal against their plain versions,
+   timed beside their bound, the plain versions and SDPA (the kernels'
+   ``pp_shape``, ``ep_shape`` and ``bert_pp_shape`` records).
 
 ``main`` runs phases 8, 10, 11, 12, 13 and 14 before phase 7, and 15
-after 9: no serving phase runs after the profiler.  The line before the last is the kernels' JSON
+and 16 after 9: no serving phase runs after the profiler.  The line before the last is the kernels' JSON
 record; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -2600,30 +2618,39 @@ TP_SHAPE = (4, 6, 1024, 64)
 
 
 def tp_shape_times(name: str, card: str) -> dict:
-    """The three kernels at ``TP_SHAPE`` bf16 causal against their plain
+    """The three kernels at ``TP_SHAPE`` bf16 causal (a dp2.tp2 rank's
+    shape in phase 15b): ``rank_shape_times``."""
+    return rank_shape_times(name, card, TP_SHAPE, True, "a dp2.tp2 rank's "
+                            "shape", "sharded", SEED + 15)
+
+
+def rank_shape_times(name: str, card: str, shape, causal: bool, what: str,
+                     tag: str, seed: int) -> dict:
+    """The three kernels at one bf16 ``shape`` against their plain
     versions (max abs error) and timed beside their bound, the plain
     versions and SDPA: {kernel: record}."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=gen, device="cuda",
                            dtype=torch.float32).to(dtype)
 
-    b, h, s, d = TP_SHAPE
-    q, k, v, do = (rand(TP_SHAPE, torch.bfloat16) for _ in range(4))
-    out, lse = fa.flash_attention_with_lse(q, k, v, causal=True)
-    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=True)
+    b, h, s, d = shape
+    mode = "causal" if causal else "non-causal"
+    q, k, v, do = (rand(shape, torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
+    ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     fwd_err = (out.float() - ref.float()).abs().max().item()
     delta = fa._delta(out, do)
     scale = d ** -0.5
-    dk, dv = fa._launch_bwd_kv(q, k, v, do, lse, delta, scale, True)
-    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale, True)
-    rdk, rdv = fa._bwd_kv_reference(q, k, v, do, lse, delta, scale, True,
+    dk, dv = fa._launch_bwd_kv(q, k, v, do, lse, delta, scale, causal)
+    dq = fa._launch_bwd_dq(q, k, v, do, lse, delta, scale, causal)
+    rdk, rdv = fa._bwd_kv_reference(q, k, v, do, lse, delta, scale, causal,
                                     512, 512)
-    rdq = fa._bwd_dq_reference(q, k, v, do, lse, delta, scale, True, 512,
+    rdq = fa._bwd_dq_reference(q, k, v, do, lse, delta, scale, causal, 512,
                                512)
     held = {"flash_fwd": [(fwd_err, fwd_err <= TOL[torch.bfloat16])],
             "flash_bwd_kv": [grad_err(dk, rdk, torch.bfloat16),
@@ -2633,26 +2660,26 @@ def tp_shape_times(name: str, card: str) -> dict:
     for kname, pairs in held.items():
         errs[kname] = max(e for e, _ in pairs)
         ok = all(o for _, o in pairs)
-        print(f"[sharded] {kname} [{b},{h},{s},{d}] bf16 causal (a dp2.tp2 "
-              f"rank's shape) max_abs_err {errs[kname]:.3e} against its "
-              f"plain version {'ok' if ok else 'FAIL'}")
-        check(ok, f"{kname} at {TP_SHAPE}: error {errs[kname]}")
-    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+        print(f"[{tag}] {kname} [{b},{h},{s},{d}] bf16 {mode} ({what}) "
+              f"max_abs_err {errs[kname]:.3e} against its plain version "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"{kname} at {shape}: error {errs[kname]}")
+    ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
     plain_ms = device_ms(lambda: fa.flash_attention_reference(
-        q, k, v, causal=True), 3)
+        q, k, v, causal=causal), 3)
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True))
+        q, k, v, is_causal=causal))
     bw, flops = rates(name)
-    nbytes, nflop = attention_work(b, h, s, s, d, True, 2)
+    nbytes, nflop = attention_work(b, h, s, s, d, causal, 2)
     t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
-    print(f"[sharded] flash_fwd [{b},{h},{s},{d}] bf16 causal on {card}: "
+    print(f"[{tag}] flash_fwd [{b},{h},{s},{d}] bf16 {mode} on {card}: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
           f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms")
     out = {"flash_fwd": {
         "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations"}}
-    out.update(backward_times(name, card, rand, b, h, s, d, True))
+    out.update(backward_times(name, card, rand, b, h, s, d, causal))
     for kname, err in errs.items():
         out[kname]["max_abs_err"] = err
     return out
@@ -2666,21 +2693,28 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def sharded_steps(mesh, cfg, params, tokens, steps, *, on_step=None):
-    """``steps`` of make_train_step (AdamW(3e-4, weight_decay=0.1)) on
-    ``mesh`` (None: one device) from a copy of ``params`` on one host
-    batch ``tokens`` (numpy): [(loss, grad_norm)] and the CUDA-event ms
-    of each step.  ``on_step(i)`` runs after step i's metrics are read."""
+def sharded_steps(mesh, cfg, params, tokens, steps, *, on_step=None,
+                  model=None, tx=None, after_step=None):
+    """``steps`` of make_train_step (AdamW(3e-4, weight_decay=0.1) unless
+    ``tx``) of ``model`` (the GPT module unless given; it has ``loss_fn``
+    and ``param_logical_axes``) on ``mesh`` (None: one device) from a copy
+    of ``params`` on one host batch (numpy): ``tokens``, or a dict of
+    columns.  Returns [(loss, grad_norm)] and the CUDA-event ms of each
+    step.  ``on_step(i)`` runs after step i's metrics are read, then
+    ``after_step(i, state)``."""
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.train import adamw, make_train_step
     from ray_tpu_torch.train.step import device_batch
 
-    logical = gpt.param_logical_axes(cfg) if mesh is not None else None
+    model = model or gpt
+    logical = model.param_logical_axes(cfg) if mesh is not None else None
     init_fn, step_fn = make_train_step(
-        lambda p, b: gpt.loss_fn(p, b, cfg, mesh=mesh),
-        adamw(3e-4, weight_decay=0.1), mesh=mesh, params_logical=logical)
+        lambda p, b: model.loss_fn(p, b, cfg, mesh=mesh),
+        tx or adamw(3e-4, weight_decay=0.1), mesh=mesh,
+        params_logical=logical)
     state = init_fn(params)
-    batch = device_batch({"tokens": tokens}, "cuda", mesh=mesh)
+    batch = device_batch(tokens if isinstance(tokens, dict)
+                         else {"tokens": tokens}, "cuda", mesh=mesh)
     out, ms = [], []
     for i in range(steps):
         a = torch.cuda.Event(enable_timing=True)
@@ -2692,6 +2726,8 @@ def sharded_steps(mesh, cfg, params, tokens, steps, *, on_step=None):
         ms.append(a.elapsed_time(z))
         if on_step is not None:
             on_step(i)
+        if after_step is not None:
+            after_step(i, state)
     del state
     return out, ms
 
@@ -2812,6 +2848,466 @@ def phase_sharded_training(name: str, card: str) -> dict:
     return launches, tp_shape_times(name, card)
 
 
+# ------------------------------------------------ pipelines and experts
+
+# [batch, heads, seq, head dim] each rank gives the flash kernels in phase
+# 16: a microbatch of 16a's pp2.dp2 (b16 in 4 microbatches, 2 rows a dp
+# rank), of 16b's pp4 (b16 in 8) and of 16c's pp2.ep2 (b8 in 4); a
+# dp2.ep2 rank's rows (b8 over dp2); a BERT microbatch of 16d's pp2.dp2
+# (b32 in 4, 4 rows a dp rank)
+PP_SHAPE = (2, 12, 1024, 64)
+EP_SHAPE = (4, 12, 1024, 64)
+BERT_PP_SHAPE = (4, 12, 512, 64)
+
+
+def gpipe_launches(L: int, S: int, M: int) -> tuple:
+    """(flash_fwd, flash_bwd_kv, flash_bwd_dq) launches a GPipe step
+    makes on each rank: every stage runs its L/S layers at each of the
+    T = M + S - 1 ticks (bubbles included), once forward and once more in
+    the recompute, and backward once."""
+    n = (M + S - 1) * (L // S)
+    return (2 * n, n, n)
+
+
+def one_f_one_b_launches(L: int, S: int, M: int, r: int) -> tuple:
+    """The launches of one 1F1B pass on stage ``r``: F runs the stage's
+    L/S layers without a graph (not on the last stage); B runs them
+    again under remat (forward, recompute, backward), M times each."""
+    n = L // S
+    f = 0 if r == S - 1 else M * n
+    return (f + 2 * M * n, M * n, M * n)
+
+
+def threaded_run(axes: dict, fn, want, label: str, timeout: float = 600):
+    """``fn(mesh, count)`` on four ranks as threads sharing the card, a
+    mesh of ``axes`` each; ``count()`` closes a counted step (the
+    rank's launches since the last one).  Each rank's counted launches
+    must equal ``want(rank)``, ``{(kernel, q shape): n}`` per counted
+    step.  Returns the ranks' results, the total launches of the run
+    (flash_fwd, flash_bwd_kv, flash_bwd_dq), the wall seconds and the
+    peak device memory the run added (bytes, all four ranks)."""
+    from ray_tpu_torch.parallel import create_mesh, run_ranks
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+
+    def rank(r):
+        mesh = create_mesh(dict(axes))
+        per_step = []
+
+        def count():
+            per_step.append(dict(fa.thread_launches()))
+            fa.reset_thread_launches()
+
+        fa.reset_thread_launches()
+        out = fn(mesh, count)
+        return out, per_step
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    t = time.perf_counter()
+    results = run_ranks(rank, 4, timeout=timeout)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() - base
+    total = [fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches]
+    for r, (_, per_step) in enumerate(results):
+        check(len(per_step) > 0, f"{label} rank {r} counted no step")
+        for i, seen in enumerate(per_step):
+            check(seen == want(r), f"{label} rank {r} step {i + 1} "
+                  f"launched {seen}, expected {want(r)}")
+    return [out for out, _ in results], total, wall, peak
+
+
+def per_kernel(shape, fwd: int, kv: int, dq: int) -> dict:
+    return {("fwd", shape): fwd, ("bwd_kv", shape): kv,
+            ("bwd_dq", shape): dq}
+
+
+def one_device_grads(model, cfg, params, batch, microbatches: int) -> tuple:
+    """(loss, grad_norm, gradients in leaf order) of ``model`` on one
+    device at ``params`` (whole tensors on the card) and the host
+    ``batch``: what a step there would see before its update.  The loss
+    is the mean of the loss on each of ``microbatches`` equal row blocks
+    of the batch, as a pipeline's MoE aux term is."""
+    from ray_tpu_torch.models.convert import _leaves, _map
+    from ray_tpu_torch.train.step import device_batch
+
+    p = _map(lambda t: t.detach().requires_grad_(True), params)
+    n = len(next(iter(batch.values()))) // microbatches
+    loss = sum(model.loss_fn(p, device_batch(
+        {k: v[m * n:(m + 1) * n] for k, v in batch.items()}, "cuda"), cfg)
+        for m in range(microbatches)) / microbatches
+    grads = torch.autograd.grad(loss, _leaves(p), materialize_grads=True)
+    norm = torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g, dtype=torch.float32) for g in grads]))
+    return loss.item(), norm.item(), list(grads)
+
+
+def gathered_state(state) -> dict:
+    """A mesh TrainState's params and Adam's count and moments, gathered
+    whole (copies on the card).  Collectives: every rank of the mesh
+    joins them."""
+    from torch.distributed.tensor import DTensor
+
+    from ray_tpu_torch.models.convert import _leaves, _map, _unflatten
+
+    leaves = _leaves(state.params)
+    with torch.no_grad():
+        local = [p.to_local() for p in leaves]   # the optimizer's tensors
+    opt = state.opt_state.state
+
+    def moment(key):
+        return _unflatten(state.params, [DTensor.from_local(
+            opt[t][key], p.device_mesh, p.placements, run_check=False,
+            shape=p.shape, stride=p.stride()).full_tensor().clone()
+            for p, t in zip(leaves, local)])
+
+    return {"params": _map(lambda t: t.full_tensor().detach().clone(),
+                           state.params),
+            "opt": {"count": int(opt[local[0]]["step"]),
+                    "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}}
+
+
+def mesh_grads(before: dict, after: dict, b1: float) -> list:
+    """The gradients a mesh step fed Adam, in leaf order, read back from
+    its first moment: ``(mu_after - b1 mu_before) / (1 - b1)`` (no
+    ``mu_before`` before the first step)."""
+    from ray_tpu_torch.models.convert import _leaves
+
+    mu = _leaves(after["opt"]["mu"])
+    was = ([None] * len(mu) if before["opt"] is None
+           else _leaves(before["opt"]["mu"]))
+    return [(m.cuda() - (0 if w is None else b1 * w.cuda())) / (1 - b1)
+            for m, w in zip(mu, was)]
+
+
+def replayed_update(tx, snap: dict, grads: list) -> list:
+    """The params' leaves after one step of ``tx`` on one device from
+    ``snap`` (params and Adam's state; none before the first step) fed
+    ``grads``."""
+    from ray_tpu_torch.models.convert import _leaves, _map
+    from ray_tpu_torch.train.step import load_adam_state
+
+    params = _map(lambda t: t.detach().clone(), snap["params"])
+    opt = tx(_leaves(params))
+    if snap["opt"] is not None:
+        load_adam_state(opt, params, snap["opt"])
+    for t, g in zip(_leaves(params), grads):
+        t.grad = g
+    opt.step()
+    return _leaves(params)
+
+
+def rel_errors(got: list, want: list, origin: list = None) -> tuple:
+    """L2 distance of ``got`` from ``want`` over the norm of ``want``
+    (of ``want - origin`` with ``origin``): over all leaves together,
+    the worst leaf's, and its index."""
+    diff, size = [], []
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff.append(torch.linalg.vector_norm(g - w, dtype=torch.float32))
+        size.append(torch.linalg.vector_norm(
+            w if origin is None else w - origin[i], dtype=torch.float32))
+    diff, size = torch.stack(diff), torch.stack(size)
+    leaf = diff / size.clamp_min(1e-30)
+    return ((diff.norm() / size.norm()).item(), leaf.max().item(),
+            int(leaf.argmax()))
+
+
+def leaf_norm_error(got: list, want: list) -> tuple:
+    """The worst leaf's | |got| - |want| | / |want| (L2 norms) and its
+    index."""
+    g, w = (torch.stack([torch.linalg.vector_norm(t, dtype=torch.float32)
+                         for t in ts]) for ts in (got, want))
+    leaf = (g - w).abs() / w.clamp_min(1e-30)
+    return leaf.max().item(), int(leaf.argmax())
+
+
+def mesh_steps(axes: dict, model, cfg, params, batch: dict, steps: int,
+               want: dict, label: str, traj: list, tx=None,
+               microbatches: int = 1):
+    """``steps`` of make_train_step (AdamW(3e-4, weight_decay=0.1) unless
+    ``tx``) on four threaded ranks on a mesh of ``axes`` from ``params``
+    on the host ``batch``, each rank launching ``want`` a step.  After
+    each step every rank gathers its state: each rank's params must
+    equal rank 0's within 1e-6 (a replica a step left out is about lr
+    away), and rank 0 keeps them with Adam's state.  Each mesh step is
+    held to one device on the params it started from (its loss the mean
+    over ``microbatches`` row blocks, as a pipelined MoE's): loss and
+    grad_norm within rel 5e-3 / 5e-2 (15b's bounds), and each leaf of the
+    gradients it fed Adam in norm within rel 5e-2 (a leaf given none,
+    half or twice its gradient is 0.5 or more away).  Its update must be
+    Adam's on one device from the same params and state fed those
+    gradients: within rel 1e-3 over all leaves, 1e-2 on each.  A dense
+    model's gradients must also lie within rel 5e-2 of one device's over
+    all leaves (0.25 on each), and every step's loss and grad_norm within
+    15b's bounds of ``traj``, one device's own trajectory from
+    ``params``.  An MoE's are printed only: at random init the router's
+    top-k is near-tied for many tokens, bf16 rounding flips some between
+    the mesh and one device and moves their gradient to other experts,
+    and Adam's first steps amplify it.  Returns (launches of the run,
+    step ms on rank 0, wall s)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.convert import _leaves, _map
+    from ray_tpu_torch.train import adamw
+
+    tx = tx or adamw(3e-4, weight_decay=0.1)
+    routed = getattr(cfg, "n_experts", 0) > 0
+    snaps = [{"params": params, "opt": None}]     # rank 0's, step by step
+
+    def fn(mesh, count):
+        rank, spread = dist.get_rank(), []
+
+        def after_step(i, state):
+            got = gathered_state(state)
+            if rank == 0:    # load_adam_state reads the moments on the host
+                got["opt"].update({k: _map(lambda t: t.cpu(), got["opt"][k])
+                                   for k in ("mu", "nu")})
+                snaps.append(got)
+            dist.all_reduce(torch.zeros(1, device="cuda"))   # rank 0's in
+            if rank != 0:
+                spread.append(max(
+                    (a - b).abs().max().item() for a, b in zip(
+                        _leaves(got["params"]),
+                        _leaves(snaps[i + 1]["params"]))))
+
+        got, ms = sharded_steps(mesh, cfg, params, batch, steps,
+                                on_step=lambda i: count(), model=model,
+                                tx=tx, after_step=after_step)
+        return got, ms, spread
+
+    out, launches, wall, _ = threaded_run(axes, fn, lambda r: want, label)
+    for r, (_, _, spread) in enumerate(out[1:], 1):
+        check(max(spread) <= 1e-6, f"{label} rank {r}: params up to "
+              f"{max(spread)} from rank 0's after a step")
+    def names(tree, pre=""):
+        return [n for k, v in tree.items() for n in (
+            names(v, f"{pre}{k}.") if isinstance(v, dict) else [pre + k])]
+
+    leaf_names = names(params)
+    b1 = tx.keywords["betas"][0]
+    for i in range(steps):
+        l1, n1, g1 = one_device_grads(model, cfg, snaps[i]["params"], batch,
+                                      microbatches)
+        g2 = mesh_grads(snaps[i], snaps[i + 1], b1)
+        grad, grad_leaf, gi = rel_errors(g2, g1)
+        norm_leaf, ni = leaf_norm_error(g2, g1)
+        del g1
+        before = _leaves(snaps[i]["params"])
+        upd, upd_leaf, ui = rel_errors(_leaves(snaps[i + 1]["params"]),
+                                       replayed_update(tx, snaps[i], g2),
+                                       before)
+        del g2
+        (lt, nt) = traj[i]
+        for r, (got, _, _) in enumerate(out):
+            (l2, n2) = got[i]
+            dl, dn = abs(l2 - l1) / abs(l1), abs(n2 - n1) / abs(n1)
+            tl, tn = abs(l2 - lt) / abs(lt), abs(n2 - nt) / abs(nt)
+            if r == 0:
+                print(f"[{label}] step {i + 1}: loss {l2:.6f}, grad_norm "
+                      f"{n2:.5f}; one device on the same params {l1:.6f} / "
+                      f"{n1:.5f} (rel {dl:.2e} / {dn:.2e}, bounds 5e-3 / "
+                      f"5e-2), gradients' leaf norms worst rel "
+                      f"{norm_leaf:.2e} ({leaf_names[ni]}; bound 5e-2), "
+                      f"gradients rel {grad:.2e}, worst leaf "
+                      f"{grad_leaf:.2e} ({leaf_names[gi]}; "
+                      + ("not gated" if routed else "bounds 5e-2, 0.25")
+                      + "), update against Adam's on one device rel "
+                      f"{upd:.2e}, worst leaf {upd_leaf:.2e} "
+                      f"({leaf_names[ui]}; bounds 1e-3, 1e-2); one device's "
+                      f"own step {lt:.6f} / {nt:.5f} (rel {tl:.2e} / "
+                      f"{tn:.2e}, " + ("not gated)" if routed
+                                       else "bounds 5e-3 / 5e-2)")
+                      + "; ranks 1-3's params within "
+                      f"{max(o[2][i] for o in out[1:]):.1e} of rank 0's")
+            check(dl <= 5e-3 and dn <= 5e-2, f"{label} rank {r} step "
+                  f"{i + 1}: loss {l2} vs {l1}, norm {n2} vs {n1} on the "
+                  "same params")
+            check(routed or (tl <= 5e-3 and tn <= 5e-2),
+                  f"{label} rank {r} step {i + 1}: loss {l2} vs {lt}, norm "
+                  f"{n2} vs {nt} on one device's trajectory")
+        check(norm_leaf <= 5e-2, f"{label} step {i + 1}: the norm of "
+              f"{leaf_names[ni]}'s gradient {norm_leaf} from one device's")
+        check(routed or (grad <= 5e-2 and grad_leaf <= 0.25), f"{label} "
+              f"step {i + 1}: gradients {grad} from one device's, worst "
+              f"leaf {grad_leaf}")
+        check(upd <= 1e-3 and upd_leaf <= 1e-2, f"{label} step {i + 1}: "
+              f"update {upd} from Adam's on one device, worst leaf "
+              f"{upd_leaf}")
+    return launches, out[0][1], wall
+
+
+def phase_pipelines(name: str, card: str) -> tuple:
+    """16: the pp and ep arms on four threaded ranks sharing the card, at
+    GPT-2 124M (and BERT-base) widths, bf16.  16a GPipe on pp2.dp2, b16,
+    M 4, three steps; 16b GPipe and 1F1B passes on pp4, b16, M 8 (peak
+    memory of each, 1F1B's loss and every leaf's gradient), then
+    ``train_step_1f1b``; 16c MoE on dp2.ep2, b8, three steps, and MoE on
+    pp2.ep2, b8, M 4, three steps; 16d BERT-base on pp2.dp2, b32 s512,
+    M 4, one step.  Returns {path: [flash_fwd, flash_bwd_kv,
+    flash_bwd_dq launches]} and the kernels' records at the three
+    per-rank shapes."""
+    import logging
+
+    from ray_tpu_torch.models import bert, gpt
+    from ray_tpu_torch.train import adamw
+    from ray_tpu_torch.train.step import (_global_norm, _leaves,
+                                          gpt_value_and_grads_1f1b,
+                                          shard_batch, train_step_1f1b)
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L = cfg.n_layers
+    params = gpt.init_params(cfg, SEED)
+    rng = np.random.default_rng(SEED + 16)
+    launches = {}
+    tokens16 = rng.integers(0, cfg.vocab_size, (16, 1025)).astype(np.int64)
+    batch16 = {"tokens": tokens16}
+    ref16, ref_ms = sharded_steps(None, cfg, params, tokens16, 3)
+
+    # 16a: GPipe on pp2.dp2
+    want = per_kernel(PP_SHAPE, *gpipe_launches(L, 2, 4))
+    launches["pipeline_gpipe_pp2.dp2"], ms, wall = mesh_steps(
+        {"pp": 2, "dp": 2}, gpt, cfg, params, batch16, 3, want,
+        "pipeline 16a pp2.dp2", ref16)
+    print(f"[pipeline 16a] GPipe pp2.dp2, b16, M 4, 4 ranks as threads "
+          f"sharing {card}: per-step launches on each rank {want}; step ms "
+          f"on rank 0 {[round(x, 1) for x in ms]} (one device "
+          f"{[round(x, 1) for x in ref_ms]}), {wall:.1f} s for the 3 steps "
+          f"of all ranks (not a throughput)")
+
+    # 16b: GPipe and 1F1B passes at S 4, M 8 on one batch; then
+    # train_step_1f1b
+    def pipeline_pass(mesh, count, one_f_one_b):
+        placed = gpt_params_on(mesh, params, gpt.param_logical_axes(cfg))
+        batch = shard_batch({"tokens": tokens16}, mesh)
+        t = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        t.record()
+        if one_f_one_b:
+            loss, grads = gpt_value_and_grads_1f1b(placed, batch["tokens"],
+                                                   cfg, mesh)
+            leaves = _leaves(grads)
+        else:
+            leaves = _leaves(placed)
+            loss = gpt.loss_fn(placed, batch, cfg, mesh=mesh)
+            from ray_tpu_torch.train.step import _sum_grads
+            leaves = _sum_grads(list(torch.autograd.grad(loss, leaves)),
+                                leaves)
+        z.record()
+        count()
+        norm = _global_norm(leaves).item()
+        zero = [i for i, g in enumerate(leaves)
+                if _global_norm([g]).item() == 0.0]
+        return loss.to_local().item(), norm, t.elapsed_time(z), zero
+
+    peaks = {}
+    for kind, want in (("gpipe", lambda r: per_kernel(
+            PP_SHAPE, *gpipe_launches(L, 4, 8))),
+            ("1f1b", lambda r: per_kernel(
+                PP_SHAPE, *one_f_one_b_launches(L, 4, 8, r)))):
+        out, launches[f"pipeline_{kind}_pp4"], wall, peak = threaded_run(
+            {"pp": 4}, lambda mesh, count, k=kind: pipeline_pass(
+                mesh, count, k == "1f1b"), want, f"16b {kind}")
+        peaks[kind] = peak
+        loss, norm, ms, zero = out[0]
+        (l1, n1) = ref16[0]
+        bound = 1e-3 + 1e-3 * abs(l1)
+        print(f"[pipeline 16b] {kind} pp4, b16, M 8 on {card}: loss "
+              f"{loss:.6f} vs one device {l1:.6f} (|diff| "
+              f"{abs(loss - l1):.2e}, bound {bound:.2e}), grad_norm "
+              f"{norm:.5f} vs {n1:.5f}; peak device memory of the four "
+              f"ranks {peak / 2 ** 30:.3f} GiB; pass ms on rank 0 {ms:.1f}, "
+              f"{wall:.1f} s for all ranks; launches per rank "
+              f"{[want(r) for r in range(4)]}")
+        for r, (lr, nr, _, zr) in enumerate(out):
+            check(abs(lr - l1) < bound, f"16b {kind} rank {r}: loss {lr} "
+                  f"vs one device {l1}")
+            check(abs(nr - n1) / n1 <= 5e-2, f"16b {kind} rank {r}: "
+                  f"grad_norm {nr} vs one device {n1}")
+            check(not zr, f"16b {kind} rank {r}: leaves {zr} got a zero "
+                  "gradient")
+    print(f"[pipeline 16b] peak device memory a pass added at S 4, M 8 "
+          f"(four ranks on one card, params placed in the pass): GPipe "
+          f"{peaks['gpipe'] / 2 ** 30:.3f} GiB, 1F1B "
+          f"{peaks['1f1b'] / 2 ** 30:.3f} GiB (not gated)")
+    # train_step_1f1b also runs the plain loss on one device (its parity
+    # check) on each rank: L flash forwards at the whole batch's shape
+    b, s = tokens16.shape[0], tokens16.shape[1] - 1
+    whole = (b, cfg.n_heads, s, cfg.head_dim)
+    out, launches["pipeline_train_step_1f1b_pp4"], wall, _ = threaded_run(
+        {"pp": 4}, lambda mesh, count: (train_step_1f1b(
+            cfg, mesh, batch_n=b, seq=s), count())[0],
+        lambda r: {**per_kernel(PP_SHAPE, *one_f_one_b_launches(L, 4, 8, r)),
+                   ("fwd", whole): L},
+        "16b train_step_1f1b")
+    print(f"[pipeline 16b] train_step_1f1b(gpt2_124m, pp4, batch_n={b}, "
+          f"seq={s}): loss {out[0]:.6f} on every rank {out}, its parity "
+          f"and grad-norm checks passed, {wall:.1f} s")
+
+    # 16c: MoE on dp2.ep2, then MoE + pp on pp2.ep2
+    mcfg = moe_config(remat=True, remat_policy="dots")
+    mparams = gpt.init_params(mcfg, SEED)
+    tokens8 = rng.integers(0, cfg.vocab_size, (8, 1025)).astype(np.int64)
+    mref, mref_ms = sharded_steps(None, mcfg, mparams, tokens8, 3)
+    for axes, label, want, mb in (
+            ({"dp": 2, "ep": 2}, "dp2.ep2",
+             per_kernel(EP_SHAPE, 2 * L, L, L), 1),
+            ({"pp": 2, "ep": 2}, "pp2.ep2",
+             per_kernel(PP_SHAPE, *gpipe_launches(L, 2, 4)), 4)):
+        launches[f"pipeline_moe_{label}"], ms, wall = mesh_steps(
+            axes, gpt, mcfg, mparams, {"tokens": tokens8}, 3, want,
+            f"pipeline 16c moe {label}", mref, microbatches=mb)
+        print(f"[pipeline 16c] MoE (4 experts, top-2, cf 1.25) {label}, "
+              f"b8: per-step launches on each rank {want}; step ms on rank "
+              f"0 {[round(x, 1) for x in ms]} (one device "
+              f"{[round(x, 1) for x in mref_ms]}), {wall:.1f} s for the 3 "
+              f"steps of all ranks")
+
+    # 16d: BERT-base on pp2.dp2, one step, no mask
+    bcfg = bert.BERTConfig.bert_base()
+    bparams = bert.init_params(bcfg, SEED)
+    b, _, s, _ = BERT_SHAPE
+    bbatch = {k: v.cpu().numpy() for k, v in bert_batch(
+        bcfg, b, s, SEED + 16).items()}
+    tx = adamw(1e-4, weight_decay=0.01)
+    bref, bref_ms = sharded_steps(None, bcfg, bparams, bbatch, 1,
+                                  model=bert, tx=tx)
+    want = per_kernel(BERT_PP_SHAPE, *gpipe_launches(bcfg.n_layers, 2, 4))
+    launches["pipeline_bert_pp2.dp2"], ms, wall = mesh_steps(
+        {"pp": 2, "dp": 2}, bert, bcfg, bparams, bbatch, 1, want,
+        "pipeline 16d bert pp2.dp2", bref, tx=tx)
+    print(f"[pipeline 16d] BERT-base pp2.dp2, b{b} s{s}, M 4, no mask: "
+          f"launches on each rank {want}; step ms on rank 0 "
+          f"{[round(x, 1) for x in ms]} (one device "
+          f"{[round(x, 1) for x in bref_ms]}), {wall:.1f} s")
+
+    records = {
+        "pp_shape": rank_shape_times(name, card, PP_SHAPE, True, "a pipeline "
+                                     "microbatch on a rank", "pipeline",
+                                     SEED + 161),
+        "ep_shape": rank_shape_times(name, card, EP_SHAPE, True, "a dp2.ep2 "
+                                     "rank's shape", "pipeline", SEED + 162),
+        "bert_pp_shape": rank_shape_times(name, card, BERT_PP_SHAPE, False,
+                                          "a BERT microbatch on a rank",
+                                          "pipeline", SEED + 163)}
+    return launches, records
+
+
+def gpt_params_on(mesh, params, logical):
+    """``params`` (whole tensors) as DTensor leaves placed by ``logical``,
+    requiring grad."""
+    from ray_tpu_torch.models.convert import _map
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES
+
+    return _map(lambda t: t.detach().requires_grad_(True),
+                spmd.place_tree(params, logical, DEFAULT_LLM_RULES, mesh))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2849,14 +3345,20 @@ def main() -> int:
     train_launches.update(sharded_launches)
     for k in kernels:
         k["tp_shape"] = tp_records[k["name"]]
+    pipeline_launches, pipeline_records = run(phase_pipelines, name, card)
+    train_launches.update(pipeline_launches)
+    for k in kernels:
+        for key, rec in pipeline_records.items():
+            k[key] = rec[k["name"]]
     train_launches.update(model_launches)
     train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
     # f32 engines' requests, the MoE engines', the prefix plane's and the
     # replica contract's requests, the five training steps under each
     # remat policy, BERT-base's five steps and its padded batch, the two
-    # trainer fits (14 and 12 steps) and the predictor's forward, and the
-    # sharded steps: 15a's three checked ones, 15b's three per rank
+    # trainer fits (14 and 12 steps) and the predictor's forward, the
+    # sharded steps: 15a's three checked ones, 15b's three per rank, and
+    # phase 16's pipelined and expert-parallel steps and passes
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

@@ -22,8 +22,10 @@ logical axes and ``rules``, each stretch of a layer between two of the
 JAX package's sharding constraints runs on local shards, attention runs
 on each rank's heads and batch rows with the sequence whole (the JAX
 package's plain attention on an sp mesh gathers it too), and the MLM
-loss is a vocab-parallel cross-entropy.  A mesh with pp > 1 (the
-pipelined encoder) raises ``NotImplementedError``.
+loss is a vocab-parallel cross-entropy.  A mesh with pp > 1 runs the
+encoder stack as a GPipe pipeline (``parallel.pipeline``), the
+embedding and the MLM head on every pp rank; as in the JAX package, an
+``attention_mask`` there raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,10 +41,11 @@ from torch.utils.checkpoint import checkpoint, noop_context_fn
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.convert import _leaves
 # the shared f32 layer norm and the mesh arm's attention stretch
-from ray_tpu_torch.models.gpt import (_check_mesh, _layer_norm,
-                                      _sharded_attention)
+from ray_tpu_torch.models.gpt import _layer_norm, _sharded_attention
 from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.parallel import spmd
+from ray_tpu_torch.parallel.mesh import mesh_shape
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, stage_mesh
 from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
                                              constrain, sharding_for)
 
@@ -198,7 +201,6 @@ def encode(params, tokens, cfg: BERTConfig, *,
     layer norm.  On a mesh everything is DTensors and so is the result,
     placed ("batch", "seq", "embed")."""
     if mesh is not None:
-        _check_mesh(mesh, cfg, "BERT")
         return _sharded_encode(params, tokens, cfg, mesh, rules,
                                attention_mask, token_type_ids)
     s = tokens.shape[1]
@@ -316,8 +318,23 @@ def _sharded_layer(x, lp, mask, cfg: BERTConfig, mesh, rules: Rules):
 
 def _sharded_encode(params, tokens, cfg: BERTConfig, mesh, rules: Rules,
                     attention_mask, token_type_ids):
-    """``encode`` on a mesh."""
+    """``encode`` on a mesh; with pp > 1 the encoder stack is a GPipe
+    pipeline (``parallel.pipeline``), the embedding outside it."""
     dt = cfg.dtype
+    pp = mesh_shape(mesh).get("pp", 1)
+    if pp > 1:
+        # the JAX package's refusals, before any collective
+        if attention_mask is not None:
+            raise NotImplementedError(
+                "attention_mask + pp pipeline is not supported yet; "
+                "pad-free batches only on pp meshes")
+        if cfg.n_layers % pp != 0:
+            raise ValueError(
+                f"n_layers {cfg.n_layers} not divisible by pp={pp}")
+        M = cfg.pp_microbatches or 2 * pp
+        if tokens.shape[0] % M != 0:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"microbatches {M}")
     params = spmd.place_tree(params, PARAM_AXES, rules, mesh)
     X = sharding_for(("batch", "seq", "embed"), rules, mesh)
     b, s = tokens.shape
@@ -341,15 +358,35 @@ def _sharded_encode(params, tokens, cfg: BERTConfig, mesh, rules: Rules,
     x = spmd.run(emb, mesh, X, x, params["wpe"], params["ln_emb_scale"],
                  params["ln_emb_bias"], *extra)
 
-    remat = cfg.remat and torch.is_grad_enabled()
-    for lp in spmd.layer_slices(params["layers"], cfg.n_layers, mesh):
-        if remat:
-            x = checkpoint(_sharded_layer, x, lp, attention_mask, cfg, mesh,
-                           rules, use_reentrant=False,
-                           context_fn=noop_context_fn)
-        else:
-            x = _sharded_layer(x, lp, attention_mask, cfg, mesh, rules)
-    return x
+    if pp > 1:
+        x_mb = spmd.to_microbatches(x, M, mesh)
+        outs = pipeline_apply(_stage_fn(cfg, stage_mesh(mesh), rules), x_mb,
+                              params["layers"], mesh=mesh)
+        return spmd.from_microbatches(outs, mesh)
+    return _stage_fn(cfg, mesh, rules, attention_mask)(params["layers"], x)
+
+
+def _stage_fn(cfg: BERTConfig, mesh, rules: Rules, mask=None):
+    """A block of encoder layers, ``(layers, x) -> x``, on ``mesh``
+    (DTensors) or on plain tensors when ``mesh`` is None (a pipeline
+    stage on a pp-only mesh); each layer fully recomputed in the backward
+    pass with ``cfg.remat``."""
+    if mesh is None:
+        layer, extra = _encoder_layer, (mask, cfg)
+    else:
+        layer, extra = _sharded_layer, (mask, cfg, mesh, rules)
+
+    def run(layers, x):
+        n = next(iter(layers.values())).shape[0]
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp in spmd.layer_slices(layers, n, mesh):
+            if remat:
+                x = checkpoint(layer, x, lp, *extra, use_reentrant=False,
+                               context_fn=noop_context_fn)
+            else:
+                x = layer(x, lp, *extra)
+        return x
+    return run
 
 
 def _sharded_mlm_logits(params, hidden, cfg: BERTConfig, mesh,

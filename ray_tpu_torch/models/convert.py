@@ -26,6 +26,9 @@ from torch.distributed.tensor import DTensor, Replicate
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
                                              local_shard, sharding_for)
+from ray_tpu_torch.parallel.spmd import tree_leaves as _leaves
+from ray_tpu_torch.parallel.spmd import tree_map as _map
+from ray_tpu_torch.parallel.spmd import tree_unflatten as _unflatten
 
 
 def params_from_numpy(tree, device=None,
@@ -112,11 +115,6 @@ def _adam_node(state):
     return None
 
 
-def _map(fn, tree):
-    return {k: (_map(fn, v) if isinstance(v, dict) else fn(v))
-            for k, v in tree.items()}
-
-
 def _map2(fn, tree, other):
     """``fn(leaf, other's leaf)`` over ``tree``, ``other`` nested alike."""
     return {k: (_map2(fn, v, other[k]) if isinstance(v, dict)
@@ -128,11 +126,3 @@ def _pick(like, tree) -> dict:
     payload's dicts come back with their keys sorted)."""
     return {k: (_pick(v, tree[k]) if isinstance(v, dict) else tree[k])
             for k, v in like.items()}
-
-
-def _leaves(tree) -> list:
-    """The tree's tensors in insertion order, depth first."""
-    out = []
-    for v in tree.values():
-        out.extend(_leaves(v) if isinstance(v, dict) else [v])
-    return out

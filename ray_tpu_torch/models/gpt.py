@@ -14,8 +14,9 @@ each layer runs under ``torch.utils.checkpoint`` with the JAX package's
 policies (``_remat_context``).
 
 MoE (``n_experts > 0``): every layer's MLP is a top-k routed expert layer
-in the GShard/Switch formulation (``_moe_mlp``), without expert
-parallelism; ``loss_fn`` adds the load-balance aux loss.
+in the GShard/Switch formulation (``_moe_mlp``; on a mesh
+``_sharded_moe``, the experts split over ep); ``loss_fn`` adds the
+load-balance aux loss.
 
 The mesh arm (``forward``/``loss_fn`` with ``mesh=``, a ``DeviceMesh``
 from ``parallel.mesh``): params and tokens are DTensors, the params are
@@ -29,9 +30,13 @@ attention when the sequence is split over sp), row-parallel output
 projections whose partial sums the next constraint completes, a
 vocab-split embedding and a vocab-parallel cross-entropy.
 
-Not ported yet, each raising ``NotImplementedError``: a mesh with pp > 1
-(the pipelined forward), MoE on a mesh (ep), and the prefill
-(``return_kv``) on a mesh, which feeds the tp-sharded decode.
+A mesh with pp > 1 runs the layer stack as a GPipe pipeline
+(``_forward_pipelined``, ``parallel.pipeline``), each stage on the mesh
+without pp; the JAX package's refusals carry over (sp with pp, layers or
+a batch the stages or microbatches do not divide, ``return_kv`` on a pp
+mesh).  The prefill (``return_kv``) on any mesh, which feeds the
+tp-sharded decode, is not ported yet and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import Partial
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -52,7 +58,9 @@ from ray_tpu_torch.ops.attention import attention
 from ray_tpu_torch.ops.flash_attention import FLASH_FWD_OP
 from ray_tpu_torch.ops.ring_attention import ring_attention
 from ray_tpu_torch.parallel import spmd
-from ray_tpu_torch.parallel.mesh import mesh_shape
+from ray_tpu_torch.parallel.collectives import allreduce, sum_partials
+from ray_tpu_torch.parallel.mesh import mesh_shape, replicated
+from ray_tpu_torch.parallel.pipeline import pipeline_apply, stage_mesh
 from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
                                              constrain, sharding_for)
 
@@ -251,20 +259,10 @@ def _mlp(y, lp, cfg: GPTConfig):
     return u @ lp["w_down"].to(cfg.dtype) + lp["b_down"].to(cfg.dtype)
 
 
-def _moe_mlp(y, lp, cfg: GPTConfig):
-    """Top-k routed expert MLP, the GShard/Switch formulation with one
-    group per batch row, step for step as the JAX package's ``_moe_mlp``
-    (without a mesh).  Capacity is per group, ``C = max(1, ceil(cf * k *
-    s / E))``; the dispatch and combine tensors are [G, s, E, C].  Round
-    i routes each token to the argmax of its remaining router
-    probabilities (the first maximum on ties), queues it behind the
-    earlier rounds' fill of that expert, and drops it when the queue is
-    full.  The one-hots compare with ``arange`` instead of calling
-    ``F.one_hot``: a dropped token's position (>= C) gives an all-zero
-    row as ``jax.nn.one_hot`` does, and nothing checks its input on the
-    host.  Gradients flow through the gate values and the router
-    probabilities only.  Returns (out [b, s, d], the Switch load-balance
-    aux loss, a 0-d f32)."""
+def _route(y, w_router, cfg: GPTConfig):
+    """The router of ``_moe_mlp`` over whole groups: y [G, n, d] ->
+    (combine [G, n, E, C] f32, the first round's one-hots [G, n, E], the
+    router probabilities [G, n, E] f32)."""
     b, s, _ = y.shape                  # groups G = b, tokens/group n = s
     E, k = cfg.n_experts, cfg.expert_top_k
     C = max(1, int(math.ceil(cfg.capacity_factor * k * s / E)))
@@ -272,14 +270,14 @@ def _moe_mlp(y, lp, cfg: GPTConfig):
     experts = torch.arange(E, device=dev)
     slots = torch.arange(C, device=dev)
 
-    logits = y.float() @ lp["w_router"].float()          # [G, n, E]
+    logits = y.float() @ w_router.float()                # [G, n, E]
     probs = torch.softmax(logits, dim=-1)
 
     remaining = probs
     counts = torch.zeros((b, E), device=dev)   # per-group expert fill
     combine = torch.zeros((b, s, E, C), device=dev)
     gates_sum = torch.zeros((b, s), device=dev)
-    top1_frac = None
+    top1 = None
     for i in range(k):
         idx = torch.argmax(remaining, dim=-1)             # [G, n]
         mask = (idx[..., None] == experts).float()        # [G, n, E]
@@ -295,15 +293,34 @@ def _moe_mlp(y, lp, cfg: GPTConfig):
         gates_sum = gates_sum + gate * keep
         counts = counts + (mask * keep[..., None]).sum(1)
         if i == 0:
-            top1_frac = mask.mean(dim=(0, 1))             # [E]
+            top1 = mask
         remaining = remaining * (1.0 - mask)
     # normalise the selected gates to sum to 1 per token (GShard)
     combine = combine / gates_sum.clamp_min(1e-9)[..., None, None]
+    return combine, top1, probs
+
+
+def _moe_mlp(y, lp, cfg: GPTConfig):
+    """Top-k routed expert MLP, the GShard/Switch formulation with one
+    group per batch row, step for step as the JAX package's ``_moe_mlp``
+    (without a mesh).  Capacity is per group, ``C = max(1, ceil(cf * k *
+    s / E))``; the dispatch and combine tensors are [G, s, E, C].  Round
+    i routes each token to the argmax of its remaining router
+    probabilities (the first maximum on ties), queues it behind the
+    earlier rounds' fill of that expert, and drops it when the queue is
+    full.  The one-hots compare with ``arange`` instead of calling
+    ``F.one_hot``: a dropped token's position (>= C) gives an all-zero
+    row as ``jax.nn.one_hot`` does, and nothing checks its input on the
+    host.  Gradients flow through the gate values and the router
+    probabilities only.  Returns (out [b, s, d], the Switch load-balance
+    aux loss, a 0-d f32)."""
+    E = cfg.n_experts
+    combine, top1, probs = _route(y, lp["w_router"], cfg)
     dispatch = (combine > 0).to(cfg.dtype)                # [G, n, E, C]
 
     # Switch load-balance loss: E * sum_e f_e * P_e (f from the top-1
     # routing decision before the capacity drop, P the mean probability)
-    aux = E * (top1_frac * probs.mean(dim=(0, 1))).sum()
+    aux = E * (top1.mean(dim=(0, 1)) * probs.mean(dim=(0, 1))).sum()
 
     dt = cfg.dtype
     expert_in = torch.einsum("gnec,gnd->gecd", dispatch, y.to(dt))
@@ -399,39 +416,35 @@ def forward(params, tokens, cfg: GPTConfig, *, mesh=None,
     DTensors on it and so are the logits: batch over the data axes, seq
     over sp, vocab over tp."""
     if mesh is not None:
-        _check_mesh(mesh, cfg, "GPT")
+        if return_kv and mesh_shape(mesh).get("pp", 1) > 1:
+            raise NotImplementedError(
+                "return_kv (inference prefill) is not supported on a "
+                "pp mesh; prefill with dp/tp sharding instead")
         if return_kv:
             raise NotImplementedError(
                 "return_kv (the prefill) on a mesh: the tp-sharded decode "
                 "is not ported yet")
-        logits = _sharded_forward(params, tokens, cfg, mesh, rules)
-        return (logits, 0.0) if return_aux else logits
+        logits, aux = _sharded_forward(params, tokens, cfg, mesh, rules)
+        return (logits, aux) if return_aux else logits
     x = _embed(params, tokens, cfg)
-    # one unbind per stacked leaf: its backward stacks the per-layer
-    # grads in one op
+    if not return_kv:
+        x, aux = stage_fn(cfg, None)(params["layers"], x)
+        logits = _head(params, x, cfg)
+        return (logits, aux) if return_aux else logits
+    # the prefill keeps each layer's K/V; one unbind per stacked leaf
     layers = {name: t.unbind(0) for name, t in params["layers"].items()}
-    remat = cfg.remat and torch.is_grad_enabled()
     aux = 0.0
     ks, vs = [], []
     for i in range(cfg.n_layers):
         lp = {name: ts[i] for name, ts in layers.items()}
-        if return_kv:
-            x, a, (kh, vh) = _transformer_layer(x, lp, cfg, return_kv=True)
-            ks.append(kh)
-            vs.append(vh)
-        elif remat:
-            x, a = checkpoint(_transformer_layer, x, lp, cfg,
-                              use_reentrant=False,
-                              context_fn=_remat_context(cfg))
-        else:
-            x, a = _transformer_layer(x, lp, cfg)
+        x, a, (kh, vh) = _transformer_layer(x, lp, cfg, return_kv=True)
+        ks.append(kh)
+        vs.append(vh)
         if cfg.n_experts:
             aux = aux + a
     logits = _head(params, x, cfg)
-    if return_kv:
-        kv = (torch.stack(ks), torch.stack(vs))
-        return (logits, aux, kv) if return_aux else (logits, kv)
-    return (logits, aux) if return_aux else logits
+    kv = (torch.stack(ks), torch.stack(vs))
+    return (logits, aux, kv) if return_aux else (logits, kv)
 
 
 def loss_fn(params, batch, cfg: GPTConfig, *, mesh=None,
@@ -448,8 +461,13 @@ def loss_fn(params, batch, cfg: GPTConfig, *, mesh=None,
     else:
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
     if mesh is not None:
-        logits = forward(params, inp, cfg, mesh=mesh, rules=rules)
-        return spmd.mean_nll(logits, tgt, mesh)
+        logits, aux = forward(params, inp, cfg, mesh=mesh, rules=rules,
+                              return_aux=True)
+        ce = spmd.mean_nll(logits, tgt, mesh)
+        if not cfg.n_experts:
+            return ce
+        return spmd.run(lambda c, a: c + cfg.moe_aux_weight * a, mesh,
+                        replicated(mesh), ce, aux)
     logits, aux = forward(params, inp, cfg, return_aux=True)
     ce = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                          tgt.reshape(-1).long())
@@ -457,18 +475,6 @@ def loss_fn(params, batch, cfg: GPTConfig, *, mesh=None,
 
 
 # -- the mesh arm ----------------------------------------------------------
-
-def _check_mesh(mesh, cfg, model: str) -> None:
-    """Raise for the mesh arms this slice does not port."""
-    if mesh_shape(mesh).get("pp", 1) > 1:
-        raise NotImplementedError(
-            f"{model} on a pp mesh: the pipeline (parallel/pipeline.py and "
-            "the pipelined forward) is not ported yet")
-    if getattr(cfg, "n_experts", 0):
-        raise NotImplementedError(
-            f"MoE {model} on a mesh: expert parallelism (ep) is not ported "
-            "yet")
-
 
 def _sharded_attention(qkv, n_heads: int, mesh, rules: Rules, attend,
                        seq: Optional[str] = "seq", mask=None):
@@ -506,8 +512,9 @@ def _sharded_attention(qkv, n_heads: int, mesh, rules: Rules, attend,
 
 
 def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules):
-    """``_transformer_layer`` (dense) on a mesh, x [b, s, d] a DTensor
-    placed ("batch", "seq", "embed") and lp the layer's DTensors."""
+    """``_transformer_layer`` on a mesh, x [b, s, d] a DTensor placed
+    ("batch", "seq", "embed") and lp the layer's DTensors.  Returns (x,
+    the MoE aux loss: a replicated 0-d DTensor, or 0.0 when dense)."""
     dt = cfg.dtype
     X = sharding_for(("batch", "seq", "embed"), rules, mesh)
 
@@ -537,19 +544,92 @@ def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules):
     o = constrain(spmd.dense(o, lp["wo"], mesh, dt),
                   ("batch", "seq", "embed"), rules, mesh)
     x = spmd.run(residual, mesh, X, x, o, lp["bo"])
+    if cfg.n_experts:
+        y = spmd.run(_layer_norm, mesh, X, x, lp["ln2_scale"],
+                     lp["ln2_bias"])
+        dn, aux = _sharded_moe(y, lp, cfg, mesh, rules)
+        return spmd.run(torch.add, mesh, X, x, dn), aux
     u = spmd.run(ln_up, mesh,
                  sharding_for(("batch", "seq", "mlp"), rules, mesh),
                  x, lp["ln2_scale"], lp["ln2_bias"], lp["w_up"], lp["b_up"])
     dn = constrain(spmd.dense(u, lp["w_down"], mesh, dt),
                    ("batch", "seq", "embed"), rules, mesh)
-    return spmd.run(residual, mesh, X, x, dn, lp["b_down"])
+    return spmd.run(residual, mesh, X, x, dn, lp["b_down"]), 0.0
 
 
-def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
-    """The dense forward on a mesh: tokens [b, s] DTensor -> logits
-    [b, s, vocab] f32 DTensor placed ("batch", "seq", "vocab")."""
+def _sharded_moe(y, lp, cfg: GPTConfig, mesh, rules: Rules):
+    """``_moe_mlp`` on a mesh: y [b, s, d] placed ("batch", "seq",
+    "embed") -> (out placed alike, the aux loss replicated).  The JAX
+    package's constraints place ``expert_in``, ``hid`` and ``out_e`` at
+    ("batch", "expert", None, "embed" / "mlp") and split ``w_up`` and
+    ``w_down`` over ep on the expert dim and over tp on mlp.  The batch
+    is not split over ep, so every ep rank holds whole groups: each
+    routes them (over every expert, sequences whole), dispatches to its
+    own experts, and the combine is a partial sum over ep that the last
+    constraint completes.  The aux loss's two means run over every
+    group and token of the mesh (sums over the data axes), as on one
+    device."""
     dt = cfg.dtype
-    params = spmd.place_tree(params, param_logical_axes(cfg), rules, mesh)
+    E = cfg.n_experts
+    y = constrain(y, ("batch", None, "embed"), rules, mesh)
+    b, s, _ = y.shape
+    names = mesh.mesh_dim_names
+    rows = [names[m] for m, p in enumerate(y.placements) if p.is_shard(0)]
+    count = float(b * s)
+    e0, n_e = spmd.local_span((E,), mesh, sharding_for(("expert",), rules,
+                                                       mesh), 0)
+
+    def route(y, w):
+        combine, top1, probs = _route(y, w, cfg)
+        f, p = top1.sum(dim=(0, 1)), probs.sum(dim=(0, 1))
+        for ax in rows:
+            f = allreduce(f, ax)
+            p = sum_partials(p, ax)
+        return combine, E * ((f / count) * (p / count)).sum()
+
+    combine, aux = spmd.run(
+        route, mesh, (sharding_for(("batch", None, None, None), rules, mesh),
+                      replicated(mesh)), y, lp["w_router"])
+
+    def up(c, y, w, bias):
+        dispatch = (c[:, :, e0:e0 + n_e] > 0).to(dt)
+        expert_in = torch.einsum("gnec,gnd->gecd", dispatch, y.to(dt))
+        hid = torch.einsum("gecd,edf->gecf", expert_in, w.to(dt)) \
+            + bias.to(dt)[None, :, None, :]
+        return F.gelu(hid, approximate="tanh")
+
+    H = sharding_for(("batch", "expert", None, "mlp"), rules, mesh)
+    hid = spmd.run(up, mesh, H, combine, y, lp["w_up"], lp["b_up"])
+    # the down projection sums over mlp: partial where tp splits it
+    O = sharding_for(("batch", "expert", None, "embed"), rules, mesh)
+    out_e = spmd.run(lambda h, w: torch.einsum("gecf,efd->gecd", h,
+                                               w.to(dt)), mesh,
+                     tuple(Partial() if h.is_shard(3) else o
+                           for h, o in zip(H, O)), hid, lp["w_down"])
+    out_e = constrain(out_e, ("batch", "expert", None, "embed"), rules, mesh)
+
+    def combine_experts(c, o, bias):
+        # the products of cfg.dtype operands summed in f32, as one
+        # device's einsum accumulates them; the partial sums over ep stay
+        # f32 and are rounded once, after the constraint adds them
+        o = o + bias.to(dt)[None, :, None, :]
+        return torch.einsum("gnec,gecd->gnd",
+                            c[:, :, e0:e0 + n_e].to(dt).float(), o.float())
+
+    G = sharding_for(("batch", None, "embed"), rules, mesh)
+    out = spmd.run(combine_experts, mesh,
+                   tuple(Partial() if o.is_shard(1) else g
+                         for o, g in zip(O, G)), combine, out_e, lp["b_down"])
+    X = sharding_for(("batch", "seq", "embed"), rules, mesh)
+    return spmd.run(lambda t: t.to(dt), mesh, X,
+                    constrain(out, ("batch", "seq", "embed"), rules,
+                              mesh)), aux
+
+
+def _sharded_embed(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
+    """tokens [b, s] DTensor -> x [b, s, d] placed ("batch", "seq",
+    "embed") in ``cfg.dtype``."""
+    dt = cfg.dtype
     X = sharding_for(("batch", "seq", "embed"), rules, mesh)
     b, s = tokens.shape
     ids = constrain(tokens, ("batch", "seq"), rules, mesh)
@@ -557,17 +637,14 @@ def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
     x = constrain(spmd.embed(params["wte"], ids, mesh),
                   ("batch", "seq", "embed"), rules, mesh)
     p0, _ = spmd.local_span((b, s, cfg.d_model), mesh, X, 1)
-    x = spmd.run(lambda x, wpe: (x + wpe[p0:p0 + x.shape[1]][None]).to(dt),
-                 mesh, X, x, params["wpe"])
+    return spmd.run(lambda x, wpe: (x + wpe[p0:p0 + x.shape[1]][None]).to(dt),
+                    mesh, X, x, params["wpe"])
 
-    remat = cfg.remat and torch.is_grad_enabled()
-    for lp in spmd.layer_slices(params["layers"], cfg.n_layers, mesh):
-        if remat:
-            x = checkpoint(_sharded_layer, x, lp, cfg, mesh, rules,
-                           use_reentrant=False,
-                           context_fn=_remat_context(cfg))
-        else:
-            x = _sharded_layer(x, lp, cfg, mesh, rules)
+
+def _sharded_head(params, x, cfg: GPTConfig, mesh, rules: Rules):
+    """x [b, s, d] -> logits [b, s, vocab] f32 placed ("batch", "seq",
+    "vocab")."""
+    dt = cfg.dtype
 
     def head(x, scale, bias, w):
         w = w.to(dt)
@@ -578,6 +655,85 @@ def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
     return spmd.run(head, mesh,
                     sharding_for(("batch", "seq", "vocab"), rules, mesh),
                     x, params["ln_f_scale"], params["ln_f_bias"], w_out)
+
+
+def stage_fn(cfg: GPTConfig, mesh, rules: Rules = DEFAULT_LLM_RULES):
+    """A block of layers, ``(layers, x, aux=0.0) -> (x, aux)``: ``layers``
+    the block's stacked leaves and ``x`` [b, s, d], DTensors on ``mesh``
+    (placed ("batch", "seq", "embed")), or plain tensors when ``mesh`` is
+    None; ``aux`` gathers the MoE aux loss of each layer.  Each layer is
+    rematerialised as ``cfg.remat_policy`` says when there is a gradient
+    to take.  The whole stack, on one device or a mesh, and one pipeline
+    stage."""
+    if mesh is None:
+        layer, extra = _transformer_layer, (cfg,)
+    else:
+        layer, extra = _sharded_layer, (cfg, mesh, rules)
+
+    def run(layers, x, aux=0.0):
+        n = next(iter(layers.values())).shape[0]
+        remat = cfg.remat and torch.is_grad_enabled()
+        for lp in spmd.layer_slices(layers, n, mesh):
+            if remat:
+                x, a = checkpoint(layer, x, lp, *extra, use_reentrant=False,
+                                  context_fn=_remat_context(cfg))
+            else:
+                x, a = layer(x, lp, *extra)
+            if cfg.n_experts:
+                aux = aux + a
+        return x, aux
+    return run
+
+
+def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
+    """The forward on a mesh: tokens [b, s] DTensor -> (logits [b, s,
+    vocab] f32 DTensor placed ("batch", "seq", "vocab"), the MoE aux
+    loss summed over layers: a replicated 0-d DTensor, or 0.0 when
+    dense).  A mesh with pp > 1 runs the layer stack as a GPipe pipeline
+    (``_forward_pipelined``)."""
+    pp = mesh_shape(mesh).get("pp", 1)
+    if pp > 1:
+        # the JAX package's refusals, before any collective
+        if mesh_shape(mesh).get("sp", 1) > 1:
+            raise NotImplementedError(
+                "sp and pp on the same mesh are not supported; shard long "
+                "sequences with sp, deep stacks with pp")
+        if cfg.n_layers % pp != 0:
+            raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                             f"pp={pp}")
+        M = cfg.pp_microbatches or 2 * pp
+        if tokens.shape[0] % M != 0:
+            raise ValueError(f"batch {tokens.shape[0]} not divisible by "
+                             f"microbatches {M}")
+    params = spmd.place_tree(params, param_logical_axes(cfg), rules, mesh)
+    x = _sharded_embed(params, tokens, cfg, mesh, rules)
+    if pp > 1:
+        x, aux = _forward_pipelined(params, x, cfg, mesh, rules)
+    else:
+        x, aux = stage_fn(cfg, mesh, rules)(params["layers"], x)
+    return _sharded_head(params, x, cfg, mesh, rules), aux
+
+
+def _forward_pipelined(params, x, cfg: GPTConfig, mesh, rules: Rules):
+    """The layer stack as a GPipe pipeline over pp (``parallel.pipeline``):
+    x [b, s, d] -> (x, aux).  The embedding and the head run outside it,
+    on every pp rank, as the JAX package runs them under GSPMD; each
+    stage runs its own block of layers on the mesh without pp.  With MoE
+    the aux loss rides the activation's hand-off; the result is the
+    per-microbatch means summed over the M microbatches, over M."""
+    S = mesh_shape(mesh)["pp"]
+    M = cfg.pp_microbatches or 2 * S
+    x_mb = spmd.to_microbatches(x, M, mesh)
+    body = stage_fn(cfg, stage_mesh(mesh), rules)
+    if cfg.n_experts:
+        outs, aux = pipeline_apply(body, x_mb, params["layers"], mesh=mesh,
+                                   carry_aux=True)
+        aux = aux / M
+    else:
+        outs = pipeline_apply(lambda lp, x: body(lp, x)[0], x_mb,
+                              params["layers"], mesh=mesh)
+        aux = 0.0
+    return spmd.from_microbatches(outs, mesh), aux
 
 
 def sample_token(logits, *, temperature: float = 1.0,

@@ -1,8 +1,10 @@
 """Parallelism of the port: meshes (``DeviceMesh``), logical-axis sharding
 rules (DTensor placements), the in-mesh collectives and ``shard_call``
-(``local_map``, the counterpart of ``shard_map``), and threaded ranks for
-running a mesh in one process.  Ring attention is ``ops.ring_attention``.
-Gangs (``TpuGang``, ``form_gang``) are not ported yet."""
+(``local_map``, the counterpart of ``shard_map``), threaded ranks for
+running a mesh in one process, and the pipeline schedules over pp
+(``parallel.pipeline``: GPipe; ``parallel.pipeline_1f1b``: 1F1B).  Ring
+attention is ``ops.ring_attention``.  Gangs (``TpuGang``, ``form_gang``)
+are not ported yet."""
 
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, MeshSpec, batch_sharding,

@@ -12,7 +12,8 @@ only place data moves.  This module holds the stretches the models
 share: ``dense`` (a matmul: column-parallel, or row-parallel with a
 partial-sum result), ``embed`` (a lookup in a vocab-split table),
 ``mean_nll`` (cross-entropy over vocab-split logits), ``layer_slices``
-(a stacked leaf's per-layer DTensors) and ``place_tree``.
+(a stacked leaf's per-layer DTensors), ``to_microbatches`` /
+``from_microbatches`` (a pipeline's batch reshape) and ``place_tree``.
 """
 
 from __future__ import annotations
@@ -46,14 +47,19 @@ def run(fn, mesh: DeviceMesh, out_placements, *args):
                                  for a in args], out_placements, *args)
 
 
-def layer_slices(layers: dict, n_layers: int, mesh: DeviceMesh) -> list:
+def layer_slices(layers: dict, n_layers: int,
+                 mesh: Optional[DeviceMesh]) -> list:
     """``[{name: layer i of the stacked leaf}, ...]`` for stacked [L, ...]
-    DTensors whose layer dim is whole: one local ``unbind`` per leaf,
-    whose backward stacks the per-layer gradients.  (Indexing the stacked
-    leaf inside each layer's functions instead, and summing its partial
-    gradients once a step, ran the CPU tests' steps twice as slow.)"""
+    DTensors whose layer dim is whole (plain tensors when ``mesh`` is
+    None): one local ``unbind`` per leaf, whose backward stacks the
+    per-layer gradients.  (Indexing the stacked leaf inside each layer's
+    functions instead, and summing its partial gradients once a step, ran
+    the CPU tests' steps twice as slow.)"""
     out = {}
     for name, t in layers.items():
+        if mesh is None:
+            out[name] = t.unbind(0)
+            continue
         pl = tuple(t.placements)
         if any(p.is_shard(0) for p in pl):
             raise ValueError("the layer dim of a stacked leaf is split")
@@ -61,6 +67,58 @@ def layer_slices(layers: dict, n_layers: int, mesh: DeviceMesh) -> list:
         out[name] = run(lambda a: a.unbind(0), mesh, (sliced,) * n_layers, t)
     return [{name: ts[i] for name, ts in out.items()}
             for i in range(n_layers)]
+
+
+def to_microbatches(x, M: int, mesh: DeviceMesh):
+    """x [b, ...] -> [M, b/M, ...] as ``x.reshape(M, b // M, ...)`` gives
+    it (microbatch m holds rows [m b/M, (m+1) b/M)), each microbatch's
+    rows split over the mesh dims that split x's batch (x's other splits
+    kept).  The batch is gathered first: microbatch m's rows lie on
+    every rank that splits it."""
+    whole = [Replicate() if p.is_shard(0) else p for p in x.placements]
+    out = [Shard(p.dim + 1) if p.is_shard() else p for p in x.placements]
+    shape = (M, x.shape[0] // M) + tuple(x.shape[1:])
+    lo, n = local_span(shape, mesh, out, 1)
+
+    def local(t):
+        return t.reshape((M, shape[1]) + tuple(t.shape[1:]))[
+            :, lo:lo + n].contiguous()
+
+    return shard_call(local, mesh, (whole,), out, x)
+
+
+def from_microbatches(x_mb, mesh: DeviceMesh):
+    """The inverse of ``to_microbatches``: [M, mb, ...] -> [M mb, ...],
+    the rows split as the microbatches' rows were."""
+    whole = [Replicate() if p.is_shard(1) else p for p in x_mb.placements]
+    out = [Shard(p.dim - 1) if p.is_shard() else p for p in x_mb.placements]
+    shape = (x_mb.shape[0] * x_mb.shape[1],) + tuple(x_mb.shape[2:])
+    lo, n = local_span(shape, mesh, out, 0)
+
+    def local(t):
+        return t.reshape((shape[0],) + tuple(t.shape[2:]))[lo:lo + n]
+
+    return shard_call(local, mesh, (whole,), out, x_mb)
+
+
+def tree_map(fn, tree):
+    """``fn`` over a nested dict's leaves (a bare leaf is a tree of one)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree) -> list:
+    """The tree's leaves in insertion order, depth first."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """``leaves`` (in ``tree_leaves`` order) in ``like``'s nesting."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def place_tree(tree, logical, rules: Rules, mesh: DeviceMesh):

@@ -19,8 +19,12 @@ params' placements (``state_shardings``), and ``shard_batch`` gives each
 rank the rows of the batch it owns.  The gradients come back from the
 backward partial over the axes that split the batch (and the sequence),
 and are summed to the params' placements before the update; the update
-itself is elementwise on each rank's shards.  The 1F1B pipeline step is
-not ported yet (``train_step_1f1b`` raises).
+itself is elementwise on each rank's shards.  A mesh with pp runs GPT
+and BERT as a GPipe pipeline (their ``loss_fn``), each stage's layer
+gradients on its own ranks; a leaf replicated over pp (the embedding,
+the head) gets its gradient once, not once per stage.
+``gpt_value_and_grads_1f1b`` and ``train_step_1f1b`` run GPT through the
+1F1B schedule instead.
 """
 
 from __future__ import annotations
@@ -35,11 +39,11 @@ from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data.feed import to_device
-from ray_tpu_torch.models.convert import _leaves, _map, _pick
+from ray_tpu_torch.models.convert import _leaves, _map, _pick, _unflatten
 from ray_tpu_torch.parallel.collectives import allreduce
 from ray_tpu_torch.parallel.mesh import batch_sharding, replicated
 from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
-                                             local_shard, place,
+                                             constrain, local_shard, place,
                                              tree_shardings)
 from ray_tpu_torch.train.checkpoint import host_tensor, to_host
 
@@ -293,8 +297,109 @@ def make_train_step(loss_fn: Callable, tx: Callable, *, mesh=None,
     return init_fn, step_fn
 
 
-def train_step_1f1b(cfg, mesh, **kw):
-    """The 1F1B pipeline step of the JAX package: not ported yet."""
-    raise NotImplementedError(
-        "train_step_1f1b: the 1F1B pipeline schedule "
-        "(parallel/pipeline_1f1b.py) is not ported yet")
+def gpt_value_and_grads_1f1b(params, tokens, cfg, mesh, *,
+                             rules: Rules = DEFAULT_LLM_RULES):
+    """One GPT pass through the fused 1F1B schedule
+    (``parallel.pipeline_1f1b``) on ``mesh`` (with pp): the embedding runs
+    outside it on every pp rank, its backward fed the pipeline's input
+    cotangents; the layer stack rides the schedule, each stage on the
+    mesh without pp; the loss tail (final norm, head, cross-entropy) is
+    folded into the last stage's backward.  The tied ``wte`` gets both
+    the embedding's and the head's gradients.
+
+    params: the model's tree (plain tensors, the whole value on every
+    rank, or DTensors on ``mesh``); tokens: [b, s + 1] (a DTensor from
+    ``shard_batch`` or a plain tensor).  Returns ``(loss, grads)``: the
+    loss a replicated 0-d DTensor, the gradients DTensors placed as the
+    params are (``state_shardings``)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import spmd
+    from ray_tpu_torch.parallel.pipeline import stage_mesh
+    from ray_tpu_torch.parallel.pipeline_1f1b import (
+        pipeline_value_and_grads_1f1b)
+
+    M = _check_1f1b(cfg, mesh, tokens.shape[0])
+    logical = gpt.param_logical_axes(cfg)
+    params = spmd.place_tree(params, logical, rules, mesh)
+    if not isinstance(tokens, DTensor):
+        tokens = local_shard(torch.as_tensor(tokens), mesh,
+                             batch_sharding(mesh),
+                             device=torch.device(mesh.device_type))
+    inp, tgt = tokens[:, :-1], tokens[:, 1:]
+    tied = cfg.tie_embeddings
+    tail_keys = ["ln_f_scale", "ln_f_bias"] + (["wte"] if tied
+                                               else ["lm_head"])
+    smesh = stage_mesh(mesh)
+    body = gpt.stage_fn(cfg, smesh, rules)
+
+    def last_fn(tp, x, y):
+        if smesh is None:
+            logits = gpt._head(tp, x, cfg)
+            return torch.nn.functional.cross_entropy(
+                logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+        return spmd.mean_nll(gpt._sharded_head(tp, x, cfg, smesh, rules), y,
+                             smesh)
+
+    embed = {k: params[k].detach().requires_grad_(True)
+             for k in ("wte", "wpe")}
+    with torch.enable_grad():
+        x_mb = spmd.to_microbatches(
+            gpt._sharded_embed(embed, inp, cfg, mesh, rules), M, mesh)
+    y_mb = spmd.to_microbatches(
+        constrain(tgt, ("batch", "seq"), rules, mesh), M, mesh)
+    loss, d_layers, d_tail, d_x = pipeline_value_and_grads_1f1b(
+        lambda lp, x: body(lp, x)[0], last_fn, x_mb.detach(), y_mb,
+        params["layers"], {k: params[k] for k in tail_keys}, mesh=mesh)
+    d_wte, d_wpe = torch.autograd.grad(x_mb, [embed["wte"], embed["wpe"]],
+                                       grad_outputs=d_x)
+    grads = _pick(params, {**d_tail, "wte": d_wte, "wpe": d_wpe,
+                           "layers": d_layers})
+    grads = _unflatten(params, _sum_grads(_leaves(grads), _leaves(params)))
+    if tied:     # the head's side, placed as the embedding's
+        grads["wte"] = grads["wte"] + _sum_grads([d_tail["wte"]],
+                                                 [params["wte"]])[0]
+    return loss, grads
+
+
+def _check_1f1b(cfg, mesh, batch_n: int) -> int:
+    """The 1F1B pass's refusals, before any collective: the microbatch
+    count M (a batch it divides, at least one microbatch a stage)."""
+    from ray_tpu_torch.parallel.mesh import mesh_shape
+    from ray_tpu_torch.parallel.pipeline_1f1b import build_1f1b_schedule
+
+    S = mesh_shape(mesh)["pp"]
+    M = cfg.pp_microbatches or 2 * S
+    if batch_n % M != 0:
+        raise ValueError(f"batch {batch_n} not divisible by microbatches "
+                         f"{M}")
+    build_1f1b_schedule(S, M)
+    return M
+
+
+def train_step_1f1b(cfg, mesh, *, batch_n: int, seq: int,
+                    check_parity: bool = True) -> float:
+    """One GPT train pass through the fused 1F1B schedule, as the JAX
+    package's ``train_step_1f1b``: params from ``init_params(cfg, 0)`` on
+    the mesh's device, a batch of zeros ``[batch_n, seq + 1]``, the pass
+    of ``gpt_value_and_grads_1f1b``.  Checks that the gradients' global
+    norm is finite and nonzero (every leaf, the tied embedding's two
+    sides included, reached by the schedule) and, with ``check_parity``,
+    that the loss is within 1e-3 + 1e-3 |ref| of the plain single-device
+    loss on the same params.  Returns the loss."""
+    from ray_tpu_torch.models import gpt
+
+    _check_1f1b(cfg, mesh, batch_n)
+    dev = torch.device(mesh.device_type)
+    params = gpt.init_params(cfg, 0, device=dev)
+    tokens = torch.zeros((batch_n, seq + 1), dtype=torch.long)
+    loss, grads = gpt_value_and_grads_1f1b(params, tokens, cfg, mesh)
+    loss = loss.to_local().item()
+    gnorm = _global_norm(_leaves(grads)).item()
+    if not (np.isfinite(gnorm) and gnorm > 0.0):
+        raise AssertionError(f"1F1B grad norm {gnorm}")
+    if check_parity:
+        with torch.no_grad():
+            ref = gpt.loss_fn(params, {"tokens": tokens.to(dev)}, cfg).item()
+        if not abs(loss - ref) < 1e-3 + 1e-3 * abs(ref):
+            raise AssertionError(f"1F1B loss {loss} != reference {ref}")
+    return loss

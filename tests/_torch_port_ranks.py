@@ -27,6 +27,12 @@ MESHES = {
     "dp2_sp2_tp2": (None, {"dp": 2, "sp": 2, "tp": 2}),
     "dp2_fsdp2_tp2": (None, {"dp": 2, "fsdp": 2, "tp": 2}),
     "dcn2_dp2_tp2": (2, {"dp": 2, "tp": 2}),
+    "pp2": (None, {"pp": 2}),
+    "pp4_dp2": (None, {"pp": 4, "dp": 2}),
+    "pp2_dp2_tp2": (None, {"pp": 2, "dp": 2, "tp": 2}),
+    "dp2_ep2": (None, {"dp": 2, "ep": 2}),
+    "dp2_ep2_tp2": (None, {"dp": 2, "ep": 2, "tp": 2}),
+    "pp2_dp2_ep2": (None, {"pp": 2, "dp": 2, "ep": 2}),
 }
 
 
@@ -64,9 +70,10 @@ def world(name: str) -> int:
 
 # -- the sharded train step, both sides ------------------------------------------
 
-def dryrun_configs():
+def dryrun_configs(**extra):
     """``__graft_entry__._dryrun_impl``'s GPT config (f32, remat), the
-    JAX package's and the port's."""
+    JAX package's and the port's; ``extra`` adds fields (its MoE config's
+    ``n_experts=4, expert_top_k=2``)."""
     import jax.numpy as jnp
     import torch
 
@@ -74,7 +81,7 @@ def dryrun_configs():
     from ray_tpu_torch.models import gpt as tgpt
 
     kw = dict(vocab_size=512, max_seq=64, d_model=64, n_heads=4,
-              n_layers=2, d_ff=128, remat=True)
+              n_layers=2, d_ff=128, remat=True, **extra)
     return (jgpt.GPTConfig(dtype=jnp.float32, **kw),
             tgpt.GPTConfig(dtype=torch.float32, **kw))
 

@@ -230,16 +230,19 @@ def test_mlp_train_step_trajectory_matches_optax():
 
 
 def test_bert_refuses_a_mesh(bert_case):
-    """A pp mesh (the pipelined encoder is not ported) raises before any
-    collective; the mesh stands in with its axis names and sizes."""
+    """The pipelined encoder is ported (tests/
+    test_torch_port_pipeline_gpt.py); an ``attention_mask`` on a pp mesh
+    raises before any collective, as the JAX package refuses it; the mesh
+    stands in with its axis names and sizes."""
     from types import SimpleNamespace
 
     tree, batch, _ = bert_case
     cfg = tbert.BERTConfig.tiny()
     ids = torch.from_numpy(batch["input_ids"])
     pp_mesh = SimpleNamespace(mesh_dim_names=("pp", "dp"), shape=(2, 2))
-    with pytest.raises(NotImplementedError, match="pp mesh"):
-        tbert.encode(bridge(tree), ids, cfg, mesh=pp_mesh)
+    with pytest.raises(NotImplementedError, match="attention_mask"):
+        tbert.encode(bridge(tree), ids, cfg, mesh=pp_mesh,
+                     attention_mask=torch.ones_like(ids))
 
 
 def test_init_tree_and_widths_are_jax_s():

@@ -25,7 +25,8 @@ numpy inputs (from a seed) go through both, in f32.
 - On a dp2.tp2 mesh with remat "dots", each rank runs the flash op as
   often a step as one device does (the counts of the kernels on the
   card), at its local [b/2, h/2, s, hd] shape.
-- The mesh arms not ported raise ``NotImplementedError``; the rank
+- The mesh arms not ported (the prefill on a mesh, Trainer on a mesh,
+  the tp-sharded paged decode) raise ``NotImplementedError``; the rank
   helper fails on a rank's exception and on a hung rank.
 
 The training trajectories are in tests/test_torch_port_parallel_train.py
@@ -376,23 +377,18 @@ def test_flash_runs_per_rank_at_the_local_shape(monkeypatch):
 # -- what is not ported ----------------------------------------------------------
 
 def test_unported_mesh_arms_raise():
+    """The pipelines and expert parallelism are ported (tests/
+    test_torch_port_pipeline*.py, test_torch_port_moe_*.py); the prefill
+    on a mesh, Trainer on a mesh and the tp-sharded paged decode still
+    raise."""
     from ray_tpu_torch.inference.serving import GPTServer
     from ray_tpu_torch.train import Trainer
-    from ray_tpu_torch.train.step import train_step_1f1b
 
-    pp = SimpleNamespace(mesh_dim_names=("pp", "dp"), shape=(2, 2))
     dp = SimpleNamespace(mesh_dim_names=("dp",), shape=(2,))
     toks = torch.zeros((2, 8), dtype=torch.long)
     cases = [
-        ("pp mesh", lambda: tgpt.forward({}, toks, tgpt.GPTConfig.tiny(),
-                                         mesh=pp)),
-        ("pp mesh", lambda: tbert.encode({}, toks, tbert.BERTConfig.tiny(),
-                                         mesh=pp)),
-        ("expert parallelism", lambda: tgpt.loss_fn(
-            {}, {"tokens": toks}, tgpt.GPTConfig.tiny_moe(), mesh=dp)),
         ("tp-sharded decode", lambda: tgpt.forward(
             {}, toks, tgpt.GPTConfig.tiny(), mesh=dp, return_kv=True)),
-        ("1F1B", lambda: train_step_1f1b(tgpt.GPTConfig.tiny(), dp)),
         ("mesh", lambda: Trainer(loss_fn=None, init_params=None,
                                  optimizer=None, train_data=[], num_steps=1,
                                  mesh=dp, device="cpu")),

@@ -347,9 +347,15 @@ def test_init_fn_leaves_callers_params_untouched(model):
 
 def test_make_train_step_refuses_a_mesh():
     """make_train_step takes a mesh now (tests/test_torch_port_parallel*
-    hold it to the JAX package); the pipelined 1F1B step on one is still
-    refused."""
+    hold it to the JAX package), and so does the 1F1B step
+    (tests/test_torch_port_pipeline_gpt.py); what still raises is a 1F1B
+    schedule with fewer microbatches than stages, as the JAX package's
+    ``build_1f1b_schedule`` refuses it, before any collective."""
+    from types import SimpleNamespace
+
     from ray_tpu_torch.train.step import train_step_1f1b
 
-    with pytest.raises(NotImplementedError, match="1F1B"):
-        train_step_1f1b(tgpt.GPTConfig.tiny(), mesh=object())
+    pp4 = SimpleNamespace(mesh_dim_names=("pp",), shape=(4,))
+    with pytest.raises(ValueError, match="1F1B needs microbatches"):
+        train_step_1f1b(tgpt.GPTConfig.tiny(pp_microbatches=2), pp4,
+                        batch_n=8, seq=16)
