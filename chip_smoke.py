@@ -182,9 +182,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    timed beside their bound, the plain versions and SDPA (the kernels'
    ``pp_shape``, ``ep_shape`` and ``bert_pp_shape`` records).
 
-``main`` runs phases 8, 10, 11, 12, 13 and 14 before phase 7, and 15
-and 16 after 9: no serving phase runs after the profiler.  The line before the last is the kernels' JSON
-record; the last is ``{"ok": true, "device": {...}}``.
+17. tensor-parallel serving, GPT-2 124M at full width and depth.  17a:
+   NCCL at world size 1 on a {tp: 1} ``DeviceMesh``, the paged engine in
+   bf16 at phase 5's settings (the executor's process world): the
+   replies to phase 4's requests token-exact against the one-device
+   engine's on the same params, the ITL medians printed side by side (the
+   difference is the executor's host cost).  17b: tp2 and tp4 as ranks
+   on threads sharing the card, f32 with TF32 off, phase 6's paged
+   settings with n-gram drafts of 8, phase 6's four requests at once
+   (phase 4's cold prompt and two sharing a head, a repetitive one):
+   every reply token-exact against ``generate``; each rank launches the
+   flash forward 12 times per full-width prefill at [1, 12/tp, 1024, 64]
+   and nowhere else; prefix
+   hits, chunked prefill and accepted drafts; no leaked block; a step
+   failure injected on every rank fails its request, every rank's pool
+   shard is zeroed and the next reply is token-exact.  17c: the same in
+   bf16 on one device, tp2 and tp4: TTFT and ITL p50/p99 and tokens/s
+   printed; the full-width prefill's last-position logits on each mesh
+   within 0.125 of the same prefill on plain attention.  Then the flash
+   forward at [1, 6, 1024, 64] and [1, 3, 1024, 64], bf16 and f32 causal,
+   against its plain version, timed beside its bound, the plain version
+   and SDPA (the kernel's ``serve_tp{2,4}_shape_{bfloat16,float32}``
+   records).
+
+``main`` runs phases 8, 10, 11, 12, 13, 14 and 17 before phase 7, and
+15 and 16 after 9: no serving phase runs after the profiler.  The line
+before the last is the kernels' JSON record; the last is ``{"ok": true,
+"device": {...}}``.
 """
 
 from __future__ import annotations
@@ -2625,12 +2649,12 @@ def tp_shape_times(name: str, card: str) -> dict:
 
 
 def rank_shape_times(name: str, card: str, shape, causal: bool, what: str,
-                     tag: str, seed: int) -> dict:
-    """The three kernels at one bf16 ``shape`` against their plain
-    versions (max abs error) and timed beside their bound, the plain
-    versions and SDPA: {kernel: record}."""
-    import torch.nn.functional as F
-
+                     tag: str, seed: int, dtype=torch.bfloat16,
+                     forward_only: bool = False) -> dict:
+    """The three kernels (the forward alone with ``forward_only``) at one
+    ``shape`` in ``dtype`` against their plain versions (max abs error)
+    and timed beside their bound, the plain versions and SDPA: {kernel:
+    record}."""
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -2640,10 +2664,20 @@ def rank_shape_times(name: str, card: str, shape, causal: bool, what: str,
 
     b, h, s, d = shape
     mode = "causal" if causal else "non-causal"
-    q, k, v, do = (rand(shape, torch.bfloat16) for _ in range(4))
+    dname = str(dtype).split(".")[-1]
+    q, k, v, do = (rand(shape, dtype) for _ in range(4))
     out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
     ref, ref_lse = fa.flash_attention_reference(q, k, v, causal=causal)
     fwd_err = (out.float() - ref.float()).abs().max().item()
+    if forward_only:
+        ok = fwd_err <= TOL[dtype]
+        print(f"[{tag}] flash_fwd [{b},{h},{s},{d}] {dname} {mode} ({what}) "
+              f"max_abs_err {fwd_err:.3e} against its plain version (bound "
+              f"{TOL[dtype]:g}) {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_fwd at {shape} {dname}: error {fwd_err}")
+        return {"flash_fwd": dict(
+            forward_times(name, card, tag, q, k, v, causal),
+            max_abs_err=fwd_err)}
     delta = fa._delta(out, do)
     scale = d ** -0.5
     dk, dv = fa._launch_bwd_kv(q, k, v, do, lse, delta, scale, causal)
@@ -2664,25 +2698,41 @@ def rank_shape_times(name: str, card: str, shape, causal: bool, what: str,
               f"max_abs_err {errs[kname]:.3e} against its plain version "
               f"{'ok' if ok else 'FAIL'}")
         check(ok, f"{kname} at {shape}: error {errs[kname]}")
+    out = {"flash_fwd": forward_times(name, card, tag, q, k, v, causal)}
+    out.update(backward_times(name, card, rand, b, h, s, d, causal))
+    for kname, err in errs.items():
+        out[kname]["max_abs_err"] = err
+    return out
+
+
+def forward_times(name: str, card: str, tag: str, q, k, v,
+                  causal: bool) -> dict:
+    """The flash forward on q, k, v timed (device time) beside its bound
+    (bytes over the card's rate, or FLOPs over its peak for the dtype:
+    tensor cores for bf16, CUDA cores for f32), the plain version and
+    SDPA: a kernel record."""
+    import torch.nn.functional as F
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    b, h, s, d = q.shape
     ms = device_ms(lambda: fa.flash_attention(q, k, v, causal=causal))
     plain_ms = device_ms(lambda: fa.flash_attention_reference(
         q, k, v, causal=causal), 3)
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal))
     bw, flops = rates(name)
-    nbytes, nflop = attention_work(b, h, s, s, d, causal, 2)
+    if q.dtype == torch.float32:
+        flops = F32_FLOPS
+    nbytes, nflop = attention_work(b, h, s, s, d, causal, q.element_size())
     t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
-    print(f"[{tag}] flash_fwd [{b},{h},{s},{d}] bf16 {mode} on {card}: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
-          f"{lib_ms:.4f} ms, bound {max(t_bytes, t_ops):.5f} ms")
-    out = {"flash_fwd": {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations"}}
-    out.update(backward_times(name, card, rand, b, h, s, d, causal))
-    for kname, err in errs.items():
-        out[kname]["max_abs_err"] = err
-    return out
+    print(f"[{tag}] flash_fwd [{b},{h},{s},{d}] "
+          f"{str(q.dtype).split('.')[-1]} "
+          f"{'causal' if causal else 'non-causal'} on {card}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
+          f"bound {max(t_bytes, t_ops):.5f} ms")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def free_port() -> int:
@@ -3308,6 +3358,280 @@ def gpt_params_on(mesh, params, logical):
                 spmd.place_tree(params, logical, DEFAULT_LLM_RULES, mesh))
 
 
+# ------------------------------------------------ tensor-parallel serving
+
+# [batch, heads, seq, head dim] each tp rank gives the flash forward in
+# phase 17's full-width prefill: GPT-2's 12 heads over tp2 and tp4
+SERVE_TP_SHAPES = {2: (1, 6, 1024, 64), 4: (1, 3, 1024, 64)}
+# phase 17b/c's engines: phase 6's paged settings, n-gram drafts of 8
+TP_ENGINE = dict(SPEC_ENGINE, speculate="ngram", speculate_k=8)
+
+
+def timed_serve(eng, prompts, max_new: int = 16, together: bool = True):
+    """``eng``'s greedy replies to ``prompts``, submitted all at once or
+    one after another; with each request's TTFT and ITL (serve_bench's:
+    (e2e - TTFT) / (n - 1)) and the wall seconds."""
+    t0 = time.perf_counter()
+    handles, replies = [], []
+    if together:
+        handles = [eng.submit(p, max_new=max_new) for p in prompts]
+        replies = [h.result(timeout=600) for h in handles]
+    else:
+        for p in prompts:
+            handles.append(eng.submit(p, max_new=max_new))
+            replies.append(handles[-1].result(timeout=600))
+    wall = time.perf_counter() - t0
+    ttft = [h.first_token_s - h.created_s for h in handles]
+    itl = [(h.finished_s - h.first_token_s) / (len(h.tokens) - 1)
+           for h in handles if len(h.tokens) > 1]
+    return replies, ttft, itl, wall
+
+
+def counted_serve(eng, prompts, together: bool = True, warm=None):
+    """``timed_serve`` after a warm-up pass over ``warm``, with every
+    flash count set to 0 just before (every tp rank's own too) and read
+    just after: (replies, ttft, itl, wall, launches, full-width prefills,
+    each rank's launches {(kernel, q shape): n} on a mesh)."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    if warm is not None:
+        timed_serve(eng, warm, together=together)
+    ranks = eng._ranks.executor if eng._ranks is not None else None
+    st0 = eng.stats()["full_prefills"]
+    torch.cuda.synchronize()
+    if ranks is not None:
+        ranks.on_ranks(lambda ctx: fa.reset_thread_launches())
+    fa.launches = 0                      # the path's run starts here
+    out = timed_serve(eng, prompts, together=together)
+    torch.cuda.synchronize()
+    launches = fa.launches               # ... and ends here
+    per_rank = (ranks.on_ranks(lambda ctx: dict(fa.thread_launches()))
+                if ranks is not None else None)
+    return out + (launches, eng.stats()["full_prefills"] - st0, per_rank)
+
+
+def fail_next_step(eng) -> None:
+    """Arm every tp rank of ``eng``: its next plain or verify step raises
+    (once, on every rank alike: a step failure, not a dead rank)."""
+    def arm(ctx):
+        st = ctx.engines[eng.name]
+        real = dict(st.bodies)
+
+        def failing(*args):
+            st.bodies.update(real)
+            raise RuntimeError("injected tp step failure")
+
+        for body in ("step", "verify"):
+            if body in st.bodies:
+                st.bodies[body] = failing
+    eng._ranks.executor.on_ranks(arm)
+
+
+def tp_prefill_vs_plain(eng, cfg, prompt) -> list:
+    """On every rank of ``eng``: the full-width prefill's last-position
+    logits of ``prompt`` with the flash kernel and with plain attention
+    (each gathered over tp), [(flash, plain)] of rank 0."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel.collectives import allgather
+
+    padded = torch.zeros((1, cfg.max_seq), dtype=torch.long, device="cuda")
+    padded[0, :len(prompt)] = torch.tensor(prompt)
+    n = len(prompt)
+
+    def both(ctx):
+        st = ctx.engines[eng.name]
+        rows = []
+        for c in (cfg, dataclasses.replace(cfg, attn_impl="reference")):
+            tok = DTensor.from_local(padded, ctx.mesh, (Replicate(),),
+                                     run_check=False)
+            with torch.no_grad():
+                logits, _ = gpt.forward(st.dparams, tok, c, mesh=ctx.mesh,
+                                        return_kv=True)
+            rows.append(allgather(logits.to_local()[0, n - 1], "tp",
+                                  mesh=ctx.mesh))
+        return rows
+    return eng._ranks.executor.on_ranks(both)[0]
+
+
+def phase_tp_serving(name: str, card: str) -> tuple:
+    """17a: NCCL at world size 1 on a {tp: 1} DeviceMesh, the paged engine
+    in bf16 at phase 5's settings, held token for token to the one-device
+    engine (the ITL difference is the executor's host cost).  17b: tp2
+    and tp4 as threaded ranks on the card in f32 (TF32 off), phase 6's
+    paged engine with n-gram drafts of 8: replies token-exact against
+    ``generate``, 12 flash launches a rank per full-width prefill at the
+    rank's shape, none elsewhere, no leaked block, and one injected step
+    failure recovered on every rank.  17c: the same traffic in bf16,
+    timed beside one device; the prefill logits at the rank shape within
+    0.125 of plain attention.  Then the forward at both rank shapes in
+    bf16 and f32 against its plain version, timed.  Returns ({path: flash
+    launches in its run}, {record key: flash_fwd record})."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import gpt
+
+    launches = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    cfg = gpt.GPTConfig.gpt2_124m()          # bf16 activations, f32 params
+    L, heads = cfg.n_layers, cfg.n_heads
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    warm = requests(cfg.vocab_size, seed=SEED + 1)
+    prompts = requests(cfg.vocab_size)
+
+    # 17a: the executor's process world at one rank against one device
+    eng = InferenceEngine(params, cfg, EngineConfig())
+    try:
+        one, _, one_itl, _, _, _, _ = counted_serve(eng, prompts, False, warm)
+    finally:
+        eng.shutdown()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
+        eng = InferenceEngine(params, cfg, EngineConfig(), mesh=mesh)
+        try:
+            got, _, itl, _, n, full, _ = counted_serve(eng, prompts, False,
+                                                       warm)
+            st = eng.stats()
+        finally:
+            eng.shutdown()
+    finally:
+        dist.destroy_process_group()
+    launches["serve_tp1_nccl"] = n
+    check(got == one, f"17a: tp1 replies {got} differ from one device's "
+          f"{one}")
+    check(st["mesh_axes"] == {"tp": 1} and st["tp_shards"] == 1,
+          f"17a geometry {st['mesh_axes']}")
+    check(full >= 1 and n == L * full, f"17a: {n} flash launches for "
+          f"{full} full-width prefills")
+    a, b = statistics.median(one_itl), statistics.median(itl)
+    print(f"[tp 17a] GPT-2 124M bf16, NCCL world size 1, tp1 DeviceMesh "
+          f"on {card}: 4 replies token-exact against one device; ITL "
+          f"median {b * 1e3:.3f} ms vs one device {a * 1e3:.3f} ms: the "
+          f"executor adds {(b - a) * 1e3:.3f} ms a token ({(b - a) / a:.1%})"
+          f"; flash launches {n} for {full} full-width prefills")
+
+    # 17b: threaded tp2 / tp4 in f32, token-exact, launches, recovery
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = gpt.GPTConfig.gpt2_124m(dtype=torch.float32)
+    params32 = gpt.init_params(cfg32, SEED, device="cuda")
+    # phase 6's traffic: the cold prompt, the two sharing a head, a
+    # repetitive one the n-gram drafter speculates on
+    traffic = prompts[:3] + [[1, 2, 3, 4] * 12]
+    want = [gpt.generate(params32, cfg32, torch.tensor([p], device="cuda"),
+                         16, temperature=0.0)[0, len(p):].tolist()
+            for p in traffic]
+    for tp in (2, 4):
+        label, shape = f"tp{tp} f32", SERVE_TP_SHAPES[tp]
+        eng = InferenceEngine(params32, cfg32, EngineConfig(**TP_ENGINE),
+                              mesh={"tp": tp})
+        try:
+            got, _, _, wall, n, full, per_rank = counted_serve(eng, traffic)
+            st = eng.stats()
+            launches[f"serve_tp{tp}_f32"] = n
+            for p, g, w in zip(traffic, got, want):
+                check(g == w, f"17b {label}: the reply to a {len(p)}-token "
+                      f"prompt differs from generate: {g} vs {w}")
+            check(full >= 1 and n == tp * L * full, f"17b {label}: {n} "
+                  f"launches for {full} full-width prefills")
+            check(per_rank == [{("fwd", shape): L * full}] * tp,
+                  f"17b {label}: per-rank launches {per_rank}")
+            check(st["prefix_hit_tokens"] > 0 and st["chunk_prefills"] > 0
+                  and st["spec_accepted_tokens"] > 0, f"17b {label}: {st}")
+            assert_blocks_returned(eng, f"17b {label}")
+            print(f"[tp 17b] {label} on {card}: {len(traffic)} replies "
+                  f"token-exact against generate in {wall:.2f} s; each "
+                  f"rank {L * full} flash launches at {list(shape)} for "
+                  f"{full} full-width prefills, none in the decode bodies;"
+                  f" chunk prefills {st['chunk_prefills']}, prefix hit "
+                  f"tokens {st['prefix_hit_tokens']}, tokens per step "
+                  f"{st['tokens_per_step']:.3f}, no leaked block")
+            fail_next_step(eng)
+            bad = eng.submit(traffic[3], max_new=16)
+            try:
+                bad.result(timeout=300)
+                check(False, f"17b {label}: the injected failure did not "
+                      f"fail its request")
+            except RuntimeError as e:
+                check("injected tp step failure" in str(e),
+                      f"17b {label}: failed with {e!r}")
+            pools = eng._ranks.executor.on_ranks(lambda ctx: (
+                tuple(ctx.engines[eng.name].pool.kv.shape),
+                ctx.engines[eng.name].pool.kv.abs().sum().item()))
+            blocks = eng.pool.n_blocks + 1
+            check(pools == [((2, L, blocks, heads // tp,
+                              TP_ENGINE["kv_block_size"], cfg.head_dim),
+                             0.0)] * tp,
+                  f"17b {label}: rank pools after the reset {pools}")
+            st = eng.stats()
+            check(st["blocks_free"] == st["blocks_total"]
+                  and eng.pool.generation == 1, f"17b {label}: {st}")
+            again = eng.generate(traffic[3], max_new=16, timeout=300)
+            check(again == want[3], f"17b {label}: after the reset "
+                  f"{again} vs {want[3]}")
+            print(f"[tp 17b] {label}: an injected step failure on every "
+                  f"rank failed its request, every rank's pool shard "
+                  f"{list(pools[0][0])} was zeroed, and the next reply is "
+                  f"token-exact")
+        finally:
+            eng.shutdown()
+
+    # 17c: bf16, timed beside one device; the prefill logits at the rank
+    # shape against plain attention
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    for tp in (1, 2, 4):
+        eng = InferenceEngine(params, cfg, EngineConfig(**TP_ENGINE),
+                              mesh={"tp": tp} if tp > 1 else None)
+        try:
+            got, ttft, itl, wall, n, full, per_rank = counted_serve(
+                eng, traffic, warm=warm)
+            check(full >= 1 and n == tp * L * full, f"17c tp{tp}: {n} "
+                  f"launches for {full} full-width prefills")
+            for g in got:
+                check(len(g) == 16 and all(0 <= t < cfg.vocab_size
+                                           for t in g), f"17c: reply {g}")
+            if tp > 1:
+                launches[f"serve_tp{tp}_bf16"] = n
+                flash, plain = tp_prefill_vs_plain(eng, cfg, traffic[0])
+                err = (flash - plain).abs().max().item()
+                check(bool(torch.isfinite(flash).all()) and err
+                      <= BF16_LOGIT_TOL, f"17c tp{tp}: prefill logits "
+                      f"differ from plain attention by {err}")
+                print(f"[tp 17c] tp{tp} bf16 full-width prefill at "
+                      f"{list(SERVE_TP_SHAPES[tp])} a rank: last-position "
+                      f"logits flash vs plain attention max_abs_err "
+                      f"{err:.4e} (bound {BF16_LOGIT_TOL}), argmax "
+                      f"{int(flash.argmax())} vs {int(plain.argmax())}")
+            tokens = sum(map(len, got))
+            print(f"[tp 17c] {'one device' if tp == 1 else f'tp{tp}'} bf16"
+                  f" on {card}: {len(traffic)} requests at once, TTFT p50 "
+                  f"{pct(ttft, 50) * 1e3:.2f} ms p99 "
+                  f"{pct(ttft, 99) * 1e3:.2f} ms, ITL p50 "
+                  f"{pct(itl, 50) * 1e3:.3f} ms p99 "
+                  f"{pct(itl, 99) * 1e3:.3f} ms, {tokens / wall:.1f} "
+                  f"tokens/s, wall {wall:.3f} s"
+                  + (" (the ranks share one card and take turns: not a tp "
+                     "throughput)" if tp > 1 else ""))
+        finally:
+            eng.shutdown()
+
+    records = {}
+    for tp, shape in SERVE_TP_SHAPES.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            key = f"serve_tp{tp}_shape_{str(dtype).split('.')[-1]}"
+            records[key] = rank_shape_times(
+                name, card, shape, True, f"a tp{tp} rank's prefill",
+                "serve tp", SEED + 17, dtype=dtype,
+                forward_only=True)["flash_fwd"]
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3335,6 +3659,8 @@ def main() -> int:
     model_launches = run(phase_other_models, name, card)
     trainer = run(phase_trainer, name, card)
     run(phase_ppo, card)
+    tp_serve_launches, tp_serve_records = run(phase_tp_serving, name, card)
+    kernels[0].update(tp_serve_records)
     train_launches, steady_ms = run(phase_training, name, card)
     print(f"[trainer] steady step {trainer['step_ms']:.3f} ms (Trainer.fit "
           f"on distinct batches through the feed) vs phase 7's \"dots\" "
@@ -3364,7 +3690,7 @@ def main() -> int:
         if k["name"] == "flash_fwd":
             paths = {"serve_bf16": serve_launches, **engine_launches,
                      **moe_serve_launches, **prefix_launches,
-                     **replica_launches, **paths}
+                     **replica_launches, **tp_serve_launches, **paths}
         k["launches"] = sum(paths.values())
         k["launches_by_path"] = paths
     print(f"[done] {time.perf_counter() - t0:.1f} s on {card}")

@@ -17,8 +17,15 @@ so no write needs a branch.
 Where the JAX package donated the pool buffers to a jitted update and
 swapped the results in, the port updates the pool tensors in place
 (``index_put_``/``copy_``).  The K and V pools are the two halves of one
-tensor, so a prefix transfer gathers or scatters both in one indexing
-op (``read_blocks``, ``write_blocks_at``).
+tensor (``KVShard``), so a prefix transfer gathers or scatters both in
+one indexing op (``read_blocks``, ``write_blocks_at``).
+
+With a ``mesh`` (the tp ranks of an engine, ``inference.tp``) the pool
+is split over the heads dim (``decode.POOL_AXES``): every rank holds
+every block with its own heads, in a ``KVShard`` of its own.  Block ids,
+tables, refcounts, the radix index and copy-on-write stay here on the
+host and know nothing of shards; each tensor update runs on every rank,
+and ``read_blocks`` gives full-width host arrays whatever the layout.
 
 ``RadixIndex`` is a trie over block-sized token chunks (plus partial
 tail leaves): a prompt whose head matches a cached prefix adopts those
@@ -128,6 +135,82 @@ class KVCacheManager:
         }
 
 
+class KVShard:
+    """The pool's tensor on one device: ``[2, L, N+1, h, bs, hd]`` (k and
+    v its two halves), ``h`` all the heads, or a tp rank's block of them
+    (``heads`` = (first head, count) of ``n_heads``).  The tensor side of
+    ``BlockPool``: every update is in place."""
+
+    def __init__(self, cfg: GPTConfig, n_blocks: int, block_size: int,
+                 dtype, device, heads: Optional[tuple] = None):
+        self.h0, self.hl = heads if heads is not None else (0, cfg.n_heads)
+        self.block_size = int(block_size)
+        self.kv = torch.zeros(
+            (2, cfg.n_layers, int(n_blocks) + 1, self.hl, self.block_size,
+             cfg.head_dim), dtype=dtype, device=device)
+        self.k, self.v = self.kv.unbind(0)
+
+    def _heads(self, t):
+        """This shard's heads of a full-width [L, T, h, ...] value (the
+        value itself when it has this shard's width already)."""
+        if t.shape[2] == self.hl:
+            return t
+        return t[:, :, self.h0:self.h0 + self.hl]
+
+    def copy_block(self, src: int, dst: int) -> None:
+        self.kv[:, :, dst].copy_(self.kv[:, :, src])
+
+    def write_prefill(self, table, k_new: torch.Tensor,
+                      v_new: torch.Tensor) -> None:
+        """``BlockPool.write_prefill`` on this shard (``k_new``/``v_new``
+        [L, h, S, hd] of its heads, or full width)."""
+        T = len(table)
+        span = T * self.block_size
+        t = torch.as_tensor(np.asarray(table), dtype=torch.long,
+                            device=self.kv.device)
+        for pool, new in ((self.k, k_new), (self.v, v_new)):
+            L, h, s, hd = new.shape
+            if h != self.hl:
+                new = new[:, self.h0:self.h0 + self.hl]
+            if s < span:
+                new = torch.nn.functional.pad(new, (0, 0, 0, span - s))
+            blocks = new.reshape(L, self.hl, T, self.block_size, hd) \
+                .permute(0, 2, 1, 3, 4)
+            pool[:, t] = blocks.to(pool.dtype)       # in-place index_put_
+
+    def read_blocks(self, ids) -> torch.Tensor:
+        """[2, L, T, h, bs, hd] on the device: ONE gather of both pools."""
+        return self.kv[:, :, _table(ids, self.kv.device)]
+
+    def write_blocks_at(self, ids, k_new, v_new) -> None:
+        """Scatter host arrays ``[L, T, h, bs, hd]`` (full width, or this
+        shard's heads) into blocks ``ids``: ONE scatter of both pools."""
+        t = _table(ids, self.kv.device)
+        L, _, h, bs, hd = self.k.shape
+        new = torch.empty((2, L, len(t), h, bs, hd), dtype=self.kv.dtype,
+                          device=self.kv.device)
+        new[0].copy_(self._heads(torch.as_tensor(np.asarray(k_new))))
+        new[1].copy_(self._heads(torch.as_tensor(np.asarray(v_new))))
+        self.kv[:, :, t] = new                       # in-place index_put_
+
+    def zero_(self) -> None:
+        self.kv.zero_()
+
+
+def _table(ids, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(list(ids), np.int64), device=device)
+
+
+def host_kv(kv: torch.Tensor) -> tuple:
+    """A gathered [2, L, T, h, bs, hd] block chain as host ``(k, v)``; a
+    bf16 pool, which numpy cannot hold, reads back as its exact f32
+    upcast."""
+    if kv.dtype == torch.bfloat16:
+        kv = kv.float()
+    kv = kv.cpu().numpy()
+    return kv[0], kv[1]
+
+
 class BlockPool:
     """Refcounted fixed-size token-block pool (the paged KV cache).
 
@@ -138,10 +221,17 @@ class BlockPool:
 
     alloc/incref/decref and the tensor updates happen on the engine loop
     thread; ``stats()`` may be read from any thread (the lock guards the
-    free list and refcounts)."""
+    free list and refcounts).
+
+    ``mesh``: the tp ranks that hold the pool split over heads (the
+    module note); ``n_blocks`` is then both the admission budget and
+    every rank's block count, and a rank's bytes are ``bytes_total() /
+    tp``.  ``k``, ``v`` and ``_kv`` are None: the tensors live on the
+    ranks."""
 
     def __init__(self, cfg: GPTConfig, n_blocks: int, block_size: int,
-                 max_seq: Optional[int] = None, dtype=None, device=None):
+                 max_seq: Optional[int] = None, dtype=None, device=None,
+                 mesh=None):
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         self.cfg = cfg
@@ -160,12 +250,19 @@ class BlockPool:
                 f"sequence ({self.blocks_per_seq} blocks of {block_size})")
         self.n_blocks = int(n_blocks)             # usable (excludes scratch)
         self.dtype = dtype or cfg.dtype
+        self.mesh = mesh
+        shards = self.heads_shards
+        if cfg.n_heads % shards:
+            raise ValueError(
+                f"n_heads {cfg.n_heads} is not divisible by the heads "
+                f"(tp) shard count {shards}: the pool splits the heads dim "
+                f"evenly over the ranks")
+        self._shard = self._zeros()
         # [2, L, N+1, h, bs, hd]: k and v are views of its two halves
-        self._kv = torch.zeros(
-            (2, cfg.n_layers, self.n_blocks + 1, cfg.n_heads,
-             self.block_size, cfg.head_dim),
-            dtype=self.dtype, device=self.device)
-        self.k, self.v = self._kv.unbind(0)
+        self._kv = self.k = self.v = None
+        if self._shard is not None:
+            self._kv, self.k, self.v = (self._shard.kv, self._shard.k,
+                                        self._shard.v)
         self._lock = threading.Lock()
         # pop() -> block 1 first; id 0 (scratch) is never in the list
         self._free = list(range(self.n_blocks, 0, -1))
@@ -230,11 +327,32 @@ class BlockPool:
 
     # ------------------------------------------------------------- tensors
 
+    @property
+    def heads_shards(self) -> int:
+        """The shards the heads dim is split into: the tp degree, 1 on
+        one device."""
+        return 1 if self.mesh is None else self.mesh.heads_shards
+
+    def _zeros(self) -> Optional[KVShard]:
+        """The zeroed pool: a ``KVShard`` here, or on a mesh one per rank,
+        each allocated by its rank at its own heads (None returned)."""
+        if self.mesh is None:
+            return KVShard(self.cfg, self.n_blocks, self.block_size,
+                           self.dtype, self.device)
+        self.mesh.run("pool_zeros", self.n_blocks, self.block_size,
+                      self.dtype)
+        return None
+
+    def _apply(self, method: str, *args):
+        """``KVShard.<method>(*args)`` here, or on every rank's shard."""
+        if self.mesh is None:
+            return getattr(self._shard, method)(*args)
+        return self.mesh.run("pool", method, *args)
+
     def copy_block(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate src's K/V into dst, in place in both
         pools."""
-        self.k[:, dst].copy_(self.k[:, src])
-        self.v[:, dst].copy_(self.v[:, src])
+        self._apply("copy_block", src, dst)
 
     def write_prefill(self, table, k_new: torch.Tensor,
                       v_new: torch.Tensor) -> None:
@@ -242,55 +360,36 @@ class BlockPool:
         each): the sequence, zero-padded to the table span, scatters
         through the block table in place.  Unowned table entries point
         at the scratch block, whose content the kv-length masks hide
-        (duplicate scratch writes collide harmlessly)."""
-        span = self.blocks_per_seq * self.block_size
-        L, h, s, hd = k_new.shape
-        T = self.blocks_per_seq
-        t = torch.as_tensor(np.asarray(table), dtype=torch.long,
-                            device=self.device)
-        for pool, new in ((self.k, k_new), (self.v, v_new)):
-            if s < span:
-                new = torch.nn.functional.pad(new, (0, 0, 0, span - s))
-            blocks = new.reshape(L, h, T, self.block_size, hd) \
-                .permute(0, 2, 1, 3, 4)
-            pool[:, t] = blocks.to(pool.dtype)       # in-place index_put_
-
-    def _table(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(list(ids), np.int64),
-                               device=self.device)
+        (duplicate scratch writes collide harmlessly).  On a mesh each
+        rank writes its heads."""
+        self._apply("write_prefill", np.asarray(table), k_new, v_new)
 
     def read_blocks(self, ids) -> tuple:
         """A block chain's K/V on the host, the export side of a prefix
         transfer: ``(k, v)`` numpy arrays of shape ``[L, T, h, bs, hd]``
         each (T = len(ids)), from ONE gather of both pools and one copy
-        to the host.  A bf16 pool, which numpy cannot hold, reads back
-        as its exact f32 upcast."""
-        kv = self._kv[:, :, self._table(ids)]
-        if kv.dtype == torch.bfloat16:
-            kv = kv.float()
-        kv = kv.cpu().numpy()
-        return kv[0], kv[1]
+        to the host, full width on a mesh too (the ranks' heads gathered
+        over tp).  A bf16 pool reads back as its exact f32 upcast."""
+        if self.mesh is None:
+            return host_kv(self._shard.read_blocks(ids))
+        return self.mesh.run("pool_read", list(ids))
 
     def write_blocks_at(self, ids, k_new, v_new) -> None:
         """Scatter fetched K/V (``read_blocks``' layout, ``[L, T, h, bs,
         hd]`` each, host arrays) into blocks ``ids``, cast to the pool's
         dtype: the install side of a prefix transfer, ONE scatter of both
-        pools.  The caller owns ``ids`` alone (fresh blocks), so no
-        copy-on-write is needed."""
-        t = self._table(ids)
-        L, _, h, bs, hd = self.k.shape
-        new = torch.empty((2, L, len(t), h, bs, hd), dtype=self.dtype,
-                          device=self.device)
-        new[0].copy_(torch.as_tensor(np.asarray(k_new)))
-        new[1].copy_(torch.as_tensor(np.asarray(v_new)))
-        self._kv[:, :, t] = new                      # in-place index_put_
+        pools (on a mesh each rank takes its heads).  The caller owns
+        ``ids`` alone (fresh blocks), so no copy-on-write is needed."""
+        self._apply("write_blocks_at", list(ids), np.asarray(k_new),
+                    np.asarray(v_new))
 
     def reset(self) -> None:
-        """Zero the pool, drop every reference and bump ``generation``,
-        after a failed step left the pool's content in doubt.  The caller
-        fails all in-flight requests and clears the prefix index (cached
-        prefixes would otherwise point at zeroed blocks)."""
-        self._kv.zero_()
+        """Zero the pool (every rank's shard on a mesh), drop every
+        reference and bump ``generation``, after a failed step left the
+        pool's content in doubt.  The caller fails all in-flight requests
+        and clears the prefix index (cached prefixes would otherwise
+        point at zeroed blocks)."""
+        self._apply("zero_")
         with self._lock:
             self._free = list(range(self.n_blocks, 0, -1))
             self._rc = [0] * (self.n_blocks + 1)
@@ -299,18 +398,28 @@ class BlockPool:
     # ------------------------------------------------------------- stats
 
     def bytes_total(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
+        """The whole pool's bytes, over every rank on a mesh."""
+        cfg = self.cfg
+        n = (2 * cfg.n_layers * (self.n_blocks + 1) * cfg.n_heads
+             * self.block_size * cfg.head_dim)
+        return n * torch.empty((), dtype=self.dtype).element_size()
 
     def stats(self) -> dict:
         with self._lock:
             free = len(self._free)
+        shards = self.heads_shards
         return {
             "block_size": self.block_size,
+            # block counts are the same on every tp rank (heads are what
+            # is split): the admission budget and each rank's count
             "blocks_total": self.n_blocks,
+            "blocks_per_device": self.n_blocks,
             "blocks_free": free,
             "blocks_used": self.n_blocks - free,
             "max_seq": self.max_seq,
             "bytes_total": self.bytes_total(),
+            "bytes_per_device": self.bytes_total() // shards,
+            "tp_shards": shards,
             "generation": self.generation,
         }
 

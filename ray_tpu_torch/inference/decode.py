@@ -27,6 +27,19 @@ Port of ``ray_tpu/inference/decode.py``:
     Dense configs only: an MoE config raises ``MoEDecodeUnsupported``
     when the step is built.
 
+Tensor parallelism (``tp``, a ``TPShard``; None on one device): every
+body runs on one tp rank's shards, Megatron style, as the JAX package's
+bodies run under GSPMD with the pool split by ``POOL_AXES``.  The qkv
+projection and the MLP's up projection are split by column (each rank
+holds the q, k and v columns of its own heads), attention runs over the
+rank's heads of the pool, ``wo`` and ``w_down`` are split by row and
+their partial sums are completed by an all-reduce over tp (summed in
+f32 and rounded once), and the head is vocab-parallel, its logits
+gathered over tp, so every rank ends a body with the whole logits and
+takes the same argmax.  The embedding table stays whole on every rank.
+The pool writes are local: the scatter's block and offset axes are not
+split.  ``inference/tp.py`` holds the ranks that run these bodies.
+
 The paged bodies read one layer's pool slice inside the layer loop and
 write the new K/V to the pool in ONE scatter after the loop (the shape
 the JAX package settled on; carrying the pool through the loop copied it
@@ -39,13 +52,61 @@ JAX package has no Pallas kernel for them either.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
 
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.ops.attention import attention
+from ray_tpu_torch.parallel.collectives import allgather, allreduce
+
+# logical axes of the pool [L, N+1, heads, bs, hd]: the heads dim is the
+# split one, so every rank holds every block with its own heads, and the
+# block ids, tables, refcounts and copy-on-write stay on the host,
+# unaware of shards.  The layers dim is not "layers": the pool is never
+# split over pp.
+POOL_AXES = (None, None, "heads", None, "kv")
+
+
+@dataclass(frozen=True)
+class TPShard:
+    """One tp rank's part of a step body: the mesh whose "tp" dim the
+    collectives run over, this rank's number of heads, and which
+    products are split over tp (the rules may leave the MLP's hidden dim
+    or the vocab whole).  The body's params are the rank's shards
+    (``inference.tp.local_params``)."""
+    mesh: DeviceMesh
+    heads: int
+    split_heads: bool
+    split_mlp: bool
+    split_vocab: bool
+
+
+def _row_sum(t, tp: Optional[TPShard], split: bool):
+    """A row-parallel product's partial sums completed over tp: summed in
+    f32 and rounded once to ``t``'s dtype.  ``t`` itself on one device or
+    when the contracted dim is whole."""
+    if tp is None or not split:
+        return t
+    return allreduce(t.float(), "tp", mesh=tp.mesh).to(t.dtype)
+
+
+def _head(params, x, cfg: GPTConfig, tp: Optional[TPShard]):
+    """The head: ``gpt._head`` on one device; on a tp rank its block of
+    the vocab (``params["w_head"]``, [d, V/tp]), the logits gathered over
+    tp."""
+    if tp is None:
+        return gpt._head(params, x, cfg)
+    x = gpt._layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    logits = (x @ params["w_head"].to(cfg.dtype)).float()
+    if tp.split_vocab:
+        logits = allgather(logits, "tp", axis=-1, mesh=tp.mesh)
+    return logits
 
 
 class MoEDecodeUnsupported(NotImplementedError):
@@ -71,7 +132,7 @@ class SpeculationUnsupported(ValueError):
     error: they decode one token a step on a speculating engine."""
 
 
-def _mlp_block(y, lp, cfg: GPTConfig):
+def _mlp_block(y, lp, cfg: GPTConfig, tp: Optional[TPShard] = None):
     """The step bodies' MLP, as in gpt._transformer_layer: dense, or for
     an MoE config the expert dispatch of ``gpt._moe_mlp`` over the step's
     whole token window, pad and dead lanes included as in the JAX
@@ -79,24 +140,59 @@ def _mlp_block(y, lp, cfg: GPTConfig):
     capacity is per window and row (C = ceil(cf * k * s_window / E)), so
     the steps agree token for token with the full-sequence forward while
     capacity never binds (capacity_factor >= n_experts / expert_top_k).
+    On a tp rank the hidden dim (each expert's) is this rank's block.
     y [b, s, d] -> [b, s, d]."""
     if cfg.n_experts:
-        return gpt._moe_mlp(y, lp, cfg)[0]
-    return gpt._mlp(y, lp, cfg)
+        if tp is None:
+            return gpt._moe_mlp(y, lp, cfg)[0]
+        return _moe_mlp_tp(y, lp, cfg, tp)
+    if tp is None:
+        return gpt._mlp(y, lp, cfg)
+    dt = cfg.dtype
+    u = F.gelu(y @ lp["w_up"].to(dt) + lp["b_up"].to(dt), approximate="tanh")
+    return _row_sum(u @ lp["w_down"].to(dt), tp, tp.split_mlp) \
+        + lp["b_down"].to(dt)
+
+
+def _moe_mlp_tp(y, lp, cfg: GPTConfig, tp: TPShard):
+    """``gpt._moe_mlp``'s output on a tp rank: every rank routes the
+    window alike (the router is whole), runs every expert on its block of
+    the hidden dim, and the experts' outputs are completed over tp before
+    the bias and the combine, which then run as on one device."""
+    dt = cfg.dtype
+    combine, _, _ = gpt._route(y, lp["w_router"], cfg)
+    dispatch = (combine > 0).to(dt)
+    expert_in = torch.einsum("gnec,gnd->gecd", dispatch, y.to(dt))
+    hid = torch.einsum("gecd,edf->gecf", expert_in, lp["w_up"].to(dt)) \
+        + lp["b_up"].to(dt)[None, :, None, :]
+    hid = F.gelu(hid, approximate="tanh")
+    out_e = _row_sum(torch.einsum("gecf,efd->gecd", hid,
+                                  lp["w_down"].to(dt)), tp, tp.split_mlp) \
+        + lp["b_down"].to(dt)[None, :, None, :]
+    return torch.einsum("gnec,gecd->gnd", combine.to(dt), out_e)
 
 
 def _qkv_heads(x, lp, cfg: GPTConfig):
-    """Pre-LN qkv projection: x [b, s, d] -> q, k, v [b, s, d] each."""
+    """Pre-LN qkv projection: x [b, s, d] -> q, k, v [b, s, h * hd] each
+    (h the heads this body runs: all, or a tp rank's)."""
     y = gpt._layer_norm(x, lp["ln1_scale"], lp["ln1_bias"])
     qkv = y @ lp["wqkv"].to(cfg.dtype)
-    return qkv.split(cfg.d_model, dim=-1)
+    return qkv.split(qkv.shape[-1] // 3, dim=-1)
 
 
-def _finish_layer(x, o, lp, cfg: GPTConfig):
-    """Output projection, residual, MLP: o [b, s, d] attention output."""
-    x = x + (o @ lp["wo"].to(cfg.dtype) + lp["bo"].to(cfg.dtype))
+def _finish_layer(x, o, lp, cfg: GPTConfig, tp: Optional[TPShard] = None):
+    """Output projection, residual, MLP: o [b, s, h * hd] attention
+    output (a tp rank's heads: the projection's sum is completed over
+    tp before the bias)."""
+    po = _row_sum(o @ lp["wo"].to(cfg.dtype), tp,
+                  tp is not None and tp.split_heads)
+    x = x + (po + lp["bo"].to(cfg.dtype))
     y = gpt._layer_norm(x, lp["ln2_scale"], lp["ln2_bias"])
-    return x + _mlp_block(y, lp, cfg)
+    return x + _mlp_block(y, lp, cfg, tp)
+
+
+def _n_heads(cfg: GPTConfig, tp: Optional[TPShard]) -> int:
+    return cfg.n_heads if tp is None else tp.heads
 
 
 def make_prefill_fn(cfg: GPTConfig):
@@ -130,7 +226,8 @@ def make_decode_step(cfg: GPTConfig):
     parked slots are left bit-unchanged (their position's old value is
     written back).  Attention covers ``[0, positions[slot]]`` of the
     slot's stripe (one key for parked slots: never NaN).  Raises
-    MoEDecodeUnsupported for an MoE config."""
+    MoEDecodeUnsupported for an MoE config.  One device only: the slot
+    engine takes no mesh."""
     if cfg.n_experts:
         raise MoEDecodeUnsupported(cfg)
     h, hd = cfg.n_heads, cfg.head_dim
@@ -165,7 +262,7 @@ def make_decode_step(cfg: GPTConfig):
 
 
 def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
-                           n_table: int):
+                           n_table: int, tp: Optional[TPShard] = None):
     """One-token step over the whole row batch against the block pool.
 
     (params, k_pool, v_pool [L, N, h, bs, hd], tables [b, T] long,
@@ -175,8 +272,9 @@ def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
     Each row's current token K/V lands at ``(tables[row, pos // bs],
     pos % bs)``; inactive rows are redirected to the scratch block.  The
     engine copy-on-writes shared tails first, so active rows never
-    collide in the scatter."""
-    h, hd, bs = cfg.n_heads, cfg.head_dim, int(block_size)
+    collide in the scatter.  With ``tp`` the pools hold the rank's
+    heads."""
+    h, hd, bs = _n_heads(cfg, tp), cfg.head_dim, int(block_size)
 
     @torch.no_grad()
     def step(params, k_pool, v_pool, tables, tokens, positions, active):
@@ -202,21 +300,21 @@ def make_paged_decode_step(cfg: GPTConfig, *, block_size: int,
             o = attention(q.reshape(b, 1, h, hd).transpose(1, 2), ctx_k,
                           ctx_v, causal=False, kv_lengths=kv_len,
                           impl="reference")
-            o = o.transpose(1, 2).reshape(b, 1, cfg.d_model)
-            x = _finish_layer(x, o, lp, cfg)
+            o = o.transpose(1, 2).reshape(b, 1, h * hd)
+            x = _finish_layer(x, o, lp, cfg, tp)
             ks.append(kh)
             vs.append(vh)
         # [L, b, h, hd] -> [b, L, h, hd]: one in-place scatter per pool
         # (the advanced indices are split by a slice, so their dim leads)
         k_pool[:, bidx, :, off, :] = torch.stack(ks, 1).to(k_pool.dtype)
         v_pool[:, bidx, :, off, :] = torch.stack(vs, 1).to(v_pool.dtype)
-        return gpt._head(params, x, cfg)[:, 0, :]
+        return _head(params, x, cfg, tp)[:, 0, :]
 
     return step
 
 
 def make_chunk_prefill_fn(cfg: GPTConfig, *, chunk: int, block_size: int,
-                          n_table: int):
+                          n_table: int, tp: Optional[TPShard] = None):
     """Fixed-width prefill chunk against the block pool.
 
     (params, k_pool, v_pool [L, N, h, bs, hd], table [T] long,
@@ -226,8 +324,9 @@ def make_chunk_prefill_fn(cfg: GPTConfig, *, chunk: int, block_size: int,
     Covers positions ``start .. start+C``.  Rows past the table's span
     write to the scratch block and to a dummy context column (S) that
     every real row's causal mask excludes; pad rows past the prompt
-    compute garbage that lands in masked positions."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    compute garbage that lands in masked positions.  With ``tp`` the
+    pools hold the rank's heads."""
+    h, hd = _n_heads(cfg, tp), cfg.head_dim
     bs, C, T = int(block_size), int(chunk), int(n_table)
     S = T * bs
 
@@ -261,8 +360,8 @@ def make_chunk_prefill_fn(cfg: GPTConfig, *, chunk: int, block_size: int,
             ctx_v[:, :, wcol, :] = vh.to(ctx_v.dtype)
             o = attention(q.reshape(1, C, h, hd).transpose(1, 2), ctx_k,
                           ctx_v, causal=False, mask=mask, impl="reference")
-            o = o.transpose(1, 2).reshape(1, C, cfg.d_model)
-            x = _finish_layer(x, o, lp, cfg)
+            o = o.transpose(1, 2).reshape(1, C, h * hd)
+            x = _finish_layer(x, o, lp, cfg, tp)
             ks.append(kh)
             vs.append(vh)
         # [L, h, C, hd] -> [C, L, h, hd]: one in-place scatter per pool
@@ -271,7 +370,7 @@ def make_chunk_prefill_fn(cfg: GPTConfig, *, chunk: int, block_size: int,
             torch.stack(ks).permute(2, 0, 1, 3).to(k_pool.dtype)
         v_pool[:, bidx, :, off, :] = \
             torch.stack(vs).permute(2, 0, 1, 3).to(v_pool.dtype)
-        return gpt._head(params, x, cfg)[0]               # [C, V]
+        return _head(params, x, cfg, tp)[0]               # [C, V]
 
     return chunk_fn
 
@@ -283,7 +382,7 @@ def _scratch_column(tables):
 
 
 def make_spec_verify_step(cfg: GPTConfig, *, width: int, block_size: int,
-                          n_table: int):
+                          n_table: int, tp: Optional[TPShard] = None):
     """Speculative verify: the paged decode step widened to W = ``width``
     lanes a row.
 
@@ -303,8 +402,9 @@ def make_spec_verify_step(cfg: GPTConfig, *, width: int, block_size: int,
     0's logits are the plain step's and lane j's are the next-token
     logits given the drafted prefix.  Every lane lands in ONE scatter;
     rejected lanes leave K/V past the row's committed length, which the
-    masks hide until decode overwrites it."""
-    h, hd = cfg.n_heads, cfg.head_dim
+    masks hide until decode overwrites it.  With ``tp`` the pools hold
+    the rank's heads."""
+    h, hd = _n_heads(cfg, tp), cfg.head_dim
     bs, W, T = int(block_size), int(width), int(n_table)
     S = T * bs
 
@@ -343,8 +443,8 @@ def make_spec_verify_step(cfg: GPTConfig, *, width: int, block_size: int,
             ctx_v[rows, :, wcol, :] = vh.to(ctx_v.dtype)
             o = attention(q.reshape(b, W, h, hd).transpose(1, 2), ctx_k,
                           ctx_v, causal=False, mask=mask, impl="reference")
-            o = o.transpose(1, 2).reshape(b, W, cfg.d_model)
-            x = _finish_layer(x, o, lp, cfg)
+            o = o.transpose(1, 2).reshape(b, W, h * hd)
+            x = _finish_layer(x, o, lp, cfg, tp)
             ks.append(kh)
             vs.append(vh)
         # [L, b, W, h, hd] -> [b, W, L, h, hd]: one in-place scatter per
@@ -353,13 +453,14 @@ def make_spec_verify_step(cfg: GPTConfig, *, width: int, block_size: int,
             torch.stack(ks).permute(1, 2, 0, 3, 4).to(k_pool.dtype)
         v_pool[:, bidx, :, off, :] = \
             torch.stack(vs).permute(1, 2, 0, 3, 4).to(v_pool.dtype)
-        return gpt._head(params, x, cfg)                   # [b, W, V]
+        return _head(params, x, cfg, tp)                   # [b, W, V]
 
     return verify
 
 
 def make_paged_draft_step(cfg: GPTConfig, *, draft_layers: int, k: int,
-                          block_size: int, n_table: int):
+                          block_size: int, n_table: int,
+                          tp: Optional[TPShard] = None):
     """Truncated-layer self-draft burst: ``k`` greedy draft tokens a row,
     each through the first ``draft_layers`` layers, the head and an
     argmax that feeds the next.
@@ -377,8 +478,10 @@ def make_paged_draft_step(cfg: GPTConfig, *, draft_layers: int, k: int,
     scatter of layers < draft_layers and lanes < want).  Those K/V equal
     what the full model writes there, and the verify pass rewrites every
     drafted position at all layers.  Raises SpeculationUnsupported unless
-    ``1 <= draft_layers < n_layers`` and ``k >= 1``."""
-    h, hd, bs = cfg.n_heads, cfg.head_dim, int(block_size)
+    ``1 <= draft_layers < n_layers`` and ``k >= 1``.  With ``tp`` the
+    pools hold the rank's heads; the gathered logits give every rank the
+    same drafts."""
+    h, hd, bs = _n_heads(cfg, tp), cfg.head_dim, int(block_size)
     D, K, T = int(draft_layers), int(k), int(n_table)
     S = T * bs
     if not (1 <= D < cfg.n_layers):
@@ -423,9 +526,9 @@ def make_paged_draft_step(cfg: GPTConfig, *, draft_layers: int, k: int,
                 o = attention(q.reshape(b, 1, h, hd).transpose(1, 2), ctx_k,
                               ctx_v, causal=False, kv_lengths=kv_len,
                               impl="reference")
-                o = o.transpose(1, 2).reshape(b, 1, cfg.d_model)
-                x = _finish_layer(x, o, lp, cfg)
-            nxt = torch.argmax(gpt._head(params, x, cfg)[:, 0, :], dim=-1)
+                o = o.transpose(1, 2).reshape(b, 1, h * hd)
+                x = _finish_layer(x, o, lp, cfg, tp)
+            nxt = torch.argmax(_head(params, x, cfg, tp)[:, 0, :], dim=-1)
             cur = torch.where(live, nxt, cur)
             pos = pos + live.long()
             drafts.append(nxt)

@@ -50,11 +50,22 @@ locally computed prefix.  Extract and install touch the pool and the
 index, which belong to the loop thread, so they run there as queued ops
 between passes (``_run_op``).
 
+With a ``mesh`` (the paged engine only) the engine serves tensor
+parallel: its params and pool are split over the tp ranks of an
+executor (``inference/tp.py``), every step body, full-width prefill and
+pool update runs on each rank, and the loop thread samples from rank 0's
+gathered logits with the engine's one generator, so the ranks stay in
+lockstep.  The scheduler, tables, refcounts and prefix index stay here.
+A step failure on the ranks fails the in-flight requests and resets
+every rank's pool, and the engine serves on; ranks that died leave it
+stopped (failed closed).
+
 The fault plane's hooks (``_chaos``: ``infer_admit``,
-``infer_block_alloc``, ``infer_speculate``) and the flight recorder's
-(``_fr_note``: one ``engine_request`` event per finished request) read
-the port's gates in ``ray_tpu_torch.core``; unarmed, each costs one
-global load.
+``infer_block_alloc``, ``infer_speculate``, and on a mesh
+``infer_shard_commit`` after each decode step's commit) and the flight
+recorder's (``_fr_note``: one ``engine_request`` event per finished
+request, with the serving geometry on a mesh) read the port's gates in
+``ray_tpu_torch.core``; unarmed, each costs one global load.
 """
 
 from __future__ import annotations
@@ -72,6 +83,7 @@ import torch
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.core import fault_injection as _fi
 from ray_tpu_torch.core import flight_recorder as _fr
+from ray_tpu_torch.inference import tp as _tp
 from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
                                            RadixIndex)
 from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
@@ -84,6 +96,7 @@ from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
                                             ngram_propose)
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import GPTConfig
+from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, Rules
 from ray_tpu_torch.serve.qos import (PRIORITY_BATCH,  # noqa: F401
                                      PRIORITY_INTERACTIVE,
                                      EngineDrainingError,
@@ -264,7 +277,8 @@ class InferenceEngine:
     def __init__(self, params, cfg: GPTConfig,
                  engine_cfg: Optional[EngineConfig] = None, *,
                  device=None, name: Optional[str] = None,
-                 labels: Optional[dict] = None):
+                 labels: Optional[dict] = None, mesh=None,
+                 rules: Rules = DEFAULT_LLM_RULES):
         self.cfg = cfg
         # extra label pairs on this engine's metrics_snapshot series
         self.labels = dict(labels) if labels else {}
@@ -288,33 +302,54 @@ class InferenceEngine:
             if ec.speculate_k < 1:
                 raise ValueError(
                     f"speculate_k must be >= 1, got {ec.speculate_k}")
-        self.device = resolve_device(device)
+        with _registry_lock:
+            self.name = name or f"engine-{next(_engine_seq)}"
+        self.device = (_tp.mesh_device(mesh, device) if mesh is not None
+                       else resolve_device(device))
         self.params = _to_device(params, self.device)
         # the full-width prefill: the slot engine's admission, and the
         # paged engine's cold long prompt on a lightly loaded engine
         self._prefill = make_prefill_fn(cfg)
+        self._ranks = None                   # the tp ranks (mesh only)
+        if mesh is not None:
+            self._ranks = self._open_ranks(mesh, rules)
+            self.params = self._prefill = None
         if self._paged:
             bs = ec.kv_block_size
             per_seq = -(-int(ec.max_seq or cfg.max_seq) // bs)
             n_blocks = ec.n_blocks if ec.n_blocks is not None else n * per_seq
-            self.pool = BlockPool(cfg, n_blocks, bs, max_seq=ec.max_seq,
-                                  device=self.device)
+            try:
+                self.pool = BlockPool(cfg, n_blocks, bs, max_seq=ec.max_seq,
+                                      device=self.device, mesh=self._ranks)
+            except BaseException:
+                if self._ranks is not None:
+                    self._ranks.close()
+                raise
             self.cache = None
             self.max_seq = self.pool.max_seq
             self.trie = RadixIndex(self.pool) if ec.prefix_cache else None
             T = self.pool.blocks_per_seq
-            self._step = make_paged_decode_step(cfg, block_size=bs,
-                                                n_table=T)
-            self._chunk = make_chunk_prefill_fn(
-                cfg, chunk=ec.prefill_chunk, block_size=bs, n_table=T)
-            if self._spec is not None:
-                self._verify = make_spec_verify_step(
-                    cfg, width=ec.speculate_k + 1, block_size=bs, n_table=T)
-                # raises SpeculationUnsupported on a bad draft_layers
-                self._draft = (make_paged_draft_step(
-                    cfg, draft_layers=ec.draft_layers, k=ec.speculate_k,
-                    block_size=bs, n_table=T)
-                    if self._spec == "self" else None)
+            if self._ranks is not None:
+                self._step = self._ranks.body("step")
+                self._chunk = self._ranks.body("chunk")
+                if self._spec is not None:
+                    self._verify = self._ranks.body("verify")
+                    self._draft = (self._ranks.body("draft")
+                                   if self._spec == "self" else None)
+            else:
+                self._step = make_paged_decode_step(cfg, block_size=bs,
+                                                    n_table=T)
+                self._chunk = make_chunk_prefill_fn(
+                    cfg, chunk=ec.prefill_chunk, block_size=bs, n_table=T)
+                if self._spec is not None:
+                    self._verify = make_spec_verify_step(
+                        cfg, width=ec.speculate_k + 1, block_size=bs,
+                        n_table=T)
+                    # raises SpeculationUnsupported on a bad draft_layers
+                    self._draft = (make_paged_draft_step(
+                        cfg, draft_layers=ec.draft_layers,
+                        k=ec.speculate_k, block_size=bs, n_table=T)
+                        if self._spec == "self" else None)
             self._tables = np.zeros((n, T), np.int64)
             self._row_blocks: dict[int, list[int]] = {}
             self._free_rows = list(range(n - 1, -1, -1))
@@ -365,12 +400,32 @@ class InferenceEngine:
         self._row_tokens = 0           # tokens those pairs emitted
 
         with _registry_lock:
-            self.name = name or f"engine-{next(_engine_seq)}"
             _ENGINES[self.name] = self
         self._thread = threading.Thread(
             target=_engine_loop, args=(weakref.ref(self),), daemon=True,
             name=f"ray_tpu_torch-inference-{self.name}")
         self._thread.start()
+
+    def _open_ranks(self, mesh, rules: Rules) -> "_tp.EngineRanks":
+        """Open this engine on the tp ranks of ``mesh`` (the paged engine
+        only): every rank cuts its shards of the params and builds its
+        step bodies for the engine's geometry; the pool's tensors are
+        then the ranks' alone."""
+        ec, cfg = self.engine_cfg, self.cfg
+        if not self._paged:
+            raise NotImplementedError(
+                "the slot engine (paged=False) on a mesh is not ported; "
+                "serve tensor parallel with the paged engine")
+        return _tp.executor_for(mesh, device=self.device).open(
+            self.name, cfg, self.params, rules, {
+                "block_size": ec.kv_block_size,
+                "n_table": -(-int(ec.max_seq or cfg.max_seq)
+                             // ec.kv_block_size),
+                "chunk": ec.prefill_chunk,
+                "width": (ec.speculate_k + 1 if self._spec is not None
+                          else None),
+                "draft_layers": (ec.draft_layers if self._spec == "self"
+                                 else None)})
 
     # ------------------------------------------------------------ submit
 
@@ -475,7 +530,9 @@ class InferenceEngine:
             elif self._active.any():
                 self._decode_iteration()
         except Exception as e:                # step failure: fail the
-            self._fail_all(e)                 # in-flight requests, keep serving
+            # in-flight requests and keep serving, unless the tp ranks
+            # died: then the engine stops (fails closed)
+            return self._fail_all(e)
         return True
 
     def _admission_possible(self) -> bool:
@@ -563,6 +620,10 @@ class InferenceEngine:
             "tokens": len(req.tokens),
             "spec_accepted": req.spec_accepted,
             "spec_rejected": req.spec_drafted - req.spec_accepted,
+            # the serving geometry: which mesh served the request
+            **({"mesh_devices": self._ranks.executor.mesh_devices,
+                "tp_shards": self.pool.heads_shards}
+               if self._ranks is not None else {}),
         })
 
     def _paged_admit_locked(self) -> None:
@@ -773,12 +834,10 @@ class InferenceEngine:
             padded = torch.zeros((1, self.max_seq), dtype=torch.long,
                                  device=self.device)
             padded[0, :n] = torch.from_numpy(prompt)
-            logits, k_new, v_new = self._prefill(self.params, padded)
-            self.pool.write_prefill(self._tables[row], k_new[:, 0],
-                                    v_new[:, 0])
+            last = self._full_prefill(self._tables[row], padded, n)
             with self._mlock:
                 self._full_prefills += 1
-            self._finish_prefill(row, req, logits[0, n - 1])
+            self._finish_prefill(row, req, last)
             return
         # the write window [pos, pos+C) must only touch exclusively owned
         # blocks; only the first can be shared (an adopted partial tail)
@@ -801,6 +860,17 @@ class InferenceEngine:
             self._prefilling[row] = new_pos
             return
         self._finish_prefill(row, req, logits[n_q - 1])
+
+    def _full_prefill(self, table: np.ndarray, padded, n: int):
+        """One full-width prefill of ``padded`` [1, max_seq] seeding the
+        blocks of ``table``; returns the last prompt position's logits
+        [V].  On a mesh every rank writes its heads of the K/V, which
+        never leave the ranks."""
+        if self._ranks is not None:
+            return self._ranks.run("prefill", table, padded, n)
+        logits, k_new, v_new = self._prefill(self.params, padded)
+        self.pool.write_prefill(table, k_new[:, 0], v_new[:, 0])
+        return logits[0, n - 1]
 
     def _finish_prefill(self, row: int, req: GenerationRequest,
                         last_logits) -> None:
@@ -1066,6 +1136,10 @@ class InferenceEngine:
             torch.from_numpy(self._tokens).to(dev),
             torch.from_numpy(self._positions).to(dev),
             torch.from_numpy(self._active).to(dev))
+        if self._ranks is not None:
+            # every rank has committed its heads of the step's K/V
+            self._chaos("infer_shard_commit",
+                        tp_shards=self.pool.heads_shards)
         self._emit_step(logits, self._paged_evict)
 
     def _emit_step(self, logits, evict) -> None:
@@ -1147,20 +1221,26 @@ class InferenceEngine:
             self._requests_completed += 1
         self._fr_note(req)
 
-    def _fail_all(self, e: BaseException) -> None:
+    def _fail_all(self, e: BaseException) -> bool:
         """A failed step leaves the cache's content in doubt: fail the
-        in-flight requests and zero the cache.  Paged: also drop every
-        block reference and the prefix index (cached prefixes would point
-        at zeroed blocks)."""
+        in-flight requests and zero the cache (every rank's shard on a
+        mesh).  Paged: also drop every block reference and the prefix
+        index (cached prefixes would point at zeroed blocks).  False when
+        the tp ranks died: the engine cannot serve on."""
         failed = {row: self._slot_req.pop(row) for row in list(self._slot_req)}
         self._active[:] = False
+        alive = self._ranks is None or self._ranks.alive
         if self._paged:
             self._prefilling.clear()
             self._row_blocks.clear()
             self._tables[:, :] = 0
             if self.trie is not None:
                 self.trie.clear()
-            self.pool.reset()
+            if alive:
+                try:
+                    self.pool.reset()
+                except _tp.TPRanksDead:
+                    alive = False
             with self._cond:
                 self._free_rows = list(
                     range(self.engine_cfg.max_slots - 1, -1, -1))
@@ -1171,6 +1251,7 @@ class InferenceEngine:
             self.cache.reset_arrays()
         for req in failed.values():
             req._finish(e)
+        return alive
 
     # ------------------------------------------------------------- admin
 
@@ -1391,9 +1472,13 @@ class InferenceEngine:
                 "spec_accepted_tokens": accepted,
                 "spec_accept_rate": accepted / drafted if drafted else 0.0,
                 "spec_passes": self._spec_passes,
-                # serving geometry: one card, no tensor parallelism
-                "mesh_devices": 1,
-                "tp_shards": 1,
+                # serving geometry (1 and {} on one device)
+                "mesh_devices": (self._ranks.executor.mesh_devices
+                                 if self._ranks is not None else 1),
+                "mesh_axes": (dict(self._ranks.executor.mesh_axes)
+                              if self._ranks is not None else {}),
+                "tp_shards": (self.pool.heads_shards if self._paged
+                              else 1),
                 "peak_active_requests": self._peak_active,
             }
             if self._paged:
@@ -1419,8 +1504,11 @@ class InferenceEngine:
             "active_slots": occupied,
             "free_slots": self.engine_cfg.max_slots - occupied,
             "cache_bytes": pool["bytes_total"],
+            "cache_bytes_per_device": pool["bytes_per_device"],
             "block_size": pool["block_size"],
+            # the same count on every tp rank: heads are what is split
             "blocks_total": total,
+            "blocks_per_device": pool["blocks_per_device"],
             "blocks_free": pool["blocks_free"],
             "block_utilization": (pool["blocks_used"] / total
                                   if total else 0.0),
@@ -1430,10 +1518,14 @@ class InferenceEngine:
         return out
 
     def shutdown(self, timeout: float = 5.0) -> None:
+        """Stop the loop; on a mesh, then drop the engine from its ranks
+        (the executor stops with its last engine)."""
         with self._cond:
             self._stopped = True
             self._cond.notify_all()
         self._thread.join(timeout=timeout)
+        if self._ranks is not None:
+            self._ranks.close()
 
 
 def metrics_snapshot() -> list:

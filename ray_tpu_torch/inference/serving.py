@@ -36,6 +36,7 @@ from typing import Optional, Sequence, Union
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.inference.engine import (EngineConfig, EngineStoppedError,
                                             InferenceEngine)
+from ray_tpu_torch.inference.tp import serving_axes
 from ray_tpu_torch.models import gpt
 from ray_tpu_torch.models.gpt import GPTConfig
 from ray_tpu_torch.serve.context import get_replica_context
@@ -45,6 +46,18 @@ from ray_tpu_torch.serve.multiplex import ModelMultiplexer
 from ray_tpu_torch.serve.qos import EngineDrainingError, parse_priority
 
 DEFAULT_ROUTE = "v1"
+
+
+def _serving_mesh(mesh, rules) -> None:
+    """Refuse, before any engine or rank starts, a serving mesh that is
+    not ported (``tp.serving_axes``) and rules without a mesh (they say
+    how a mesh splits the params)."""
+    if mesh is not None:
+        serving_axes(mesh)
+    elif rules is not None:
+        raise NotImplementedError(
+            "rules without a mesh: the rules place the params on a serving "
+            "mesh; one device takes none")
 
 
 def encode_prompt(prompt: Union[str, Sequence[int]],
@@ -58,14 +71,6 @@ def encode_prompt(prompt: Union[str, Sequence[int]],
     return [int(t) for t in prompt]
 
 
-def _no_mesh(mesh, rules) -> None:
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "tensor-parallel serving (mesh/rules) is not ported yet: the "
-            "tp-sharded paged decode (POOL_AXES, infer_shard_commit) comes "
-            "with a later slice; the port serves on one device")
-
-
 class GPTServer:
     """Replica body: one engine per replica, or, with ``variants``
     ({model_id: seed}), an LRU of per-variant engines.
@@ -73,7 +78,10 @@ class GPTServer:
     Params come from ``seed`` (drawn on the device, so every replica
     built from one seed answers greedy requests identically) or are
     passed in.  When built under a replica context the replica tag names
-    the engine(s) and labels their ``metrics_snapshot`` series."""
+    the engine(s) and labels their ``metrics_snapshot`` series.  With
+    ``mesh`` (and ``rules``) every engine of the replica, multiplexed
+    variants included, serves tensor parallel on one set of tp ranks
+    (``InferenceEngine(mesh=)``)."""
 
     def __init__(self, cfg: Optional[GPTConfig] = None,
                  engine_cfg: Optional[EngineConfig] = None,
@@ -83,9 +91,13 @@ class GPTServer:
                  multiplex_capacity: int = 2,
                  warm_on_init: bool = False,
                  mesh=None, rules=None, device=None):
-        _no_mesh(mesh, rules)
+        _serving_mesh(mesh, rules)
         self.cfg = cfg or GPTConfig.tiny()
         self.engine_cfg = engine_cfg or EngineConfig()
+        # tensor-parallel serving: every engine this replica builds
+        # shares the one mesh (and so one executor's ranks)
+        self.mesh = mesh
+        self.rules = rules
         self.device = resolve_device(device)
         self._warm = warm_on_init
         self._closed = False
@@ -128,8 +140,14 @@ class GPTServer:
         labels = dict(self._labels)
         if model_id:
             labels["model"] = model_id
+        kw = {}
+        if self.mesh is not None:
+            kw["mesh"] = self.mesh
+            if self.rules is not None:
+                kw["rules"] = self.rules
         eng = InferenceEngine(params, self.cfg, self.engine_cfg,
-                              device=self.device, name=name, labels=labels)
+                              device=self.device, name=name, labels=labels,
+                              **kw)
         if self._warm:
             # the first prefill and decode run off the request path
             eng.generate([1], max_new=2, timeout=300)
@@ -229,7 +247,8 @@ class GPTServer:
             "blocks_free": blocks_free,
             "block_utilization": ((blocks_total - blocks_free)
                                   / blocks_total if blocks_total else 0.0),
-            # serving geometry (max, not sum: one device per replica)
+            # serving geometry (max, not sum: multiplexed engines share
+            # the one mesh)
             "mesh_devices": max((s.get("mesh_devices", 1)
                                  for s in stats), default=1),
             "tp_shards": max((s.get("tp_shards", 1)
@@ -333,9 +352,9 @@ def build_gpt_deployment(*, name: str = DEFAULT_ROUTE,
     ({model_id: seed}) makes each replica model-multiplexed, at most
     ``multiplex_capacity`` variants resident, LRU-evicted; requests pick
     one with the ``model`` field.  ``warm_on_init`` runs a first prefill
-    and decode at replica construction.  ``mesh``/``rules`` raise
-    NotImplementedError (one device per replica)."""
-    _no_mesh(mesh, rules)
+    and decode at replica construction.  ``mesh`` (and ``rules``) serves
+    every replica tensor parallel (``GPTServer``)."""
+    _serving_mesh(mesh, rules)
     return Deployment(
         GPTServer,
         DeploymentOptions(name=name, num_replicas=num_replicas,

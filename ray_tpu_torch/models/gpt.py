@@ -34,9 +34,11 @@ A mesh with pp > 1 runs the layer stack as a GPipe pipeline
 (``_forward_pipelined``, ``parallel.pipeline``), each stage on the mesh
 without pp; the JAX package's refusals carry over (sp with pp, layers or
 a batch the stages or microbatches do not divide, ``return_kv`` on a pp
-mesh).  The prefill (``return_kv``) on any mesh, which feeds the
-tp-sharded decode, is not ported yet and raises
-``NotImplementedError``.
+mesh).  The prefill (``return_kv``) on a tp mesh returns each rank's
+heads of the K/V as DTensors split over heads as the rules split
+"heads", never gathered: the seed of the tp-sharded paged decode.  On a
+mesh with another axis larger than 1 it raises ``NotImplementedError``
+(only tp serving is ported).
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch.distributed.tensor import Partial
+from torch.distributed.tensor import Partial, Shard
 from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts,
                                     noop_context_fn)
@@ -414,16 +416,23 @@ def forward(params, tokens, cfg: GPTConfig, *, mesh=None,
     layer is rematerialised in the backward pass as its ``remat_policy``
     says.  With ``mesh`` (the module note) params and tokens are
     DTensors on it and so are the logits: batch over the data axes, seq
-    over sp, vocab over tp."""
+    over sp, vocab over tp; the K/V of ``return_kv`` are placed
+    (None, "batch", "heads", "seq", "kv")."""
     if mesh is not None:
         if return_kv and mesh_shape(mesh).get("pp", 1) > 1:
             raise NotImplementedError(
                 "return_kv (inference prefill) is not supported on a "
                 "pp mesh; prefill with dp/tp sharding instead")
         if return_kv:
-            raise NotImplementedError(
-                "return_kv (the prefill) on a mesh: the tp-sharded decode "
-                "is not ported yet")
+            other = {a: n for a, n in mesh_shape(mesh).items()
+                     if a != "tp" and n > 1}
+            if other:
+                raise NotImplementedError(
+                    f"return_kv (the prefill) on a mesh with {other}: only "
+                    f"the prefill of the tp-sharded decode is ported")
+            logits, aux, kv = _sharded_forward(params, tokens, cfg, mesh,
+                                               rules, return_kv=True)
+            return (logits, aux, kv) if return_aux else (logits, kv)
         logits, aux = _sharded_forward(params, tokens, cfg, mesh, rules)
         return (logits, aux) if return_aux else logits
     x = _embed(params, tokens, cfg)
@@ -477,7 +486,8 @@ def loss_fn(params, batch, cfg: GPTConfig, *, mesh=None,
 # -- the mesh arm ----------------------------------------------------------
 
 def _sharded_attention(qkv, n_heads: int, mesh, rules: Rules, attend,
-                       seq: Optional[str] = "seq", mask=None):
+                       seq: Optional[str] = "seq", mask=None,
+                       return_kv: bool = False):
     """qkv [b, s, 3d] DTensor -> the attention output [b, s, d], split
     over heads as the rules split "heads".  q, k and v each take a third
     of the columns, which a split of the 3d columns does not follow, so
@@ -485,7 +495,8 @@ def _sharded_attention(qkv, n_heads: int, mesh, rules: Rules, attend,
     runs ``attend(q, k, v)`` on [b_local, h_local, s_local, hd] views
     (``attend(q, k, v, m)`` with its rows of a [b, s] ``mask``).
     ``seq=None`` gathers the sequence too, for attention that needs it
-    whole."""
+    whole.  ``return_kv`` also returns those k and v views, [b, h, s, hd]
+    DTensors placed ("batch", "heads", seq, "kv")."""
     qkv = constrain(qkv, ("batch", seq, None), rules, mesh)
     b, s, three_d = qkv.shape
     d = three_d // 3
@@ -502,19 +513,27 @@ def _sharded_attention(qkv, n_heads: int, mesh, rules: Rules, attend,
                 :, h0:h0 + hl]
 
         q, k, v = t.split(d, dim=-1)
-        o = attend(heads(q), heads(k), heads(v), *m)
-        return o.transpose(1, 2).reshape(bl, sl, hl * hd)
+        kh, vh = heads(k), heads(v)
+        o = attend(heads(q), kh, vh, *m)
+        o = o.transpose(1, 2).reshape(bl, sl, hl * hd)
+        return (o, kh, vh) if return_kv else o
 
     args = (qkv,) if mask is None else (
         qkv, constrain(mask, ("batch", None), rules, mesh))
-    return spmd.run(local, mesh, sharding_for(("batch", seq, "heads"), rules,
-                                              mesh), *args)
+    out = sharding_for(("batch", seq, "heads"), rules, mesh)
+    if return_kv:
+        kv = sharding_for(("batch", "heads", seq, "kv"), rules, mesh)
+        out = (out, kv, kv)
+    return spmd.run(local, mesh, out, *args)
 
 
-def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules):
+def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules,
+                   return_kv: bool = False):
     """``_transformer_layer`` on a mesh, x [b, s, d] a DTensor placed
     ("batch", "seq", "embed") and lp the layer's DTensors.  Returns (x,
-    the MoE aux loss: a replicated 0-d DTensor, or 0.0 when dense)."""
+    the MoE aux loss: a replicated 0-d DTensor, or 0.0 when dense); with
+    ``return_kv`` also this rank's heads of the K/V
+    (``_sharded_attention``)."""
     dt = cfg.dtype
     X = sharding_for(("batch", "seq", "embed"), rules, mesh)
 
@@ -540,7 +559,12 @@ def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules):
     qkv = spmd.run(ln_proj, mesh,
                    sharding_for(("batch", "seq", "qkv"), rules, mesh),
                    x, lp["ln1_scale"], lp["ln1_bias"], lp["wqkv"])
-    o = _sharded_attention(qkv, cfg.n_heads, mesh, rules, attend)
+    o = _sharded_attention(qkv, cfg.n_heads, mesh, rules, attend,
+                           return_kv=return_kv)
+    kv = ()
+    if return_kv:
+        o, kh, vh = o
+        kv = ((kh, vh),)
     o = constrain(spmd.dense(o, lp["wo"], mesh, dt),
                   ("batch", "seq", "embed"), rules, mesh)
     x = spmd.run(residual, mesh, X, x, o, lp["bo"])
@@ -548,13 +572,13 @@ def _sharded_layer(x, lp, cfg: GPTConfig, mesh, rules: Rules):
         y = spmd.run(_layer_norm, mesh, X, x, lp["ln2_scale"],
                      lp["ln2_bias"])
         dn, aux = _sharded_moe(y, lp, cfg, mesh, rules)
-        return spmd.run(torch.add, mesh, X, x, dn), aux
+        return (spmd.run(torch.add, mesh, X, x, dn), aux) + kv
     u = spmd.run(ln_up, mesh,
                  sharding_for(("batch", "seq", "mlp"), rules, mesh),
                  x, lp["ln2_scale"], lp["ln2_bias"], lp["w_up"], lp["b_up"])
     dn = constrain(spmd.dense(u, lp["w_down"], mesh, dt),
                    ("batch", "seq", "embed"), rules, mesh)
-    return spmd.run(residual, mesh, X, x, dn, lp["b_down"]), 0.0
+    return (spmd.run(residual, mesh, X, x, dn, lp["b_down"]), 0.0) + kv
 
 
 def _sharded_moe(y, lp, cfg: GPTConfig, mesh, rules: Rules):
@@ -685,12 +709,15 @@ def stage_fn(cfg: GPTConfig, mesh, rules: Rules = DEFAULT_LLM_RULES):
     return run
 
 
-def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
+def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules,
+                     return_kv: bool = False):
     """The forward on a mesh: tokens [b, s] DTensor -> (logits [b, s,
     vocab] f32 DTensor placed ("batch", "seq", "vocab"), the MoE aux
     loss summed over layers: a replicated 0-d DTensor, or 0.0 when
     dense).  A mesh with pp > 1 runs the layer stack as a GPipe pipeline
-    (``_forward_pipelined``)."""
+    (``_forward_pipelined``).  ``return_kv`` (no pp) also returns (k, v),
+    [L, b, h, s, hd] DTensors placed (None, "batch", "heads", "seq",
+    "kv")."""
     pp = mesh_shape(mesh).get("pp", 1)
     if pp > 1:
         # the JAX package's refusals, before any collective
@@ -707,11 +734,37 @@ def _sharded_forward(params, tokens, cfg: GPTConfig, mesh, rules: Rules):
                              f"microbatches {M}")
     params = spmd.place_tree(params, param_logical_axes(cfg), rules, mesh)
     x = _sharded_embed(params, tokens, cfg, mesh, rules)
+    if return_kv:
+        x, aux, kv = _sharded_prefill_layers(params["layers"], x, cfg, mesh,
+                                             rules)
+        return _sharded_head(params, x, cfg, mesh, rules), aux, kv
     if pp > 1:
         x, aux = _forward_pipelined(params, x, cfg, mesh, rules)
     else:
         x, aux = stage_fn(cfg, mesh, rules)(params["layers"], x)
     return _sharded_head(params, x, cfg, mesh, rules), aux
+
+
+def _sharded_prefill_layers(layers, x, cfg: GPTConfig, mesh, rules: Rules):
+    """The layer stack of the prefill on a mesh: (x, aux, (k, v)), each of
+    k and v every layer's heads-split K/V stacked on a new leading dim,
+    each rank stacking its own shards."""
+    aux, ks, vs = 0.0, [], []
+    for lp in spmd.layer_slices(layers, cfg.n_layers, mesh):
+        x, a, (kh, vh) = _sharded_layer(x, lp, cfg, mesh, rules,
+                                        return_kv=True)
+        ks.append(kh)
+        vs.append(vh)
+        if cfg.n_experts:
+            aux = aux + a
+    stacked = tuple(Shard(p.dim + 1) if p.is_shard() else p
+                    for p in ks[0].placements)
+
+    def stack(*ts):
+        return torch.stack(ts)
+
+    return x, aux, (spmd.run(stack, mesh, stacked, *ks),
+                    spmd.run(stack, mesh, stacked, *vs))
 
 
 def _forward_pipelined(params, x, cfg: GPTConfig, mesh, rules: Rules):

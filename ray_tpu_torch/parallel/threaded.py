@@ -27,10 +27,14 @@ import contextlib
 import threading
 import time
 import traceback
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+
+# the baton of the run_ranks call in progress (one at a time per process)
+_active_baton: Optional["_Baton"] = None
 
 
 class RankError(RuntimeError):
@@ -38,7 +42,7 @@ class RankError(RuntimeError):
 
 
 def run_ranks(fn: Callable[[int], Any], world_size: int, *,
-              timeout: float = 60.0) -> list:
+              timeout: Optional[float] = 60.0) -> list:
     """``[fn(0), ..., fn(world_size - 1)]``, each on its own thread with
     the threaded default process group initialised for that rank.  The
     first rank to raise re-raises here as ``RankError`` with its
@@ -46,9 +50,11 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
     they raise ``SystemExit``); when no rank raised, a rank still running
     after ``timeout`` seconds in all raises ``TimeoutError`` (woken the
     same way; a rank that never waits in a collective is left behind, a
-    daemon thread)."""
+    daemon thread).  ``timeout=None`` waits as long as the ranks run (a
+    serving executor's ranks, stopped by their caller)."""
     from torch.testing._internal.distributed import multi_threaded_pg as mtp
 
+    global _active_baton
     baton = _Baton()
     join, barrier = mtp.Collective.join, dist.distributed_c10d._store_based_barrier
 
@@ -68,6 +74,8 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
     lock = threading.Lock()
     c10d._set_thread_isolation_mode(True)
     mtp._install_threaded_pg()
+    mtp.ProcessLocalGroup.reset()        # no stop left from a woken world
+    _active_baton = baton
     mtp.Collective.join = baton_join
     dist.distributed_c10d._store_based_barrier = baton_barrier
     try:
@@ -94,9 +102,10 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
                    for r in range(world_size)]
         for t in threads:
             t.start()
-        deadline = time.monotonic() + timeout
+        deadline = None if timeout is None else time.monotonic() + timeout
         for t in threads:
-            t.join(max(0.0, deadline - time.monotonic()))
+            t.join(None if deadline is None
+                   else max(0.0, deadline - time.monotonic()))
         hung = [r for r, t in enumerate(threads) if t.is_alive()]
         with lock:
             raised = list(order)     # not those the wake-up below stops
@@ -107,6 +116,7 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
             for t in threads:
                 t.join(5.0)
     finally:
+        _active_baton = None
         mtp.Collective.join = join
         dist.distributed_c10d._store_based_barrier = barrier
         mtp.ProcessLocalGroup.reset()
@@ -122,6 +132,28 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
         raise TimeoutError(f"ranks {hung} of {world_size} did not finish "
                            f"within {timeout} s")
     return [results[r] for r in range(world_size)]
+
+
+@contextlib.contextmanager
+def waiting_outside_collectives():
+    """Let the other ranks run while this rank waits on something other
+    than a collective (a queue of work): it hands the baton on and takes
+    it back after.  Nothing outside ``run_ranks``."""
+    baton = _active_baton
+    if baton is None:
+        yield
+        return
+    with baton.handed_on(reacquire=True):
+        yield
+
+
+def wake_collectives() -> None:
+    """Stop every rank waiting in a collective of the threaded group
+    (they raise ``SystemExit`` there), for a caller that knows a rank
+    will never join them."""
+    from torch.testing._internal.distributed import multi_threaded_pg as mtp
+
+    _wake_all(mtp.ProcessLocalGroup)
 
 
 def _wake_all(group_cls) -> None:

@@ -378,9 +378,10 @@ def test_flash_runs_per_rank_at_the_local_shape(monkeypatch):
 
 def test_unported_mesh_arms_raise():
     """The pipelines and expert parallelism are ported (tests/
-    test_torch_port_pipeline*.py, test_torch_port_moe_*.py); the prefill
-    on a mesh, Trainer on a mesh and the tp-sharded paged decode still
-    raise."""
+    test_torch_port_pipeline*.py, test_torch_port_moe_*.py), and so are
+    the prefill on a tp mesh and the tp-sharded paged decode (tests/
+    test_torch_port_tp_*.py); Trainer on a mesh, and the prefill and
+    serving on a mesh split over another axis (dp here) still raise."""
     from ray_tpu_torch.inference.serving import GPTServer
     from ray_tpu_torch.train import Trainer
 

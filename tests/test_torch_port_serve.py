@@ -269,7 +269,8 @@ def test_multiplexer_concurrent_misses_share_one_load():
 
 def test_build_gpt_deployment_fields_and_stream_chunks():
     """The deployment's name, options and init kwargs equal the JAX
-    package's (the port adds ``device``); a mesh is refused; both
+    package's (the port adds ``device``); what is not a serving mesh,
+    and rules without a mesh, are refused; both
     ``parse_stream_chunks`` read the same bytes alike."""
     auto = serve.AutoscalingConfig(min_replicas=1, max_replicas=3)
     kw = dict(name="gen", engine_cfg=None, seed=7, num_replicas=2,
