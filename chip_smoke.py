@@ -204,9 +204,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    against its plain version, timed beside its bound, the plain version
    and SDPA (the kernel's ``serve_tp{2,4}_shape_{bfloat16,float32}``
    records).
+18. the trainer on a mesh.  18a: ``Trainer.fit`` on a {dp: 1} mesh at
+   NCCL world size 1, GPT-2 124M at full width and depth, b16 s1024 bf16
+   "dots", AdamW(3e-4, weight_decay=0.1), six steps on phase 13's first
+   six batches, a checkpoint every 3, the data failing at step 4: the
+   fit resumes at step 3 from its checkpoint, every step launches
+   24 / 12 / 12, and the losses at steps 2, 4 and 6 are within rel 1e-3
+   of phase 13's uninterrupted one-device fit.  18b: four ranks as
+   threads sharing the card on dp2.tp2, GPT-2 124M widths cut to four
+   layers, b8 s1024, each rank calling ``fit()`` with its own data
+   failing at step 4: every rank resumes at step 3 from the checkpoint
+   rank 0 wrote and reports the same, each rank launches 8 / 4 / 4 a
+   step at [4, 6, 1024, 64], and each step's loss and grad_norm are
+   within rel 5e-3 / 5e-2 of the same fit on one device.
+19. the slot engine on tp, GPT-2 124M at full width and depth.  19a:
+   NCCL at world size 1 on a {tp: 1} ``DeviceMesh``, the slot engine in
+   bf16: phase 4's requests token-exact against the one-device slot
+   engine, the ITL medians printed side by side.  19b: tp2 and tp4 as
+   ranks on threads sharing the card, f32 with TF32 off, two slots for
+   phase 6's four requests: every reply token-exact against
+   ``generate``, each rank 12 flash launches per admission at
+   [1, 12/tp, 1024, 64] and none in the decode steps, every slot free
+   after, each rank's cache [2, 12, 2, 12/tp, 1024, 64].  19c: the same
+   traffic in bf16 on one device, tp2 and tp4, TTFT and ITL beside one
+   device's; the slot prefill's last-position logits at the rank shape
+   within 0.125 of plain attention.
 
-``main`` runs phases 8, 10, 11, 12, 13, 14 and 17 before phase 7, and
-15 and 16 after 9: no serving phase runs after the profiler.  The line
+``main`` runs phases 8, 10, 11, 12, 13, 14, 17 and 19 before phase 7,
+and 15, 16 and 18 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2516,7 +2541,8 @@ def phase_trainer(name: str, card: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
         gc.collect()
         torch.cuda.empty_cache()
-    return {"launches": launches, "step_ms": step_ms}
+    return {"launches": launches, "step_ms": step_ms,
+            "history": [(st, lo) for st, lo, _ in hist]}
 
 
 # ------------------------------------------------------------------- PPO
@@ -3632,6 +3658,352 @@ def phase_tp_serving(name: str, card: str) -> tuple:
     return launches, records
 
 
+# ------------------------------------------------ the trainer on a mesh
+
+def step_launches(marks: list, end) -> list:
+    """Per-step launches from ``marks``, the counts taken as each step's
+    loss began (and ``end``, after the last): [c_1 - c_0, ...]."""
+    ends = marks[1:] + [end]
+    if isinstance(end, dict):
+        return ends           # per-thread logs, reset at every mark
+    return [tuple(e - m for e, m in zip(b, a))
+            for a, b in zip(marks, ends)]
+
+
+def mesh_fit(cfg, data, path, mesh, marks: list, *, logical=True):
+    """``Trainer.fit`` of ``cfg`` on ``mesh`` (axes, or None for one
+    device): AdamW(3e-4, weight_decay=0.1), report every step, checkpoint
+    every 3, one failover; ``marks`` gets this thread's launch counts as
+    each step's loss begins (a rank's own log on threaded ranks, the
+    global counters else).  Returns (trainer, result)."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import Trainer, adamw
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    threaded = mesh is not None and int(np.prod(list(mesh.values()))) > 1
+
+    def loss_fn(p, batch, mesh=None, rules=None):
+        if threaded:
+            marks.append(dict(fa.thread_launches()))
+            fa.reset_thread_launches()
+        else:
+            marks.append(flash_launches())
+        return gpt.loss_fn(p, batch, cfg, mesh=mesh,
+                           **({} if rules is None else {"rules": rules}))
+
+    tr = Trainer(loss_fn=loss_fn,
+                 init_params=lambda seed: gpt.init_params(cfg, seed),
+                 optimizer=adamw(3e-4, weight_decay=0.1), train_data=data,
+                 num_steps=len(data.batches), report_every=1,
+                 checkpoint_every=3, seed=SEED, storage_path=path,
+                 max_failures=1, mesh=mesh,
+                 params_logical=(gpt.param_logical_axes(cfg)
+                                 if mesh is not None and logical else None))
+    if threaded:
+        fa.reset_thread_launches()
+    return tr, tr.fit()
+
+
+# phase 18b's GPT-2 124M cut to four layers, and a rank's flash shape on
+# dp2.tp2 at b8 s1024 (TP_SHAPE: 4 rows, 6 of the 12 heads)
+MESH_FIT_LAYERS = 4
+MESH_FIT_BOUND = 1e-3          # 18a: dp1 loss vs one device's, relative
+
+
+def phase_mesh_trainer(card: str, one_device: list) -> dict:
+    """18a: ``Trainer.fit`` on a {dp: 1} mesh at NCCL world size 1, GPT-2
+    124M at full width and depth, b16 s1024 bf16 "dots", six steps on
+    phase 13's first six batches, a checkpoint every 3 and the data
+    failing at step 4: the resume starts at step 3, every step launches
+    24 / 12 / 12, the losses at steps 2, 4 and 6 within rel
+    ``MESH_FIT_BOUND`` of phase 13's uninterrupted one-device fit
+    (``one_device``: its (step, loss) reports).  18b: four ranks as
+    threads sharing the card on dp2.tp2, the model cut to
+    ``MESH_FIT_LAYERS`` layers, b8 s1024, each rank calling ``fit()`` with
+    its own data failing at step 4: every rank resumes at step 3 from
+    the checkpoint rank 0 wrote, reports the same losses, launches 8 / 4
+    / 4 a step at ``TP_SHAPE``, and each step's loss and grad_norm are
+    within rel 5e-3 / 5e-2 of the same fit on one device.  Returns
+    {path: [flash_fwd, flash_bwd_kv, flash_bwd_dq] launches in its
+    run}."""
+    import logging
+
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel import run_ranks
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    logging.getLogger("ray_tpu_torch.train").setLevel(logging.ERROR)
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    launches = {}
+    root = tempfile.mkdtemp(prefix="_chip_smoke_ckpt_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        # 18a: NCCL at world size 1, full depth, beside phase 13
+        cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+        L = cfg.n_layers
+        data = HostBatches(6, 16, 1024, 4096, SEED + 20, fail_at=4)
+        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                                f"{free_port()}", world_size=1, rank=0)
+        try:
+            marks = []
+            torch.cuda.synchronize()
+            fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+            t0 = time.perf_counter()
+            tr, res = mesh_fit(cfg, data, os.path.join(root, "dp1"),
+                               {"dp": 1}, marks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = step_launches(marks, flash_launches())
+            launches["trainer_mesh_nccl_dp1"] = [
+                fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches]
+            ckpts = sorted(os.listdir(os.path.join(root, "dp1",
+                                                   "checkpoints")))
+            del tr
+        finally:
+            dist.destroy_process_group()
+        hist = [(m["step"], m["loss"]) for m in res.metrics_history]
+        check(data.passes == 2 and [st for st, _ in hist]
+              == [1, 2, 3, 4, 5, 6], f"18a: {data.passes} passes, "
+              f"reported steps {[st for st, _ in hist]}")
+        check(ckpts == ["checkpoint_000000", "checkpoint_000001"],
+              f"18a: checkpoints {ckpts}")
+        for c in counts:
+            check(c == (2 * L, L, L), f"18a: a step launched {c}, "
+                  f"expected ({2 * L}, {L}, {L})")
+        check(len(counts) == 6, f"18a: {len(counts)} steps counted")
+        want = dict(one_device)
+        rel = {st: abs(lo - want[st]) / abs(want[st]) for st, lo in hist
+               if st in want}
+        check(sorted(rel) == [2, 4, 6], f"18a: compared steps {sorted(rel)}")
+        print(f"[mesh trainer 18a] GPT-2 124M b16 s1024 bf16 \"dots\", "
+              f"Trainer.fit on a dp1 mesh at NCCL world size 1 on {card}: "
+              f"data failed at step 4, resumed at step 3 "
+              f"({data.passes} passes), 6 steps in {wall:.1f} s, "
+              f"launches per step {sorted(set(counts))}; losses "
+              f"{[(st, round(lo, 6)) for st, lo in hist]}; vs phase 13's "
+              f"one-device fit at steps 2/4/6: rel "
+              f"{', '.join(f'{rel[st]:.2e}' for st in sorted(rel))} (bound "
+              f"{MESH_FIT_BOUND:g})")
+        check(all(np.isfinite(lo) for _, lo in hist)
+              and max(rel.values()) <= MESH_FIT_BOUND,
+              f"18a: losses {hist} vs one device {one_device}")
+
+        # 18b: four threaded ranks on dp2.tp2 at a cut depth
+        cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots",
+                                      n_layers=MESH_FIT_LAYERS)
+        L = cfg.n_layers
+        one = HostBatches(6, 8, 1024, 4096, SEED + 18, fail_at=4)
+        _, ref = mesh_fit(cfg, one, os.path.join(root, "one"), None, [])
+        ref = [(m["step"], m["loss"], m["grad_norm"])
+               for m in ref.metrics_history]
+
+        def rank(r):
+            data = HostBatches(6, 8, 1024, 4096, SEED + 18, fail_at=4)
+            marks = []
+            tr, res = mesh_fit(cfg, data, os.path.join(root, "dp2tp2"),
+                               {"dp": 2, "tp": 2}, marks)
+            seen = step_launches(marks, dict(fa.thread_launches()))
+            return ([(m["step"], m["loss"], m["grad_norm"])
+                     for m in res.metrics_history], tr.start_step,
+                    data.passes, seen)
+
+        torch.cuda.synchronize()
+        fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+        t0 = time.perf_counter()
+        results = run_ranks(rank, 4, timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["trainer_mesh_threads_dp2_tp2"] = [
+            fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches]
+        want_seen = per_kernel(TP_SHAPE, 2 * L, L, L)
+        worst = (0.0, 0.0)
+        for r, (got, start, passes, seen) in enumerate(results):
+            check(start == 3 and passes == 2, f"18b rank {r}: resumed at "
+                  f"{start} after {passes} passes")
+            check(got == results[0][0], f"18b rank {r} reported {got}, "
+                  f"rank 0 {results[0][0]}")
+            check(len(seen) == 6 and all(s == want_seen for s in seen),
+                  f"18b rank {r} launched {seen}, expected {want_seen} "
+                  f"each of 6 steps")
+        for (st, l2, n2), (st1, l1, n1) in zip(results[0][0], ref):
+            dl, dn = abs(l2 - l1) / abs(l1), abs(n2 - n1) / abs(n1)
+            worst = (max(worst[0], dl), max(worst[1], dn))
+            check(st == st1 and dl <= 5e-3 and dn <= 5e-2, f"18b step "
+                  f"{st}: loss {l2} vs {l1}, grad_norm {n2} vs {n1}")
+        print(f"[mesh trainer 18b] GPT-2 124M width, {L} layers, b8 s1024 "
+              f"bf16, 4 ranks as threads sharing {card} on dp2.tp2: every "
+              f"rank resumed at step 3 from rank 0's checkpoint and "
+              f"reported the same; per-step launches on each rank "
+              f"{2 * L} / {L} / {L} at {list(TP_SHAPE)}; vs the same fit "
+              f"on one device: largest rel loss {worst[0]:.2e} (bound "
+              f"5e-3), grad_norm {worst[1]:.2e} (bound 5e-2); losses "
+              f"{[(st, round(lo, 5)) for st, lo, _ in results[0][0]]}; "
+              f"{wall:.1f} s for the ranks' fits (four ranks share one "
+              f"card and one host: not a throughput)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ------------------------------------------------ the slot engine on tp
+
+SLOT_TP_ENGINE = dict(paged=False, max_slots=2)
+
+
+def phase_slot_tp(card: str) -> dict:
+    """19a: NCCL at world size 1 on a {tp: 1} ``DeviceMesh``, the slot
+    engine in bf16 (phase 5's settings with ``paged=False``) held token
+    for token to the one-device slot engine, ITL medians side by side.
+    19b: tp2 and tp4 as threaded ranks on the card in f32 (TF32 off), two
+    slots for phase 6's four requests (slots are reused): every reply
+    token-exact against ``generate``, each rank 12 flash launches per
+    admission at [1, 12/tp, 1024, 64] and none elsewhere, every slot
+    free after and every rank's cache [2, 12, 2, 12/tp, 1024, 64].  19c:
+    the same traffic in bf16 on one device, tp2 and tp4 (ITL beside one
+    device's), and the prefill's last-position logits at the rank shape
+    within 0.125 of plain attention.  Returns {path: flash launches in
+    its run}."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from ray_tpu_torch.inference import EngineConfig, InferenceEngine
+    from ray_tpu_torch.models import gpt
+
+    launches = {}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    cfg = gpt.GPTConfig.gpt2_124m()
+    L, heads = cfg.n_layers, cfg.n_heads
+    params = gpt.init_params(cfg, SEED, device="cuda")
+    warm = requests(cfg.vocab_size, seed=SEED + 1)
+    prompts = requests(cfg.vocab_size)
+
+    # 19a: the executor's process world at one rank against one device
+    eng = InferenceEngine(params, cfg, EngineConfig(paged=False))
+    try:
+        one, _, one_itl, _, _, _, _ = counted_serve(eng, prompts, False, warm)
+    finally:
+        eng.shutdown()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
+        eng = InferenceEngine(params, cfg, EngineConfig(paged=False),
+                              mesh=mesh)
+        try:
+            got, _, itl, _, n, full, _ = counted_serve(eng, prompts, False,
+                                                       warm)
+            st = eng.stats()
+        finally:
+            eng.shutdown()
+    finally:
+        dist.destroy_process_group()
+    launches["slot_tp1_nccl"] = n
+    check(got == one, f"19a: tp1 slot replies {got} differ from one "
+          f"device's {one}")
+    check(st["mesh_axes"] == {"tp": 1} and st["tp_shards"] == 1
+          and st["free_slots"] == st["max_slots"], f"19a: {st}")
+    check(full == len(prompts) and n == L * full, f"19a: {n} flash "
+          f"launches for {full} admissions")
+    a, b = statistics.median(one_itl), statistics.median(itl)
+    print(f"[slot tp 19a] GPT-2 124M bf16 slot engine, NCCL world size 1, "
+          f"tp1 DeviceMesh on {card}: {len(prompts)} replies token-exact "
+          f"against one device; ITL median {b * 1e3:.3f} ms vs one device "
+          f"{a * 1e3:.3f} ms: the executor adds {(b - a) * 1e3:.3f} ms a "
+          f"token ({(b - a) / a:.1%}); flash launches {n} for {full} "
+          f"admissions")
+
+    # 19b: threaded tp2 / tp4 in f32, two slots for four requests
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = gpt.GPTConfig.gpt2_124m(dtype=torch.float32)
+    params32 = gpt.init_params(cfg32, SEED, device="cuda")
+    traffic = prompts[:3] + [[1, 2, 3, 4] * 12]
+    want = [gpt.generate(params32, cfg32, torch.tensor([p], device="cuda"),
+                         16, temperature=0.0)[0, len(p):].tolist()
+            for p in traffic]
+    for tp in (2, 4):
+        label, shape = f"tp{tp} f32", SERVE_TP_SHAPES[tp]
+        eng = InferenceEngine(params32, cfg32,
+                              EngineConfig(**SLOT_TP_ENGINE),
+                              mesh={"tp": tp})
+        try:
+            got, _, _, wall, n, full, per_rank = counted_serve(eng, traffic)
+            st = eng.stats()
+            caches = eng._ranks.executor.on_ranks(lambda ctx: tuple(
+                ctx.engines[eng.name].pool.kv.shape))
+        finally:
+            eng.shutdown()
+        launches[f"slot_tp{tp}_f32"] = n
+        for p, g, w in zip(traffic, got, want):
+            check(g == w, f"19b {label}: the reply to a {len(p)}-token "
+                  f"prompt differs from generate: {g} vs {w}")
+        check(full == len(traffic) and n == tp * L * full, f"19b {label}: "
+              f"{n} launches for {full} admissions")
+        check(per_rank == [{("fwd", shape): L * full}] * tp,
+              f"19b {label}: per-rank launches {per_rank}")
+        check(st["free_slots"] == st["max_slots"] == 2
+              and st["active_slots"] == 0
+              and st["requests_completed"] == len(traffic),
+              f"19b {label}: a slot leaked: {st}")
+        check(caches == [(2, L, 2, heads // tp, cfg.max_seq,
+                          cfg.head_dim)] * tp,
+              f"19b {label}: rank caches {caches}")
+        print(f"[slot tp 19b] {label} slot engine on {card}: "
+              f"{len(traffic)} replies through 2 slots token-exact against "
+              f"generate in {wall:.2f} s; each rank {L * full} flash "
+              f"launches at {list(shape)} for {full} admissions, none in "
+              f"the decode steps; every slot free after, each rank's "
+              f"cache {list(caches[0])}")
+
+    # 19c: bf16 on one device, tp2 and tp4; the prefill logits at the
+    # rank shape against plain attention
+    torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32 = tf32
+    itl_one = None
+    for tp in (1, 2, 4):
+        eng = InferenceEngine(params, cfg, EngineConfig(**SLOT_TP_ENGINE),
+                              mesh={"tp": tp} if tp > 1 else None)
+        try:
+            got, ttft, itl, wall, n, full, _ = counted_serve(
+                eng, traffic, warm=warm)
+            check(full == len(traffic) and n == tp * L * full,
+                  f"19c tp{tp}: {n} launches for {full} admissions")
+            for g in got:
+                check(len(g) == 16 and all(0 <= t < cfg.vocab_size
+                                           for t in g), f"19c: reply {g}")
+            if tp == 1:
+                itl_one = statistics.median(itl)
+            else:
+                launches[f"slot_tp{tp}_bf16"] = n
+                flash, plain = tp_prefill_vs_plain(eng, cfg, traffic[0])
+                err = (flash - plain).abs().max().item()
+                check(bool(torch.isfinite(flash).all()) and err
+                      <= BF16_LOGIT_TOL, f"19c tp{tp}: prefill logits "
+                      f"differ from plain attention by {err}")
+                print(f"[slot tp 19c] tp{tp} bf16 slot prefill at "
+                      f"{list(SERVE_TP_SHAPES[tp])} a rank: last-position "
+                      f"logits flash vs plain attention max_abs_err "
+                      f"{err:.4e} (bound {BF16_LOGIT_TOL})")
+            med = statistics.median(itl)
+            print(f"[slot tp 19c] {'one device' if tp == 1 else f'tp{tp}'}"
+                  f" bf16 slot engine on {card}: {len(traffic)} requests "
+                  f"through 2 slots, TTFT p50 {pct(ttft, 50) * 1e3:.2f} ms, "
+                  f"ITL p50 {med * 1e3:.3f} ms (one device's "
+                  f"{itl_one * 1e3:.3f} ms, x{med / itl_one:.2f}) p99 "
+                  f"{pct(itl, 99) * 1e3:.3f} ms, wall {wall:.3f} s"
+                  + (" (the ranks share one card and take turns: not a tp "
+                     "throughput)" if tp > 1 else ""))
+        finally:
+            eng.shutdown()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3661,6 +4033,7 @@ def main() -> int:
     run(phase_ppo, card)
     tp_serve_launches, tp_serve_records = run(phase_tp_serving, name, card)
     kernels[0].update(tp_serve_records)
+    tp_serve_launches.update(run(phase_slot_tp, card))
     train_launches, steady_ms = run(phase_training, name, card)
     print(f"[trainer] steady step {trainer['step_ms']:.3f} ms (Trainer.fit "
           f"on distinct batches through the feed) vs phase 7's \"dots\" "
@@ -3676,6 +4049,8 @@ def main() -> int:
     for k in kernels:
         for key, rec in pipeline_records.items():
             k[key] = rec[k["name"]]
+    train_launches.update(run(phase_mesh_trainer, card,
+                              trainer["history"]))
     train_launches.update(model_launches)
     train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
@@ -3684,7 +4059,10 @@ def main() -> int:
     # remat policy, BERT-base's five steps and its padded batch, the two
     # trainer fits (14 and 12 steps) and the predictor's forward, the
     # sharded steps: 15a's three checked ones, 15b's three per rank, and
-    # phase 16's pipelined and expert-parallel steps and passes
+    # phase 16's pipelined and expert-parallel steps and passes, the
+    # trainer's fits on a mesh (18a's six steps at NCCL world size 1,
+    # 18b's six a rank on four threaded ranks) and the slot engine's
+    # admissions on tp (19a-c)
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

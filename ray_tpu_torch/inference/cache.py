@@ -5,14 +5,14 @@ Port of ``ray_tpu/inference/cache.py``'s ``KVCacheManager``,
 ``BlockPool``, ``_TrieNode`` and ``RadixIndex``.
 
 ``KVCacheManager`` preallocates one ``[max_seq]`` stripe per sequence
-(``[n_layers, n_slots, n_heads, max_seq, head_dim]`` x2) and hands out
-whole slots.  ``BlockPool`` is preallocated and handed out in
-fixed-size token blocks (``[n_layers, n_blocks + 1, n_heads, block_size,
-head_dim]`` x2); a request's block table maps positions to blocks, and
-per-block refcounts let requests share blocks (prefix reuse) with
-copy-on-write before a shared block is written.  Block id 0 is a
-reserved scratch block: masked rows and out-of-range writes land there
-so no write needs a branch.
+(``[n_layers, n_slots, n_heads, max_seq, head_dim]`` x2, the two halves
+of one ``SlotShard``) and hands out whole slots.  ``BlockPool`` is
+preallocated and handed out in fixed-size token blocks (``[n_layers,
+n_blocks + 1, n_heads, block_size, head_dim]`` x2); a request's block
+table maps positions to blocks, and per-block refcounts let requests
+share blocks (prefix reuse) with copy-on-write before a shared block is
+written.  Block id 0 is a reserved scratch block: masked rows and
+out-of-range writes land there so no write needs a branch.
 
 Where the JAX package donated the pool buffers to a jitted update and
 swapped the results in, the port updates the pool tensors in place
@@ -22,10 +22,12 @@ one indexing op (``read_blocks``, ``write_blocks_at``).
 
 With a ``mesh`` (the tp ranks of an engine, ``inference.tp``) the pool
 is split over the heads dim (``decode.POOL_AXES``): every rank holds
-every block with its own heads, in a ``KVShard`` of its own.  Block ids,
-tables, refcounts, the radix index and copy-on-write stay here on the
-host and know nothing of shards; each tensor update runs on every rank,
-and ``read_blocks`` gives full-width host arrays whatever the layout.
+every block with its own heads, in a ``KVShard`` of its own; the slot
+cache is split the same way, every rank holding every slot's stripe of
+its heads in a ``SlotShard``.  Block ids, tables, refcounts, the radix
+index and copy-on-write stay here on the host and know nothing of
+shards; each tensor update runs on every rank, and ``read_blocks``
+gives full-width host arrays whatever the layout.
 
 ``RadixIndex`` is a trie over block-sized token chunks (plus partial
 tail leaves): a prompt whose head matches a cached prefix adopts those
@@ -52,10 +54,17 @@ class KVCacheManager:
 
     alloc/free and the tensor updates happen on the engine loop thread;
     ``stats()`` may be read from any thread (the lock guards the free
-    list)."""
+    list).
+
+    ``mesh``: the tp ranks that hold the cache split over heads, as
+    ``BlockPool(mesh=)`` splits its pool: each rank holds every slot's
+    stripe of its own heads, ``[L, n_slots, h/tp, S, hd]`` (a
+    ``SlotShard``), and the free list stays here.  ``k`` and ``v`` are
+    then None; ``bytes_total`` counts every rank's bytes."""
 
     def __init__(self, cfg: GPTConfig, n_slots: int,
-                 max_seq: Optional[int] = None, dtype=None, device=None):
+                 max_seq: Optional[int] = None, dtype=None, device=None,
+                 mesh=None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.cfg = cfg
@@ -67,13 +76,27 @@ class KVCacheManager:
                 f"cache max_seq {self.max_seq} exceeds model max_seq "
                 f"{cfg.max_seq} (wpe table bound)")
         self.dtype = dtype or cfg.dtype
-        shape = (cfg.n_layers, self.n_slots, cfg.n_heads, self.max_seq,
-                 cfg.head_dim)
-        self.k = torch.zeros(shape, dtype=self.dtype, device=self.device)
-        self.v = torch.zeros(shape, dtype=self.dtype, device=self.device)
+        self.mesh = mesh
+        if cfg.n_heads % self.heads_shards:
+            raise ValueError(
+                f"n_heads {cfg.n_heads} is not divisible by the heads "
+                f"(tp) shard count {self.heads_shards}")
+        self._shard = self.k = self.v = None
+        if mesh is None:
+            self._shard = SlotShard(cfg, self.n_slots, self.max_seq,
+                                    self.dtype, self.device)
+            self.k, self.v = self._shard.k, self._shard.v
+        else:
+            mesh.run("slots_zeros", self.n_slots, self.max_seq, self.dtype)
         self._lock = threading.Lock()
         self._free = list(range(self.n_slots - 1, -1, -1))  # pop() -> slot 0
         self._allocated: set[int] = set()
+
+    @property
+    def heads_shards(self) -> int:
+        """The shards the heads dim is split into: the tp degree, 1 on
+        one device."""
+        return 1 if self.mesh is None else self.mesh.heads_shards
 
     def alloc(self) -> Optional[int]:
         """Hand out a slot, or None when the pool is exhausted (the
@@ -103,25 +126,42 @@ class KVCacheManager:
         with self._lock:
             return len(self._allocated)
 
+    def _apply(self, method: str, *args):
+        """``SlotShard.<method>(*args)`` here, or on every rank's shard."""
+        if self.mesh is None:
+            return getattr(self._shard, method)(*args)
+        return self.mesh.run("pool", method, *args)
+
     def write_prefill(self, slot: int, k_new: torch.Tensor,
                       v_new: torch.Tensor) -> None:
         """Seed a slot from a prefill (``[L, h, s, hd]`` each), in place.
         A prefill shorter than the stripe is zero-padded on the right;
-        the kv-length masks hide the tail and decode overwrites it."""
-        pad = self.max_seq - k_new.shape[2]
-        for pool, new in ((self.k, k_new), (self.v, v_new)):
-            if pad > 0:
-                new = torch.nn.functional.pad(new, (0, 0, 0, pad))
-            pool[:, slot] = new.to(pool.dtype)
+        the kv-length masks hide the tail and decode overwrites it.  On a
+        mesh each rank writes its heads (the engine's meshed prefill
+        writes them on the ranks, never gathered)."""
+        self._apply("write_prefill", slot, k_new, v_new)
+
+    def read_slots(self, slots) -> tuple:
+        """Slots' stripes on the host, ``(k, v)`` of ``[L, T, h, S, hd]``
+        each (T = len(slots)), full width on a mesh too (the ranks' heads
+        gathered over tp).  A bf16 cache reads back as its exact f32
+        upcast."""
+        if self.mesh is None:
+            return host_kv(self._shard.read_blocks(slots))
+        return self.mesh.run("pool_read", list(slots))
 
     def reset_arrays(self) -> None:
-        """Zero the pool after a failed step left its content in doubt
-        (the caller fails every in-flight request)."""
-        self.k.zero_()
-        self.v.zero_()
+        """Zero the pool (every rank's shard on a mesh) after a failed
+        step left its content in doubt (the caller fails every in-flight
+        request)."""
+        self._apply("zero_")
 
     def bytes_total(self) -> int:
-        return 2 * self.k.numel() * self.k.element_size()
+        """The whole cache's bytes, over every rank on a mesh."""
+        cfg = self.cfg
+        n = 2 * cfg.n_layers * self.n_slots * cfg.n_heads * self.max_seq \
+            * cfg.head_dim
+        return n * torch.empty((), dtype=self.dtype).element_size()
 
     def stats(self) -> dict:
         with self._lock:
@@ -132,7 +172,46 @@ class KVCacheManager:
             "free_slots": self.n_slots - active,
             "max_seq": self.max_seq,
             "bytes_total": self.bytes_total(),
+            "bytes_per_device": self.bytes_total() // self.heads_shards,
+            "tp_shards": self.heads_shards,
         }
+
+
+class SlotShard:
+    """The slot cache's tensor on one device: ``[2, L, n_slots, h, S,
+    hd]`` (k and v its two halves, the step's ``[L, b, h, S, hd]``
+    caches), ``h`` all the heads or a tp rank's block of them (``heads``
+    = (first head, count)).  The tensor side of ``KVCacheManager``; every
+    update is in place."""
+
+    def __init__(self, cfg: GPTConfig, n_slots: int, max_seq: int, dtype,
+                 device, heads: Optional[tuple] = None):
+        self.h0, self.hl = heads if heads is not None else (0, cfg.n_heads)
+        self.max_seq = int(max_seq)
+        self.kv = torch.zeros(
+            (2, cfg.n_layers, int(n_slots), self.hl, self.max_seq,
+             cfg.head_dim), dtype=dtype, device=device)
+        self.k, self.v = self.kv.unbind(0)
+
+    def write_prefill(self, slot: int, k_new: torch.Tensor,
+                      v_new: torch.Tensor) -> None:
+        """``KVCacheManager.write_prefill`` on this shard (``k_new``/
+        ``v_new`` [L, h, s, hd] of its heads, or full width)."""
+        for pool, new in ((self.k, k_new), (self.v, v_new)):
+            if new.shape[1] != self.hl:
+                new = new[:, self.h0:self.h0 + self.hl]
+            pad = self.max_seq - new.shape[2]
+            if pad > 0:
+                new = torch.nn.functional.pad(new, (0, 0, 0, pad))
+            pool[:, int(slot)] = new.to(pool.dtype)
+
+    def read_blocks(self, slots) -> torch.Tensor:
+        """[2, L, T, h, S, hd] on the device: the stripes of ``slots``
+        (the layout of ``KVShard.read_blocks``, heads at dim 3)."""
+        return self.kv[:, :, _table(slots, self.kv.device)]
+
+    def zero_(self) -> None:
+        self.kv.zero_()
 
 
 class KVShard:

@@ -23,9 +23,9 @@ Port of ``ray_tpu/inference/decode.py``:
     burst writes the real pool at layers < draft_layers.
   * ``ngram_propose`` -- the host-side prompt-lookup drafter.
   * ``make_decode_step`` -- the slot engine's step over the
-    ``[L, n_slots, h, S, hd]`` stripes, masked per row by kv length.
-    Dense configs only: an MoE config raises ``MoEDecodeUnsupported``
-    when the step is built.
+    ``[L, n_slots, h, S, hd]`` stripes, masked per row by kv length (on
+    a tp rank its heads' stripes).  Dense configs only: an MoE config
+    raises ``MoEDecodeUnsupported`` when the step is built.
 
 Tensor parallelism (``tp``, a ``TPShard``; None on one device): every
 body runs on one tp rank's shards, Megatron style, as the JAX package's
@@ -215,7 +215,7 @@ def _gather_table(pool, tables):
     return g.permute(0, 2, 1, 3, 4).reshape(b, h, T * bs, hd)
 
 
-def make_decode_step(cfg: GPTConfig):
+def make_decode_step(cfg: GPTConfig, *, tp: Optional[TPShard] = None):
     """The slot engine's one-token step over the whole slot batch.
 
     (params, k_cache, v_cache [L, b, h, S, hd], tokens [b] long,
@@ -225,12 +225,13 @@ def make_decode_step(cfg: GPTConfig):
     Each active slot's current token K/V lands at ``positions[slot]``;
     parked slots are left bit-unchanged (their position's old value is
     written back).  Attention covers ``[0, positions[slot]]`` of the
-    slot's stripe (one key for parked slots: never NaN).  Raises
-    MoEDecodeUnsupported for an MoE config.  One device only: the slot
-    engine takes no mesh."""
+    slot's stripe (one key for parked slots: never NaN).  With ``tp``
+    the caches hold the rank's heads and the body runs on the rank's
+    shards (the module note), as the JAX step runs under GSPMD on a
+    mesh.  Raises MoEDecodeUnsupported for an MoE config."""
     if cfg.n_experts:
         raise MoEDecodeUnsupported(cfg)
-    h, hd = cfg.n_heads, cfg.head_dim
+    h, hd = _n_heads(cfg, tp), cfg.head_dim
 
     @torch.no_grad()
     def step(params, k_cache, v_cache, tokens, positions, active):
@@ -254,9 +255,9 @@ def make_decode_step(cfg: GPTConfig):
                 keep, v.reshape(b, h, hd).to(cv.dtype), cv[rows, :, pos, :])
             o = attention(q.reshape(b, 1, h, hd).transpose(1, 2), ck, cv,
                           causal=False, kv_lengths=kv_len, impl="reference")
-            o = o.transpose(1, 2).reshape(b, 1, cfg.d_model)
-            x = _finish_layer(x, o, lp, cfg)
-        return gpt._head(params, x, cfg)[:, 0, :]
+            o = o.transpose(1, 2).reshape(b, 1, h * hd)
+            x = _finish_layer(x, o, lp, cfg, tp)
+        return _head(params, x, cfg, tp)[:, 0, :]
 
     return step
 

@@ -50,12 +50,13 @@ locally computed prefix.  Extract and install touch the pool and the
 index, which belong to the loop thread, so they run there as queued ops
 between passes (``_run_op``).
 
-With a ``mesh`` (the paged engine only) the engine serves tensor
-parallel: its params and pool are split over the tp ranks of an
-executor (``inference/tp.py``), every step body, full-width prefill and
-pool update runs on each rank, and the loop thread samples from rank 0's
+With a ``mesh`` the engine serves tensor parallel: its params and pool
+(or the slot engine's cache) are split over the tp ranks of an executor
+(``inference/tp.py``), every step body, full-width prefill and cache
+update runs on each rank, and the loop thread samples from rank 0's
 gathered logits with the engine's one generator, so the ranks stay in
-lockstep.  The scheduler, tables, refcounts and prefix index stay here.
+lockstep.  The scheduler, tables, refcounts, prefix index and the slot
+free list stay here.
 A step failure on the ranks fails the in-flight requests and resets
 every rank's pool, and the engine serves on; ranks that died leave it
 stopped (failed closed).
@@ -86,7 +87,8 @@ from ray_tpu_torch.core import flight_recorder as _fr
 from ray_tpu_torch.inference import tp as _tp
 from ray_tpu_torch.inference.cache import (BlockPool, KVCacheManager,
                                            RadixIndex)
-from ray_tpu_torch.inference.decode import (SpeculationUnsupported,
+from ray_tpu_torch.inference.decode import (MoEDecodeUnsupported,
+                                            SpeculationUnsupported,
                                             make_chunk_prefill_fn,
                                             make_decode_step,
                                             make_paged_decode_step,
@@ -357,10 +359,17 @@ class InferenceEngine:
         else:
             self.pool = None
             self.trie = None
-            self.cache = KVCacheManager(cfg, n, max_seq=ec.max_seq,
-                                        device=self.device)
+            try:
+                self.cache = KVCacheManager(cfg, n, max_seq=ec.max_seq,
+                                            device=self.device,
+                                            mesh=self._ranks)
+            except BaseException:
+                if self._ranks is not None:
+                    self._ranks.close()
+                raise
             self.max_seq = self.cache.max_seq
-            self._step = make_decode_step(cfg)
+            self._step = (self._ranks.body("step") if self._ranks is not None
+                          else make_decode_step(cfg))
 
         self._slot_req: dict[int, GenerationRequest] = {}
         self._tokens = np.zeros(n, np.int64)      # current input token
@@ -407,16 +416,19 @@ class InferenceEngine:
         self._thread.start()
 
     def _open_ranks(self, mesh, rules: Rules) -> "_tp.EngineRanks":
-        """Open this engine on the tp ranks of ``mesh`` (the paged engine
-        only): every rank cuts its shards of the params and builds its
-        step bodies for the engine's geometry; the pool's tensors are
-        then the ranks' alone."""
+        """Open this engine on the tp ranks of ``mesh``: every rank cuts
+        its shards of the params and builds its step bodies for the
+        engine's geometry (the slot engine's: its slots and cache width);
+        the cache's tensors are then the ranks' alone."""
         ec, cfg = self.engine_cfg, self.cfg
+        if not self._paged and cfg.n_experts:   # before any rank starts
+            raise MoEDecodeUnsupported(cfg)
+        ex = _tp.executor_for(mesh, device=self.device)
         if not self._paged:
-            raise NotImplementedError(
-                "the slot engine (paged=False) on a mesh is not ported; "
-                "serve tensor parallel with the paged engine")
-        return _tp.executor_for(mesh, device=self.device).open(
+            return ex.open(self.name, cfg, self.params, rules, {
+                "slots": ec.max_slots,
+                "max_seq": int(ec.max_seq or cfg.max_seq)})
+        return ex.open(
             self.name, cfg, self.params, rules, {
                 "block_size": ec.kv_block_size,
                 "n_table": -(-int(ec.max_seq or cfg.max_seq)
@@ -513,14 +525,20 @@ class InferenceEngine:
                 while self._waiting and self.cache.n_free > 0:
                     req = self._waiting.pop(0)
                     admits.append((self.cache.alloc(), req))
-        for slot, req in admits:
+        for i, (slot, req) in enumerate(admits):
             # per-admit isolation: a failed prefill fails ONE request and
-            # returns its slot
+            # returns its slot, unless the tp ranks died under it: then
+            # the engine stops (fails closed)
             try:
                 self._admit(slot, req)
             except Exception as e:
                 self.cache.free(slot)
                 req._finish(e)
+                if self._ranks is not None and not self._ranks.alive:
+                    for s, r in admits[i + 1:]:
+                        self.cache.free(s)
+                        r._finish(e)
+                    return self._fail_all(e)
         try:
             if self._paged:
                 if self._prefilling:
@@ -572,12 +590,16 @@ class InferenceEngine:
         padded = torch.zeros((1, self.cache.max_seq), dtype=torch.long,
                              device=self.device)
         padded[0, :n] = torch.from_numpy(req.prompt)
-        logits, k_new, v_new = self._prefill(self.params, padded)
-        self.cache.write_prefill(slot, k_new[:, 0], v_new[:, 0])
+        if self._ranks is not None:
+            # every rank writes its heads of the K/V into the slot
+            last = self._ranks.run("prefill", slot, padded, n)
+        else:
+            logits, k_new, v_new = self._prefill(self.params, padded)
+            self.cache.write_prefill(slot, k_new[:, 0], v_new[:, 0])
+            last = logits[0, n - 1]
         with self._mlock:
             self._full_prefills += 1
-        tok = int(gpt.sample_token(logits[0, n - 1],
-                                   temperature=req.temperature,
+        tok = int(gpt.sample_token(last, temperature=req.temperature,
                                    generator=req.generator))
         req._emit(tok)
         if self._request_finished(req, tok):
@@ -606,6 +628,12 @@ class InferenceEngine:
         fi.on_infer(point, ctx)
         return ctx
 
+    @property
+    def _heads_shards(self) -> int:
+        """The shards the cache's heads dim is split into (tp on a mesh,
+        the paged pool's or the slot cache's alike)."""
+        return (self.pool if self._paged else self.cache).heads_shards
+
     def _fr_note(self, req: GenerationRequest) -> None:
         """Flight-recorder copy of a finished request (armed only): an
         ``engine_request`` event, one engine slice per request on the
@@ -622,7 +650,7 @@ class InferenceEngine:
             "spec_rejected": req.spec_drafted - req.spec_accepted,
             # the serving geometry: which mesh served the request
             **({"mesh_devices": self._ranks.executor.mesh_devices,
-                "tp_shards": self.pool.heads_shards}
+                "tp_shards": self._heads_shards}
                if self._ranks is not None else {}),
         })
 
@@ -1248,7 +1276,11 @@ class InferenceEngine:
         else:
             for slot in failed:
                 self.cache.free(slot)
-            self.cache.reset_arrays()
+            if alive:
+                try:
+                    self.cache.reset_arrays()
+                except _tp.TPRanksDead:
+                    alive = False
         for req in failed.values():
             req._finish(e)
         return alive
@@ -1477,8 +1509,7 @@ class InferenceEngine:
                                  if self._ranks is not None else 1),
                 "mesh_axes": (dict(self._ranks.executor.mesh_axes)
                               if self._ranks is not None else {}),
-                "tp_shards": (self.pool.heads_shards if self._paged
-                              else 1),
+                "tp_shards": self._heads_shards,
                 "peak_active_requests": self._peak_active,
             }
             if self._paged:
@@ -1495,6 +1526,7 @@ class InferenceEngine:
                 "active_slots": cache["active_slots"],
                 "free_slots": cache["free_slots"],
                 "cache_bytes": cache["bytes_total"],
+                "cache_bytes_per_device": cache["bytes_per_device"],
             })
             return out
         pool = self.pool.stats()

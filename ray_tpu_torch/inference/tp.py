@@ -37,6 +37,11 @@ raises while the others wait for it in a collective, stops every rank
 (threaded ranks are woken from their collectives): every call then
 raises ``TPRanksDead`` and the engine fails closed, never hung.
 
+The paged engine and the slot engine run here alike: the slot engine's
+ranks hold its slot cache split over heads (``cache.SlotShard``), write a
+prompt's K/V from the mesh prefill into a slot and run the dense step
+(``decode.make_decode_step(tp=)``).
+
 Only the tp axis is ported: a serving mesh on which another axis is
 larger than 1 raises ``NotImplementedError``.
 """
@@ -55,9 +60,10 @@ from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.inference.cache import KVShard, host_kv
+from ray_tpu_torch.inference.cache import KVShard, SlotShard, host_kv
 from ray_tpu_torch.inference.decode import (POOL_AXES, TPShard,
                                             make_chunk_prefill_fn,
+                                            make_decode_step,
                                             make_paged_decode_step,
                                             make_paged_draft_step,
                                             make_spec_verify_step)
@@ -104,8 +110,8 @@ def serving_axes(mesh) -> dict:
     if other:
         raise NotImplementedError(
             f"serving on a mesh with {other}: only the tp-sharded paged "
-            f"decode is ported (tensor-parallel serving); dp, sp, pp and "
-            f"ep serving meshes are not")
+            f"decode and slot decode are ported (tensor-parallel "
+            f"serving); dp, sp, pp and ep serving meshes are not")
     return {a: int(n) for a, n in axes.items()}
 
 
@@ -161,7 +167,8 @@ def local_params(params: dict, cfg: GPTConfig, mesh: DeviceMesh,
 class _EngineState:
     """One engine's state on one rank: its params (whole, placed as
     DTensors for the prefill, and the rank's shards for the bodies), its
-    pool shard and its step bodies."""
+    cache shard (``pool``: a ``KVShard`` of the paged pool, or a
+    ``SlotShard`` of the slot cache) and its step bodies."""
 
     def __init__(self, mesh: DeviceMesh, cfg: GPTConfig, params: dict,
                  rules: Rules, geometry: dict):
@@ -171,9 +178,13 @@ class _EngineState:
         self.params, self.tp = local_params(params, cfg, mesh, rules)
         L, h, hd = cfg.n_layers, cfg.n_heads, cfg.head_dim
         self.heads = _span(mesh, rules, POOL_AXES, (L, 1, h, 1, hd), 2)
-        self.pool: Optional[KVShard] = None
-        bs, T = geometry["block_size"], geometry["n_table"]
+        self.pool = None
         tp = self.tp
+        if geometry.get("slots"):
+            # the slot engine: one dense step over every slot's stripe
+            self.bodies = {"step": make_decode_step(cfg, tp=tp)}
+            return
+        bs, T = geometry["block_size"], geometry["n_table"]
         self.bodies = {
             "step": make_paged_decode_step(cfg, block_size=bs, n_table=T,
                                            tp=tp),
@@ -214,13 +225,20 @@ def _op_pool_zeros(ctx: RankContext, name, n_blocks, block_size, dtype):
                       heads=st.heads)
 
 
+def _op_slots_zeros(ctx: RankContext, name, n_slots, max_seq, dtype):
+    st = ctx.engines[name]
+    st.pool = SlotShard(st.cfg, n_slots, max_seq, dtype, ctx.device,
+                        heads=st.heads)
+
+
 def _op_pool(ctx: RankContext, name, method, *args):
     return getattr(ctx.engines[name].pool, method)(*args)
 
 
 def _op_pool_read(ctx: RankContext, name, ids):
-    """Full-width host K/V of blocks ``ids`` (rank 0 returns them): each
-    rank gathers its heads, then the heads are gathered over tp."""
+    """Full-width host K/V of blocks ``ids`` (of slots ``ids`` for a slot
+    cache; rank 0 returns them): each rank gathers its heads, then the
+    heads are gathered over tp."""
     st = ctx.engines[name]
     kv = st.pool.read_blocks(ids)                  # [2, L, T, hl, bs, hd]
     if st.tp.split_heads:
@@ -232,8 +250,9 @@ def _op_pool_read(ctx: RankContext, name, ids):
 def _op_prefill(ctx: RankContext, name, table, tokens, n: int):
     """The full-width prefill on the mesh (``gpt.forward(mesh=,
     return_kv=True)``): every rank writes its heads of the K/V through
-    the table into its pool shard (never gathered); returns the
-    last-position logits [V], gathered over tp."""
+    the table into its pool shard (into slot ``table`` of a slot cache),
+    never gathered; returns the last-position logits [V], gathered over
+    tp."""
     st = ctx.engines[name]
     tok = DTensor.from_local(tokens, ctx.mesh, (Replicate(),) * ctx.mesh.ndim,
                              run_check=False)
@@ -256,8 +275,9 @@ def _op_call(ctx: RankContext, fn, *args):
 
 
 _OPS = {"open": _op_open, "close": _op_close, "pool_zeros": _op_pool_zeros,
-        "pool": _op_pool, "pool_read": _op_pool_read,
-        "prefill": _op_prefill, "body": _op_body, "call": _op_call}
+        "slots_zeros": _op_slots_zeros, "pool": _op_pool,
+        "pool_read": _op_pool_read, "prefill": _op_prefill, "body": _op_body,
+        "call": _op_call}
 
 
 # -- the executor ------------------------------------------------------------
@@ -438,9 +458,10 @@ class TPExecutor:
     def open(self, name: str, cfg: GPTConfig, params: dict, rules: Rules,
              geometry: dict) -> "EngineRanks":
         """Open engine ``name`` on every rank: its params (whole tensors,
-        each rank cutting its shards) and step bodies for ``geometry``
-        (``block_size``, ``n_table``, ``chunk``, and for speculation
-        ``width`` and ``draft_layers``)."""
+        each rank cutting its shards) and step bodies for ``geometry``:
+        the paged engine's (``block_size``, ``n_table``, ``chunk``, and
+        for speculation ``width`` and ``draft_layers``), or the slot
+        engine's (``slots`` and the cache width ``max_seq``)."""
         with self._cond:
             if self._closed:
                 raise TPRanksDead("the tp executor is shut down")

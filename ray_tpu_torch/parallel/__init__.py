@@ -3,10 +3,12 @@ rules (DTensor placements), the in-mesh collectives and ``shard_call``
 (``local_map``, the counterpart of ``shard_map``), threaded ranks for
 running a mesh in one process, and the pipeline schedules over pp
 (``parallel.pipeline``: GPipe; ``parallel.pipeline_1f1b``: 1F1B).  Ring
-attention is ``ops.ring_attention``.  Gangs (``TpuGang``, ``form_gang``)
-are not ported yet."""
+attention is ``ops.ring_attention``.  The single-host gang
+(``TpuGang``, ``form_gang``) is ``parallel.gang``; the multi-host gang is
+not ported yet."""
 
 from ray_tpu_torch.parallel import collectives
+from ray_tpu_torch.parallel.gang import GangConfig, TpuGang, form_gang
 from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, MeshSpec, batch_sharding,
                                          create_hybrid_mesh, create_mesh,
                                          data_axes, mesh_shape, replicated)
@@ -21,5 +23,6 @@ __all__ = [
     "mesh_shape", "data_axes", "batch_sharding", "replicated",
     "DEFAULT_LLM_RULES", "spec_for", "placements_for", "sharding_for",
     "tree_shardings", "infer_param_logical_axes", "place", "constrain",
-    "collectives", "RankError", "run_ranks",
+    "collectives", "RankError", "run_ranks", "GangConfig", "TpuGang",
+    "form_gang",
 ]

@@ -27,7 +27,7 @@ import pickle
 import shutil
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -199,12 +199,23 @@ class AsyncCheckpointer:
 
 class CheckpointManager:
     """Keeps the last ``num_to_keep`` checkpoints under ``root``, each
-    written in the background by an ``AsyncCheckpointer``."""
+    written in the background by an ``AsyncCheckpointer``.
 
-    def __init__(self, root: str, num_to_keep: Optional[int] = None):
+    On a mesh every rank keeps a manager over the same ``root`` and only
+    one writes (``writer=True`` on rank 0): the others name each save as
+    the writer does and keep the same list, writing nothing.  ``barrier``
+    (the world's, on a mesh) runs on every rank after each ``save`` and
+    ``flush``: after a ``flush`` the writer's last save is on disk, so
+    every rank's ``latest()`` then names the same directory."""
+
+    def __init__(self, root: str, num_to_keep: Optional[int] = None, *,
+                 writer: bool = True,
+                 barrier: Optional[Callable[[], None]] = None):
         self.root = root
         os.makedirs(root, exist_ok=True)
         self.num_to_keep = num_to_keep
+        self.writer = writer
+        self._barrier = barrier
         self._seq = 0
         self._kept: list[str] = list(self._existing())
         self._async = AsyncCheckpointer()
@@ -216,16 +227,23 @@ class CheckpointManager:
             self._seq = int(out[-1].split("_")[1]) + 1
         return (os.path.join(self.root, d) for d in out)
 
+    def _sync(self):
+        if self._barrier is not None:
+            self._barrier()
+
     def save(self, data: dict) -> str:
         path = os.path.join(self.root, f"checkpoint_{self._seq:06d}")
         self._seq += 1
-        self._async.save(data, path)
+        if self.writer:
+            self._async.save(data, path)
         self._kept.append(path)
         while (self.num_to_keep is not None
                and len(self._kept) > self.num_to_keep):
             victim = self._kept.pop(0)
-            self._async.wait()
-            shutil.rmtree(victim, ignore_errors=True)
+            if self.writer:
+                self._async.wait()
+                shutil.rmtree(victim, ignore_errors=True)
+        self._sync()
         return path
 
     def latest(self) -> Optional[Checkpoint]:
@@ -244,5 +262,9 @@ class CheckpointManager:
                 return Checkpoint(path)
         return None
 
-    def flush(self):
+    def flush(self, sync: bool = True):
+        """Wait for the writes in flight, then (``sync``) at the
+        barrier."""
         self._async.wait()
+        if sync:
+            self._sync()

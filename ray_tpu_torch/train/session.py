@@ -2,8 +2,11 @@
 
 A minimal thread-local copy of ``ray_tpu/train/session.py``'s single-host
 session, used by ``Trainer.fit`` when the port runs alone (as on the
-card).  A host that runs the port's ``Trainer.train_loop`` under its own
-trainer passes its session's ``report`` and ``get_checkpoint`` instead.
+card).  On a mesh each rank runs its own session (the state is per
+thread, so threaded ranks each have theirs) and knows its place in the
+world (``get_world_rank``, ``get_world_size``).  A host that runs the
+port's ``Trainer.train_loop`` under its own trainer passes its
+session's ``report`` and ``get_checkpoint`` instead.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ class _SessionState:
     results: list = field(default_factory=list)
     latest_checkpoint: Optional[Checkpoint] = None
     checkpoint_cb: Optional[Callable[[dict], Any]] = None
+    world_rank: int = 0
+    world_size: int = 1
 
 
 _local = threading.local()
@@ -34,9 +39,11 @@ def _state() -> _SessionState:
     return st
 
 
-def _start(checkpoint_cb=None, latest_checkpoint=None) -> _SessionState:
+def _start(checkpoint_cb=None, latest_checkpoint=None, world_rank: int = 0,
+           world_size: int = 1) -> _SessionState:
     st = _SessionState(checkpoint_cb=checkpoint_cb,
-                       latest_checkpoint=latest_checkpoint)
+                       latest_checkpoint=latest_checkpoint,
+                       world_rank=world_rank, world_size=world_size)
     _local.session = st
     return st
 
@@ -58,3 +65,13 @@ def report(metrics: dict, *, checkpoint: Optional[dict] = None) -> None:
 def get_checkpoint() -> Optional[Checkpoint]:
     """The checkpoint this attempt resumes from, if any."""
     return _state().latest_checkpoint
+
+
+def get_world_rank() -> int:
+    """This rank's index in the trainer's world (0 on one device)."""
+    return _state().world_rank
+
+
+def get_world_size() -> int:
+    """The number of ranks the trainer runs on (1 on one device)."""
+    return _state().world_size

@@ -9,7 +9,9 @@ square root); ``adam`` is ``optax.adam`` the same way.
 
 ``state_to_host`` and ``load_state`` are the checkpoint's half of the
 state: the params, Adam's moments (``{"count", "mu", "nu"}`` over the
-params' tree, ``models.convert``'s layout) and the step, as numpy.
+params' tree, ``models.convert``'s layout) and the step, as numpy; on a
+mesh the payload holds the whole leaves and each rank restores its own
+blocks, so a checkpoint moves between one device and any mesh.
 ``device_batch`` puts a host batch on the device.
 
 The mesh arm (``mesh=``, a ``DeviceMesh``): the params are DTensors
@@ -45,7 +47,7 @@ from ray_tpu_torch.parallel.mesh import batch_sharding, replicated
 from ray_tpu_torch.parallel.sharding import (DEFAULT_LLM_RULES, Rules,
                                              constrain, local_shard, place,
                                              tree_shardings)
-from ray_tpu_torch.train.checkpoint import host_tensor, to_host
+from ray_tpu_torch.train.checkpoint import _walk, host_tensor, to_host
 
 
 @dataclass
@@ -70,12 +72,6 @@ def adam(lr: float, *, b1: float = 0.9, b2: float = 0.999,
     """``optax.adam`` with its defaults, as ``adamw`` is ``optax.adamw``."""
     return functools.partial(torch.optim.Adam, lr=lr, betas=(b1, b2),
                              eps=eps)
-
-
-def _no_mesh(mesh, what: str, missing: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh is not ported yet: {missing}")
 
 
 def shard_batch(batch: dict, mesh) -> dict:
@@ -171,46 +167,94 @@ def _global_norm(grads: list) -> torch.Tensor:
     return torch.sqrt(torch.stack(total).sum())
 
 
+def _local(p):
+    """The tensor the optimizer steps for params leaf ``p``: its local
+    shard on a mesh (the DTensor's own storage), ``p`` itself else."""
+    if isinstance(p, DTensor):
+        with torch.no_grad():
+            return p.to_local()
+    return p
+
+
+def _like(p, local: torch.Tensor):
+    """``local`` (a moment of ``p``'s shard) as ``p`` is placed."""
+    if not isinstance(p, DTensor):
+        return local
+    return DTensor.from_local(local, p.device_mesh, p.placements,
+                              run_check=False, shape=p.shape,
+                              stride=p.stride())
+
+
 def adam_state(opt: torch.optim.Optimizer, params) -> dict:
     """An Adam/AdamW optimizer's state over ``params`` as
     ``{"count", "mu", "nu"}``, each moment a tree like ``params`` (live
-    tensors: ``to_host`` copies them).  Before the first step the moments
-    are zeros and the count 0."""
+    tensors: ``to_host`` copies them; DTensors placed as their params on
+    a mesh, whose optimizer steps the local shards).  Before the first
+    step the moments are zeros and the count 0."""
     def moment(key):
-        return _map(lambda p: opt.state[p][key] if p in opt.state
-                    else torch.zeros_like(p), params)
-    first = opt.state.get(_leaves(params)[0], {})
+        def one(p):
+            t = _local(p)
+            return _like(p, opt.state[t][key] if t in opt.state
+                         else torch.zeros_like(t))
+        return _map(one, params)
+    first = opt.state.get(_local(_leaves(params)[0]), {})
     return {"count": int(first["step"]) if "step" in first else 0,
             "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
 
 
+def _host_block(p, a) -> torch.Tensor:
+    """Payload leaf ``a`` (the whole value) as a CPU tensor: on a mesh
+    this rank's block of it, as ``p`` is placed (no collective)."""
+    t = host_tensor(a)
+    if isinstance(p, DTensor):
+        t = local_shard(t, p.device_mesh, p.placements).to_local()
+    return t
+
+
 def load_adam_state(opt: torch.optim.Optimizer, params, payload: dict):
     """Fill ``opt``'s state from ``{"count", "mu", "nu"}`` (numpy or
-    tensors, keyed like ``params``) through ``load_state_dict``, which
-    binds it to the optimizer's own leaves: they must be ``params``'
-    leaves, in their order.  ``step`` stays a CPU tensor unless the
-    optimizer is capturable or fused (torch moves it then)."""
+    tensors, keyed like ``params``; the whole moments, of which each rank
+    of a mesh takes its block) through ``load_state_dict``, which binds
+    it to the optimizer's own leaves: they must be ``params``' leaves (on
+    a mesh their local shards), in their order.  ``step`` stays a CPU
+    tensor unless the optimizer is capturable or fused (torch moves it
+    then)."""
     leaves = _leaves(params)
     bound = [p for g in opt.param_groups for p in g["params"]]
     if len(bound) != len(leaves) or any(
-            a is not b for a, b in zip(bound, leaves)):
+            a is not _local(b) for a, b in zip(bound, leaves)):
         raise ValueError("the optimizer is not bound to these params")
     mu, nu = (_leaves(_pick(params, payload[k])) for k in ("mu", "nu"))
     step = torch.tensor(float(payload["count"]), dtype=torch.float32)
     sd = opt.state_dict()
-    sd["state"] = {i: {"step": step.clone(), "exp_avg": host_tensor(m),
-                       "exp_avg_sq": host_tensor(v)}
-                   for i, (m, v) in enumerate(zip(mu, nu))}
+    sd["state"] = {i: {"step": step.clone(),
+                       "exp_avg": _host_block(p, m),
+                       "exp_avg_sq": _host_block(p, v)}
+                   for i, (p, m, v) in enumerate(zip(leaves, mu, nu))}
     opt.load_state_dict(sd)
+
+
+def _gathered(tree):
+    """``tree`` with every DTensor leaf gathered whole (``full_tensor``,
+    a collective: every rank calls this with the same tree, so the
+    leaves are gathered in one order everywhere)."""
+    return _walk(lambda x: x.full_tensor() if isinstance(x, DTensor)
+                 else x, tree)
 
 
 def state_to_host(state: "TrainState") -> dict:
     """The checkpoint payload of ``state``: ``{"params", "opt_state",
     "step"}`` as numpy, copied off the device before this returns (one
-    pinned buffer, see ``checkpoint.to_host``)."""
-    return to_host({"params": state.params,
-                    "opt_state": adam_state(state.opt_state, state.params),
-                    "step": int(state.step)})
+    pinned buffer, see ``checkpoint.to_host``).  On a mesh every params
+    leaf and both Adam moments are gathered whole first (every rank must
+    call this, in step), so the payload is the full tree, as the JAX
+    package's checkpoint of a sharded state is."""
+    tree = {"params": state.params,
+            "opt_state": adam_state(state.opt_state, state.params)}
+    with torch.no_grad():
+        host = to_host(_gathered(tree))
+    host["step"] = int(state.step)
+    return host
 
 
 @torch.no_grad()
@@ -218,13 +262,16 @@ def load_state(state: "TrainState", payload: dict) -> None:
     """Restore ``state`` in place from a payload of ``state_to_host`` (or
     of the JAX trainer once its ``opt_state`` went through
     ``optax_adam_to_torch``): every params leaf is overwritten with
-    ``copy_`` and the optimizer's moments and count are loaded into its
-    own state.  The leaves stay the tensors the optimizer steps; binding
-    ``state.params`` to new tensors would leave it stepping the old
-    ones.  A payload without ``opt_state`` keeps the optimizer's."""
+    ``copy_`` (on a mesh each rank copies its own block of the whole
+    host leaf into its shard, as the JAX trainer's ``put_like`` places a
+    host leaf on a live leaf's sharding) and the optimizer's moments and
+    count are loaded into its own state.  The leaves stay the tensors the
+    optimizer steps; binding ``state.params`` to new tensors would leave
+    it stepping the old ones.  A payload without ``opt_state`` keeps the
+    optimizer's."""
     src = _leaves(_pick(state.params, payload["params"]))
     for p, a in zip(_leaves(state.params), src):
-        p.copy_(host_tensor(a))
+        _local(p).copy_(_host_block(p, a))
     if "opt_state" in payload:
         load_adam_state(state.opt_state, state.params, payload["opt_state"])
     state.step.fill_(int(payload.get("step", 0)))

@@ -15,10 +15,33 @@ last step.  ``Trainer.fit()`` runs that body under the port's own session
 and ``CheckpointManager`` and restarts a failed attempt from the latest
 checkpoint, up to ``max_failures`` times.  A host runs the same body under
 its own trainer by passing its session's two functions.
+
+On a mesh (``mesh=``: a ``DeviceMesh``, or axes such as ``{"dp": 2, "tp":
+2}`` that ``parallel.form_gang`` lays over the world) ``fit()`` is called
+on every rank, SPMD, as torchrun would call it.  The loss function gets
+the mesh and the rules bound when it takes them (as ``JaxTrainer`` binds
+them), the step is ``make_train_step(mesh=, params_logical=, rules=)``,
+each rank feeds its rows of every global batch (``device_batches(mesh=)``)
+and ``tokens_done`` counts the global batch.  A checkpoint holds the whole
+state (``state_to_host`` gathers it on every rank); only rank 0's manager
+writes, and every rank waits for it (``CheckpointManager(writer=,
+barrier=)``), so every rank restores the same checkpoint, each its own
+blocks.  Every rank reports the same metrics.
+
+Failures on a mesh of more than one rank: the ranks agree after every
+host batch (an all-reduce of who failed to get it), so an error of the
+host iterator at step k, on any rank, is raised on every rank at step k
+(``HostDataError``) and every rank restarts from the same checkpoint.
+Any other error of a rank is not retried: that rank's ``fit`` raises and
+the run ends (the others, waiting in a collective it will never join,
+are the launcher's to stop; a failure of one rank alone is the
+multi-host gang's business, not ported).
 """
 
 from __future__ import annotations
 
+import functools
+import inspect
 import logging
 import os
 import time
@@ -27,20 +50,29 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data.feed import device_batches
 from ray_tpu_torch.models.convert import _map
+from ray_tpu_torch.parallel.gang import form_gang
+from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, Rules
 from ray_tpu_torch.train import session as _session
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
-from ray_tpu_torch.train.step import (_no_mesh, load_state,
-                                      make_train_step, state_to_host)
+from ray_tpu_torch.train.step import (load_state, make_train_step,
+                                      state_to_host)
 
 logger = logging.getLogger("ray_tpu_torch.train")
 
 
 class TrainingFailedError(RuntimeError):
     pass
+
+
+class HostDataError(RuntimeError):
+    """The host iterator of some rank of a mesh failed to give its batch
+    at a step: raised on every rank at that step, so all restart alike."""
 
 
 @dataclass
@@ -58,7 +90,12 @@ class Trainer:
     ``adamw(3e-4)``; train_data: an iterable of host batches (dicts of
     numpy columns), iterated afresh by each attempt; eval_fn(params) ->
     a number.  ``storage_path`` is the run directory (checkpoints go to
-    its ``checkpoints/``).  ``device=None`` is the CUDA card."""
+    its ``checkpoints/``).  ``device=None`` is the CUDA card.
+
+    ``mesh``: a ``DeviceMesh`` or the axes of one (formed here over the
+    world, on ``device``); ``params_logical`` places the params on it
+    (every leaf replicated without it) by ``rules``; the module note
+    says how the loop runs there."""
 
     def __init__(self, *, loss_fn: Callable,
                  init_params: Callable[[int], Any],
@@ -75,10 +112,24 @@ class Trainer:
                  max_failures: int = 0,
                  resume_from_checkpoint: Optional[Checkpoint] = None,
                  mesh=None,
+                 params_logical: Any = None,
+                 rules: Optional[Rules] = None,
                  device=None):
-        _no_mesh(mesh, "Trainer", "the sharded train state's checkpoints "
-                 "and the loop over a mesh come with a later slice")
-        self.device = resolve_device(device)
+        if mesh is None and (params_logical is not None
+                             or rules is not None):
+            raise ValueError("params_logical and rules place the params on "
+                             "a mesh; give the mesh too")
+        if isinstance(mesh, dict):
+            mesh = form_gang(mesh, device=device).mesh
+        self.mesh = mesh
+        self.params_logical = params_logical
+        self.rules = rules if rules is not None else DEFAULT_LLM_RULES
+        if mesh is None:
+            self.device = resolve_device(device)
+        elif mesh.device_type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        else:
+            self.device = torch.device(mesh.device_type)
         self.loss_fn, self.init_params = loss_fn, init_params
         self.optimizer, self.train_data = optimizer, train_data
         self.num_steps, self.seed = num_steps, seed
@@ -97,7 +148,10 @@ class Trainer:
         """One attempt: ``report(metrics, checkpoint=payload or None)``
         and ``get_checkpoint() -> an object with to_dict() or None`` are
         the session's."""
-        init_fn, step_fn = make_train_step(self.loss_fn, self.optimizer)
+        mesh = self.mesh
+        init_fn, step_fn = make_train_step(
+            self._bound_loss(), self.optimizer, mesh=mesh,
+            params_logical=self.params_logical, rules=self.rules)
         params = _map(lambda t: t.to(self.device),
                       self.init_params(self.seed))
         state = init_fn(params)
@@ -117,13 +171,13 @@ class Trainer:
         # consume the leading batches again
         for _ in range(start):
             next(data_iter)
-        feed = device_batches(data_iter, self.device)
+        feed = device_batches(data_iter, self.device, mesh=mesh)
         self.feed_wait_s = []
         t0 = time.perf_counter()
         tokens_done = 0
         for i in range(start, self.num_steps):
             t = time.perf_counter()
-            batch = next(feed)
+            batch = self._next_batch(feed, i + 1)
             self.feed_wait_s.append(time.perf_counter() - t)
             state, metrics = step_fn(state, batch)
             leaf = next(iter(batch.values()))
@@ -138,7 +192,10 @@ class Trainer:
                 if (self.eval_fn is not None and self.eval_every
                         and (i + 1) % self.eval_every == 0):
                     with torch.no_grad():
-                        m["eval"] = float(self.eval_fn(state.params))
+                        ev = self.eval_fn(state.params)
+                        if isinstance(ev, DTensor):
+                            ev = ev.full_tensor()
+                        m["eval"] = float(ev)
                 ckpt = None
                 if (self.checkpoint_every
                         and (i + 1) % self.checkpoint_every == 0) or is_last:
@@ -146,17 +203,79 @@ class Trainer:
                 report(m, checkpoint=ckpt)
         self.final_state = state
 
+    def _bound_loss(self) -> Callable:
+        """The loss with the mesh and the rules bound, when it takes them
+        (``JaxTrainer._train_loop``'s binding)."""
+        if self.mesh is None:
+            return self.loss_fn
+        try:
+            takes = "mesh" in inspect.signature(self.loss_fn).parameters
+        except (ValueError, TypeError):
+            takes = False
+        if not takes:
+            return self.loss_fn
+        return functools.partial(self.loss_fn, mesh=self.mesh,
+                                 rules=self.rules)
+
+    def _world(self) -> tuple:
+        """(this rank, the world's size): (0, 1) off a mesh."""
+        if self.mesh is None:
+            return 0, 1
+        return dist.get_rank(), dist.get_world_size()
+
+    def _next_batch(self, feed, step: int):
+        """The feed's next batch.  On a mesh of more than one rank every
+        rank then learns which ranks failed to get theirs (one all-reduce
+        of a flag a rank): a host error anywhere is raised on every rank
+        as ``HostDataError`` (from the rank's own error where it has
+        one), and a feed that ran out ends the run on every rank.  The
+        flags are read back, a host sync a step on a world of more than
+        one rank (the previous step's work must finish first)."""
+        rank, world = self._world()
+        try:
+            batch, err, done = next(feed), None, False
+        except StopIteration:
+            batch, err, done = None, None, True
+        except Exception as e:        # noqa: BLE001 (agreed on below)
+            batch, err, done = None, e, False
+        if world == 1:
+            if err is not None:
+                raise err
+            if done:
+                raise StopIteration
+            return batch
+        flags = torch.zeros(2 * world, dtype=torch.int64,
+                            device=self.device)
+        if err is not None:
+            flags[rank] = 1
+        if done:
+            flags[world + rank] = 1
+        dist.all_reduce(flags)
+        flags = flags.tolist()
+        failed = [r for r in range(world) if flags[r]]
+        if failed:
+            raise HostDataError(
+                f"the host data failed at step {step} on rank(s) {failed}"
+                + (f": {err!r}" if err is not None else "")) from err
+        if any(flags[world:]):
+            raise StopIteration
+        return batch
+
     def fit(self) -> Result:
         run_dir = self.storage_path
+        rank, world = self._world()
         os.makedirs(run_dir, exist_ok=True)
-        manager = CheckpointManager(os.path.join(run_dir, "checkpoints"),
-                                    num_to_keep=self.num_to_keep)
+        manager = CheckpointManager(
+            os.path.join(run_dir, "checkpoints"),
+            num_to_keep=self.num_to_keep, writer=rank == 0,
+            barrier=dist.barrier if world > 1 else None)
         restore = self.resume_from_checkpoint or manager.latest()
         attempt, error = 0, None
         results: list = []
         while True:
             st = _session._start(checkpoint_cb=manager.save,
-                                 latest_checkpoint=restore)
+                                 latest_checkpoint=restore,
+                                 world_rank=rank, world_size=world)
             try:
                 self.train_loop(_session.report, _session.get_checkpoint)
                 error = None
@@ -168,7 +287,9 @@ class Trainer:
                 error = e
                 attempt += 1
                 logger.warning("training attempt %d failed: %s", attempt, e)
-                if attempt > self.max_failures:
+                # on a mesh only a failure every rank agreed on restarts
+                if attempt > self.max_failures or (
+                        world > 1 and not isinstance(e, HostDataError)):
                     break
                 manager.flush()
                 restore = manager.latest()
@@ -176,10 +297,16 @@ class Trainer:
                 results.extend(st.results)
                 _session._end()
 
-        manager.flush()
-        res = Result(metrics=results[-1] if results else {},
-                     checkpoint=manager.latest(), error=error, path=run_dir,
-                     metrics_history=results)
+        if error is not None and world > 1 and not isinstance(
+                error, HostDataError):
+            # this rank failed alone: the others wait in a collective it
+            # will never join, so it waits at no barrier either
+            manager.flush(sync=False)
+        else:
+            manager.flush()
+            res = Result(metrics=results[-1] if results else {},
+                         checkpoint=manager.latest(), error=error,
+                         path=run_dir, metrics_history=results)
         if error is not None:
             raise TrainingFailedError(
                 f"training failed after {attempt} attempt(s): {error}\n"

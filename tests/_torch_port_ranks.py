@@ -22,6 +22,10 @@ TIMEOUT = 60.0
 # the meshes the sharded tests run on, as (dcn, ICI axes): dcn None is a
 # plain mesh, otherwise a hybrid one with dcn outermost
 MESHES = {
+    "dp2": (None, {"dp": 2}),
+    "dp2_tp2": (None, {"dp": 2, "tp": 2}),
+    "dp2_fsdp2": (None, {"dp": 2, "fsdp": 2}),
+    "dp2_sp2": (None, {"dp": 2, "sp": 2}),
     "dp2_tp4": (None, {"dp": 2, "tp": 4}),
     "dp2_sp4": (None, {"dp": 2, "sp": 4}),
     "dp2_sp2_tp2": (None, {"dp": 2, "sp": 2, "tp": 2}),

@@ -379,26 +379,40 @@ def test_flash_runs_per_rank_at_the_local_shape(monkeypatch):
 def test_unported_mesh_arms_raise():
     """The pipelines and expert parallelism are ported (tests/
     test_torch_port_pipeline*.py, test_torch_port_moe_*.py), and so are
-    the prefill on a tp mesh and the tp-sharded paged decode (tests/
-    test_torch_port_tp_*.py); Trainer on a mesh, and the prefill and
-    serving on a mesh split over another axis (dp here) still raise."""
+    the prefill on a tp mesh, the tp-sharded paged and slot decode
+    (tests/test_torch_port_tp_*.py) and the Trainer on a mesh (tests/
+    test_torch_port_mesh_*.py): the Trainer takes a mesh.  The prefill
+    and serving on a mesh split over another axis (dp here), rules
+    without a mesh and a gang of more than one host still raise."""
     from ray_tpu_torch.inference.serving import GPTServer
+    from ray_tpu_torch.parallel import form_gang
     from ray_tpu_torch.train import Trainer
 
     dp = SimpleNamespace(mesh_dim_names=("dp",), shape=(2,))
     toks = torch.zeros((2, 8), dtype=torch.long)
     cases = [
-        ("tp-sharded decode", lambda: tgpt.forward(
+        (NotImplementedError, "tp-sharded decode", lambda: tgpt.forward(
             {}, toks, tgpt.GPTConfig.tiny(), mesh=dp, return_kv=True)),
-        ("mesh", lambda: Trainer(loss_fn=None, init_params=None,
-                                 optimizer=None, train_data=[], num_steps=1,
-                                 mesh=dp, device="cpu")),
-        ("tp-sharded paged decode", lambda: GPTServer(mesh=dp,
-                                                      device="cpu")),
+        (NotImplementedError, "tp-sharded paged decode",
+         lambda: GPTServer(mesh=dp, device="cpu")),
+        (ValueError, "give the mesh", lambda: Trainer(
+            loss_fn=None, init_params=None, optimizer=None, train_data=[],
+            num_steps=1, rules=DEFAULT_LLM_RULES, device="cpu")),
+        (NotImplementedError, "2 hosts",
+         lambda: form_gang({"dp": -1}, num_hosts=2, device="cpu")),
     ]
-    for match, call in cases:
-        with pytest.raises(NotImplementedError, match=match):
+    for exc, match, call in cases:
+        with pytest.raises(exc, match=match):
             call()
+
+    def rank(r):
+        tr = Trainer(loss_fn=None, init_params=None, optimizer=None,
+                     train_data=[], num_steps=1, mesh=create_mesh(
+                         {"dp": 2}, device="cpu"), device="cpu")
+        return dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape)), \
+            tr.device.type
+
+    assert ranks(rank, 2) == [({"dp": 2}, "cpu")] * 2
 
 
 # -- the rank helper -------------------------------------------------------------

@@ -290,8 +290,9 @@ def test_gpt_server_mesh_variants_share_one_executor_hosted():
 
 def test_serving_meshes_other_than_tp_are_not_ported(model):
     """A serving mesh on which an axis other than tp is larger than 1
-    raises ``NotImplementedError`` naming it, before any rank starts; the
-    slot engine refuses a mesh; a second executor for another mesh in
+    raises ``NotImplementedError`` naming it, before any rank starts, for
+    the slot engine too (which serves on a tp mesh now: tests/
+    test_torch_port_tp_slot.py); a second executor for another mesh in
     one process raises instead of hanging."""
     _, params = model
     for axes in ({"dp": 2}, {"sp": 2}, {"tp": 2, "pp": 2}, {"ep": 2}):
@@ -299,9 +300,9 @@ def test_serving_meshes_other_than_tp_are_not_ported(model):
                 a for a in axes if a != "tp")):
             GPTServer(TCFG, EngineConfig(**PAGED), params=params,
                       device="cpu", mesh=axes)
-    with pytest.raises(NotImplementedError, match="slot engine"):
+    with pytest.raises(NotImplementedError, match="dp"):
         InferenceEngine(params, TCFG, EngineConfig(paged=False),
-                        device="cpu", mesh={"tp": 2})
+                        device="cpu", mesh={"tp": 2, "dp": 2})
     eng = _port(params)
     try:
         with pytest.raises(RuntimeError, match="one at a time"):

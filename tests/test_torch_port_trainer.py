@@ -348,22 +348,29 @@ def test_entry_points_need_a_card_unless_told(setup, monkeypatch):
 
 
 def test_trainer_and_device_batch_refuse_a_mesh(setup):
-    """The Trainer refuses a mesh; device_batch takes one now and shards
-    the batch over it (a one-rank dp mesh here; the sharded feed is held
-    to the JAX package in tests/test_torch_port_parallel.py)."""
+    """The Trainer takes a mesh now (the mesh axes, formed over the world
+    by ``form_gang``, here a one-rank dp mesh) and device_batch shards a
+    batch over one; the Trainer refuses rules without a mesh and a gang
+    of more than one host.  The Trainer on a mesh is held to JaxTrainer
+    in tests/test_torch_port_mesh_*.py, the sharded feed to the JAX
+    package in tests/test_torch_port_parallel.py."""
     from torch.distributed.tensor import DTensor
 
     from ray_tpu_torch.parallel import create_mesh, run_ranks
+    from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES
 
-    with pytest.raises(NotImplementedError, match="mesh"):
-        _port_trainer(setup, [], mesh=object())
+    with pytest.raises(ValueError, match="give the mesh"):
+        _port_trainer(setup, [], rules=DEFAULT_LLM_RULES)
 
     def one_rank(rank):
         got = device_batch({"x": np.arange(4)}, mesh=create_mesh(
             {"dp": 1}, device="cpu"))["x"]
-        return isinstance(got, DTensor), got.full_tensor().tolist()
+        tr = _port_trainer(setup, [], mesh={"dp": -1})
+        return (isinstance(got, DTensor), got.full_tensor().tolist(),
+                dict(zip(tr.mesh.mesh_dim_names, tr.mesh.shape)))
 
-    assert run_ranks(one_rank, 1, timeout=60) == [(True, [0, 1, 2, 3])]
+    assert run_ranks(one_rank, 1, timeout=60) \
+        == [(True, [0, 1, 2, 3], {"dp": 1})]
 
 
 @pytest.fixture(scope="module")
