@@ -230,7 +230,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    device's; the slot prefill's last-position logits at the rank shape
    within 0.125 of plain attention.
 
-``main`` runs phases 8, 10, 11, 12, 13, 14, 17 and 19 before phase 7,
+20. the single-learner RLlib tail (``phase_rllib_tail``), f32 with TF32
+   off, learners and policies on the card.  One update (or scoring) per
+   algorithm on a fixed host batch with fixed draws equal on the card
+   and the CPU within 1e-4 (1 + scale): PG, A2C (optax's clip engaged),
+   IMPALA, APPO (target refreshed), DQN, SimpleQ, SAC, DDPG, TD3 (an
+   actor step and a delayed one, fixed target noise), BC, MARWIL, CQL,
+   DT (full width: d 64, 4 heads, 2 layers, 60 tokens), LinUCB, LinTS
+   (fixed draw), ES, ARS (fixed perturbations), Learner and
+   LearnerGroup.  Then the learning runs at the settings and bars of the
+   JAX package's tests, each stopping once its bar is met: PG best above
+   90 (40 iterations at most), A2C above 40, IMPALA above 50, APPO's
+   last at least its first, DQN above 50, SAC above 40 (CartPole); TD3's
+   mean of the last 20 returns above -500 on Pendulum; LinUCB's regret
+   below 0.6x its first, LinTS's below its first; ES above its first +
+   10; ARS's filter moments; on offline data that rollouts of a
+   balancing controller (a one-unit policy net on the card) write to a
+   temporary directory: BC's accuracy above 0.9 (400 iterations; the
+   test's 60 are on N(0, 1) observations), MARWIL finite, CQL's gap not
+   up by 1, DT's loss falling (its return conditioned on 500 printed);
+   the Learner's loss falling.  Every algorithm's ``save`` restores into
+   a fresh one whose ``save`` is equal and which trains on; the flash
+   launch counts, zeroed at the start, are 0 / 0 / 0 at the end.
+   Prints each run's metric per iteration, env steps/s and learner ms
+   per iteration, and the phase's seconds by part.
+
+``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 17 and 19 before phase 7,
 and 15, 16 and 18 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
@@ -2660,6 +2685,566 @@ def phase_ppo(card: str) -> dict:
     return {"best": best}
 
 
+# ------------------------------------------------------------ RLlib tail
+
+def rl_leaves(tree) -> list:
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    return [t.detach() for t in tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
+def rl_parity_cases(data: dict) -> list:
+    """(label, build(device) -> algorithm, run(algorithm) -> tensors) per
+    algorithm of the RLlib tail: one update (or scoring) on a fixed host
+    batch with fixed draws; ``run`` returns the metrics and every leaf
+    the update wrote."""
+    from ray_tpu_torch import rllib as R
+    from ray_tpu_torch.data.feed import to_device
+
+    rng = np.random.default_rng(SEED + 40)
+    n = 256
+
+    def flat(obs_dim=4, vt=50.0):
+        return {"obs": rng.standard_normal((n, obs_dim)).astype(np.float32),
+                "actions": rng.integers(0, 2, n),
+                "advantages": (2.0 * rng.standard_normal(n) + 0.5)
+                .astype(np.float32),
+                "value_targets": (vt * rng.standard_normal(n))
+                .astype(np.float32)}
+
+    def trans(obs_dim=4, act_dim=None, b=64):
+        acts = (rng.uniform(-2, 2, (b, act_dim)).astype(np.float32)
+                if act_dim else rng.integers(0, 2, b))
+        return {"obs": rng.standard_normal((b, obs_dim)).astype(np.float32),
+                "actions": acts,
+                "rewards": rng.standard_normal(b).astype(np.float32),
+                "dones": (rng.random(b) < 0.1).astype(np.float32),
+                "next_obs": rng.standard_normal((b, obs_dim))
+                .astype(np.float32)}
+
+    pg_b, a2c_b, lrn_b = flat(), flat(), flat(vt=3.0)
+    dqn_b = dict(trans(), weights=rng.uniform(0.3, 1, 64).astype(np.float32))
+    sq_b = dict(trans(), weights=np.ones(64, np.float32))
+    sac_b, cql_b = trans(), trans()
+    td3_b = [trans(obs_dim=3, act_dim=1, b=128) for _ in range(2)]
+    td3_noise = [torch.from_numpy(rng.standard_normal((128, 1))
+                                  .astype(np.float32)) for _ in range(2)]
+    bc_b = {"obs": flat()["obs"], "actions": rng.integers(0, 2, n),
+            "value_targets": (5.0 * rng.standard_normal(n))
+            .astype(np.float32)}
+    A = np.stack([np.eye(8)] * 5).astype(np.float32)
+    bvec = np.zeros((5, 8), np.float32)
+    for _ in range(40):
+        x = rng.standard_normal(8).astype(np.float32)
+        k = int(rng.integers(0, 5))
+        A[k] += np.outer(x, x)
+        bvec[k] += np.float32(rng.standard_normal()) * x
+    ctx = rng.standard_normal(8).astype(np.float32)
+    z = rng.standard_normal((5, 8)).astype(np.float32)
+    cart = dict(env="CartPole-v1", seed=SEED)
+    replay = dict(cart, num_envs_per_worker=4, rollout_length=16,
+                  learning_starts=32, batch_size=64)
+    pend = dict(env="Pendulum-v1", num_envs_per_worker=2, rollout_length=16,
+                learning_starts=16, batch_size=128, seed=SEED)
+    on = dict(cart, num_envs_per_worker=8, rollout_length=32)
+    rollout = R.ImpalaConfig(**on, device="cpu").build().workers \
+        .workers[0].sample()
+
+    def dev(algo, batch):
+        return to_device(batch, algo.device)
+
+    def metrics(m):
+        return [torch.as_tensor(v) for v in m.values()]
+
+    def impala_run(a, times=1):
+        out = []
+        for _ in range(times):
+            out += metrics(a._learn_on(R.SampleBatch(rollout)))
+        return out + rl_leaves(a.params)
+
+    def td3_run(a):
+        out = []
+        for step in range(2):
+            out += list(a._update(a.nets, a.opts, dev(a, td3_b[step]), step,
+                                  noise=td3_noise[step].to(a.device)))
+        return out + rl_leaves(a.nets)
+
+    def es_run(a):
+        eps = np.random.default_rng(SEED + 41).standard_normal(
+            (a.config.pop_size, a.theta.shape[0])).astype(np.float32)
+        r = a.iterate(eps=eps)
+        return [torch.tensor(r["pop_return_mean"]), a.theta]
+
+    def learner_run(a):
+        out = [torch.tensor(a.update(lrn_b)["loss"]) for _ in range(2)]
+        return out + rl_leaves(a._local.params if hasattr(a, "_local")
+                               else a.params)
+
+    mod = lambda: R.DiscretePGModule(4, 2)  # noqa: E731
+    return [
+        ("PG", lambda d: R.PGConfig(**on, device=d).build(),
+         lambda a: metrics(a.update(dev(a, pg_b))) + rl_leaves(a.params)),
+        ("A2C", lambda d: R.A2CConfig(**on, device=d).build(),
+         lambda a: metrics(a.update(dev(a, a2c_b))) + rl_leaves(a.params)),
+        ("IMPALA", lambda d: R.ImpalaConfig(**on, device=d).build(),
+         impala_run),
+        ("APPO", lambda d: R.APPOConfig(**on, target_update_freq=1,
+                                        device=d).build(),
+         lambda a: impala_run(a, 2) + rl_leaves(a.target_params)),
+        ("DQN", lambda d: R.DQNConfig(**replay, device=d).build(),
+         lambda a: list(a._update(a.params, a.target_params, a.opt,
+                                  dev(a, dqn_b))[2:])
+         + rl_leaves(a.params)),
+        ("SimpleQ", lambda d: R.SimpleQConfig(**replay, device=d).build(),
+         lambda a: list(a._update(a.params, a.target_params, a.opt,
+                                  dev(a, sq_b))[2:])
+         + rl_leaves(a.params)),
+        ("SAC", lambda d: R.SACConfig(**replay, device=d).build(),
+         lambda a: metrics(a._update(a.nets, a.opts, dev(a, sac_b)))
+         + rl_leaves(a.nets)),
+        ("DDPG", lambda d: R.DDPGConfig(**pend, device=d).build(),
+         lambda a: list(a._update(a.nets, a.opts, dev(a, td3_b[0]), 0))
+         + rl_leaves(a.nets)),
+        ("TD3", lambda d: R.TD3Config(**pend, device=d).build(), td3_run),
+        ("BC", lambda d: R.BCConfig(input_path=data["expert"], seed=SEED,
+                                    device=d).build(),
+         lambda a: list(a.update(dev(a, bc_b), 100.0)) + rl_leaves(a.params)),
+        ("MARWIL", lambda d: R.MARWILConfig(input_path=data["expert"],
+                                            seed=SEED, device=d).build(),
+         lambda a: list(a.update(dev(a, bc_b), 4.0)) + rl_leaves(a.params)),
+        ("CQL", lambda d: R.CQLConfig(input_path=data["mixed"], seed=SEED,
+                                      device=d).build(),
+         lambda a: list(a._update(a.params, a.target_params, a.opt,
+                                  dev(a, cql_b))[2:]) + rl_leaves(a.params)),
+        ("DT", lambda d: R.DTConfig(input_path=data["mixed"], seed=SEED,
+                                    device=d).build(),
+         lambda a: [a.update(dev(a, data["dt_batch"]))]
+         + rl_leaves(a.params)),
+        ("LinUCB", lambda d: R.BanditConfig(seed=SEED, device=d).build(),
+         lambda a: (a.load_checkpoint({"A": A, "b": bvec}),
+                    [a.scores(torch.from_numpy(ctx).to(a.device))])[1]),
+        ("LinTS", lambda d: R.BanditConfig(exploration="ts", seed=SEED,
+                                           device=d).build(),
+         lambda a: (a.load_checkpoint({"A": A, "b": bvec}),
+                    [a.scores(torch.from_numpy(ctx).to(a.device),
+                              torch.from_numpy(z).to(a.device))])[1]),
+        ("ES", lambda d: R.ESConfig(**cart, pop_size=4, max_episode_steps=50,
+                                    device=d).build(), es_run),
+        ("ARS", lambda d: R.ARSConfig(**cart, pop_size=4, top_directions=2,
+                                      max_episode_steps=50,
+                                      device=d).build(), es_run),
+        ("Learner", lambda d: R.Learner(mod(), lr=0.01, device=d),
+         learner_run),
+        ("LearnerGroup", lambda d: R.LearnerGroup(mod, 0, lr=0.01, device=d),
+         learner_run),
+    ]
+
+
+def rl_parity(data: dict) -> None:
+    """Every case of ``rl_parity_cases`` on the CPU and on the card, the
+    card's algorithm restored from the CPU one's state first; f32 with
+    TF32 off; each result within 1e-4 (1 + scale)."""
+    for label, build, run in rl_parity_cases(data):
+        cpu, card = build("cpu"), build("cuda")
+        if hasattr(cpu, "get_state"):
+            card.set_state(cpu.get_state())
+        else:
+            card.restore(cpu.save())
+        held_f32(f"RLlib {label} one update", zip(run(card), run(cpu)))
+
+
+class LearnClock:
+    """Wall seconds in the wrapped learner calls of one algorithm (each
+    ends in a device sync); the env steps/s come from ``train()``."""
+
+    def __init__(self, obj, name: str):
+        self.s = 0.0
+        fn = getattr(obj, name)
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.s += time.perf_counter() - t0
+            return out
+        setattr(obj, name, timed)
+
+
+def best_above(bar: float):
+    """A stop rule: the best mean return so far is above ``bar`` (the
+    runs stop there; the JAX tests' bars are on the best)."""
+    return lambda rs: max(r.get("episode_reward_mean", 0.0)
+                          for r in rs) > bar
+
+
+def rl_learn(label: str, algo, iters: int, card: str, *, learner: str,
+             key: str = "episode_reward_mean", stop=None):
+    """``iters`` iterations (fewer if ``stop(results)``) -> the results;
+    prints the per-iteration metric, env steps/s and learner ms."""
+    clock = LearnClock(algo, learner) if learner else None
+    results, learn_ms, sps = [], [], []
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        s0 = clock.s if clock else 0.0
+        r = algo.train()
+        results.append(r)
+        sps.append(r["env_steps_per_sec"])
+        learn_ms.append(((clock.s if clock else 0.0) - s0) * 1e3)
+        if stop is not None and stop(results):
+            break
+    vals = [round(r.get(key, 0.0), 2) for r in results]
+    if len(vals) > 40:          # every 20th, and the last
+        vals = vals[::20] + vals[-1:]
+        key += " (every 20th iteration and the last)"
+    learn = (f"; learner ms per iteration median "
+             f"{statistics.median(learn_ms):.2f}" if clock else "")
+    print(f"[rllib] {label}: {len(results)} iterations in "
+          f"{time.perf_counter() - t0:.1f} s, {key} {vals}; env steps/s "
+          f"median {statistics.median(sps):.1f}{learn}; on {card}")
+    return results
+
+
+# CartPole's balancing controller, action 1 iff theta + 0.5 theta_dot > 0
+# (the heuristic of tests/test_dt.py), as a policy net of one tanh unit
+CONTROLLER = {"fc0": {"w": np.array([[0.0], [0.0], [10.0], [5.0]],
+                                    np.float32),
+                      "b": np.zeros(1, np.float32)},
+              "pi": {"w": np.array([[-1.0, 1.0]], np.float32),
+                     "b": np.zeros(2, np.float32)},
+              "vf": {"w": np.zeros((1, 1), np.float32),
+                     "b": np.zeros(1, np.float32)}}
+
+
+def card_rollouts(path: str, episodes: int, greedy_every: int,
+                  seed: int) -> int:
+    """CartPole episodes written with ``JsonWriter`` under ``path``: the
+    controller's policy net on the card acts greedily in every
+    ``greedy_every``-th episode, the others act uniformly at random.
+    Columns obs, actions, rewards, dones, next_obs and value_targets (the
+    discounted return to go, gamma 0.99) -> rows written."""
+    from ray_tpu_torch.models.convert import params_from_numpy
+    from ray_tpu_torch.rllib import (CartPole, JsonWriter, SampleBatch,
+                                     policy_forward)
+
+    pol = params_from_numpy(CONTROLLER, device="cuda")
+    rng = np.random.default_rng(seed)
+    w = JsonWriter(path)
+    rows = 0
+    for ep in range(episodes):
+        env = CartPole(seed=seed + ep)
+        o = env.reset()
+        cols = {k: [] for k in ("obs", "actions", "rewards", "dones",
+                                "next_obs")}
+        done = False
+        while not done:
+            if ep % greedy_every == 0:
+                with torch.no_grad():
+                    logits, _ = policy_forward(pol, torch.from_numpy(
+                        o[None]).to("cuda"))
+                a = int(logits[0].argmax())
+            else:
+                a = int(rng.integers(0, 2))
+            no, r, done, _ = env.step(a)
+            for k, v in zip(cols, (o, a, r, float(done), no)):
+                cols[k].append(v)
+            o = no
+        rtg = np.zeros(len(cols["rewards"]), np.float32)
+        acc = 0.0
+        for t in reversed(range(len(rtg))):
+            acc = cols["rewards"][t] + 0.99 * acc
+            rtg[t] = acc
+        w.write(SampleBatch({
+            "obs": np.stack(cols["obs"]).astype(np.float32),
+            "actions": np.asarray(cols["actions"], np.int64),
+            "rewards": np.asarray(cols["rewards"], np.float32),
+            "dones": np.asarray(cols["dones"], np.float32),
+            "next_obs": np.stack(cols["next_obs"]).astype(np.float32),
+            "value_targets": rtg}))
+        rows += len(rtg)
+    w.close()
+    return rows
+
+
+def rl_round_trip(label: str, algo, build) -> None:
+    """``save`` into a fresh algorithm, ``restore``, and its ``save``
+    again equals the first, leaf for leaf; one more iteration trains."""
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    saved = algo.save()
+    other = build()
+    other.restore(saved)
+    a = [np.asarray(x) for x in tree_leaves(saved["payload"])]
+    b = [np.asarray(x) for x in tree_leaves(other.save()["payload"])]
+    check(len(a) == len(b) and all(np.array_equal(x, y)
+                                   for x, y in zip(a, b)),
+          f"{label} save/restore: the restored state differs")
+    r = other.train()
+    check(other.iteration == algo.iteration + 1
+          and r["steps_this_iter"] > 0,
+          f"{label} after restore: iteration {other.iteration}")
+
+
+def phase_rllib_tail(card: str) -> dict:
+    """The single-learner RLlib tail on the card (phase 20): every
+    algorithm's update card vs CPU, then the learning runs at the
+    settings and bars of the JAX package's tests, each algorithm's
+    save/restore, and no flash launch.  Returns the phase's seconds by
+    part."""
+    from ray_tpu_torch import rllib as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    before = flash_launches()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    tmp = tempfile.mkdtemp(prefix="_chip_smoke_rl_",
+                           dir=os.path.dirname(os.path.abspath(__file__)))
+    parts = {}
+    try:
+        t0 = time.perf_counter()
+        cart = dict(env="CartPole-v1", num_rollout_workers=0)
+
+        pg_cfg = R.PGConfig(**cart, num_envs_per_worker=8, rollout_length=64,
+                            train_batch_size=2048, lr=4e-3, seed=0)
+        pg = pg_cfg.build()
+        res = rl_learn("PG CartPole", pg, 40, card, learner="update",
+                       stop=best_above(90))
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        check(best > 90, f"PG did not learn CartPole: best {best}")
+        rl_round_trip("PG", pg, pg_cfg.build)
+        pg.cleanup()
+        data = {"expert": os.path.join(tmp, "expert"),
+                "mixed": os.path.join(tmp, "mixed")}
+        rows = (card_rollouts(data["expert"], 8, 1, SEED + 50),
+                card_rollouts(data["mixed"], 16, 2, SEED + 60))
+        print(f"[rllib] card rollouts of the balancing controller: "
+              f"{rows[0]} rows (greedy) and {rows[1]} (half greedy, half "
+              f"random) written to a temporary directory")
+        parts["pg_and_data"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dt_host = R.DTConfig(input_path=data["mixed"], seed=SEED,
+                             device="cpu").build()
+        data["dt_batch"] = dt_host._sample_batch()
+        rl_parity(data)
+        parts["parity"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        a2c_cfg = R.A2CConfig(**cart, num_envs_per_worker=8,
+                              rollout_length=32, lr=2e-3, entropy_coeff=0.01,
+                              seed=0)
+        a2c = a2c_cfg.build()
+        res = rl_learn("A2C CartPole", a2c, 40, card, learner="update",
+                       stop=best_above(40))
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        check(best > 40, f"A2C did not learn CartPole: best {best}")
+        rl_round_trip("A2C", a2c, a2c_cfg.build)
+        a2c.cleanup()
+
+        imp_cfg = R.ImpalaConfig(**cart, num_envs_per_worker=8,
+                                 rollout_length=32, batches_per_step=8,
+                                 lr=2e-3, entropy_coeff=0.01, seed=0)
+        imp = imp_cfg.build()
+        res = rl_learn("IMPALA CartPole", imp, 10, card, learner="_learn_on",
+                       stop=best_above(50))
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        check(best > 50, f"IMPALA did not learn CartPole: best {best}")
+        rl_round_trip("IMPALA", imp, imp_cfg.build)
+        imp.cleanup()
+
+        appo_cfg = R.APPOConfig(**cart, num_envs_per_worker=4,
+                                rollout_length=64, lr=5e-4,
+                                batches_per_step=2, seed=1)
+        appo = appo_cfg.build()
+        res = rl_learn("APPO CartPole", appo, 11, card, learner="_learn_on")
+        first, last = (res[0]["episode_reward_mean"],
+                       res[-1]["episode_reward_mean"])
+        check(last >= first, f"APPO: mean return {first} -> {last}")
+        rl_round_trip("APPO", appo, appo_cfg.build)
+        appo.cleanup()
+        parts["on_policy"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        dqn_cfg = R.DQNConfig(env="CartPole-v1", num_envs_per_worker=8,
+                              rollout_length=64, learning_starts=500,
+                              buffer_size=20000, batch_size=64,
+                              train_intensity=0.25, target_update_freq=500,
+                              epsilon_decay_steps=6000, lr=1e-3, seed=0)
+        dqn = dqn_cfg.build()
+        res = rl_learn("DQN CartPole", dqn, 25, card, learner="_train_once",
+                       stop=best_above(50))
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        check(best > 50, f"DQN did not learn CartPole: best {best}")
+        rl_round_trip("DQN", dqn, dqn_cfg.build)
+
+        sq_cfg = R.SimpleQConfig(env="CartPole-v1", num_envs_per_worker=8,
+                                 rollout_length=64, learning_starts=500,
+                                 seed=0)
+        sq = sq_cfg.build()
+        res = rl_learn("SimpleQ CartPole", sq, 2, card, learner="_train_once",
+                       key="mean_td_loss")
+        check(all(np.isfinite(r["mean_td_loss"]) for r in res),
+              "SimpleQ: non-finite loss")
+        rl_round_trip("SimpleQ", sq, sq_cfg.build)
+
+        sac_cfg = R.SACConfig(env="CartPole-v1", num_envs_per_worker=8,
+                              rollout_length=64, learning_starts=500,
+                              buffer_size=20000, batch_size=64,
+                              target_entropy_scale=0.3, train_intensity=0.25,
+                              lr=3e-3, seed=0)
+        sac = sac_cfg.build()
+        res = rl_learn("SAC CartPole", sac, 20, card, learner="_update",
+                       stop=best_above(40))
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        check(best > 40, f"SAC did not learn CartPole: best {best}")
+        rl_round_trip("SAC", sac, sac_cfg.build)
+        parts["replay_discrete"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        td3_cfg = R.TD3Config(env="Pendulum-v1", num_envs_per_worker=4,
+                              rollout_length=128, learning_starts=500,
+                              batch_size=128, train_intensity=1.0,
+                              actor_lr=3e-3, critic_lr=3e-3, tau=0.01,
+                              exploration_noise=0.15, seed=0)
+        td3 = td3_cfg.build()
+        rets = []
+
+        def td3_stop(rs):
+            if td3._ep_returns:
+                rets.append(float(np.mean(td3._ep_returns[-20:])))
+            return bool(rets) and rets[-1] > -400
+        rl_learn("TD3 Pendulum", td3, 16, card, learner="_update",
+                 key="critic_loss", stop=td3_stop)
+        print(f"[rllib] TD3 mean of the last 20 returns per iteration "
+              f"{[round(r, 1) for r in rets]} (bar -500)")
+        check(rets and rets[-1] > -500,
+              f"TD3 did not solve Pendulum: {rets[-1:]}")
+        rl_round_trip("TD3", td3, td3_cfg.build)
+        ddpg_cfg = R.DDPGConfig(env="Pendulum-v1", num_envs_per_worker=2,
+                                rollout_length=32, learning_starts=64,
+                                batch_size=32, seed=0)
+        ddpg = ddpg_cfg.build()
+        r = ddpg.train()
+        a = ddpg.compute_action(np.zeros(3, np.float32))
+        check(r["steps_this_iter"] == 64 and a.shape == (1,)
+              and -2.0 <= float(a[0]) <= 2.0, f"DDPG step: {r}, {a}")
+        rl_round_trip("DDPG", ddpg, ddpg_cfg.build)
+        parts["continuous"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        for mode, seed, frac in (("ucb", 1, 0.6), ("ts", 2, 1.0)):
+            cfg = R.BanditConfig(env=lambda s=seed: R.LinearBanditEnv(seed=s),
+                                 exploration=mode, steps_per_iter=256,
+                                 seed=0)
+            algo = cfg.build()
+            res = rl_learn(f"Lin{mode.upper()} bandit", algo, 5, card,
+                           learner="", key="mean_regret")
+            first, last = res[0]["mean_regret"], res[-1]["mean_regret"]
+            check(last < first * frac,
+                  f"Lin{mode.upper()} regret {first} -> {last}")
+            rl_round_trip(f"Lin{mode.upper()}", algo, cfg.build)
+
+        es_cfg = R.ESConfig(env="CartPole-v1", pop_size=12, sigma=0.1,
+                            step_size=0.05, max_episode_steps=200, seed=0)
+        es = es_cfg.build()
+        res = rl_learn("ES CartPole", es, 13, card, learner="",
+                       key="pop_return_mean",
+                       stop=lambda rs: max(r["pop_return_mean"]
+                                           for r in rs[1:]) >
+                       rs[0]["pop_return_mean"] + 10 if len(rs) > 1
+                       else False)
+        first = res[0]["pop_return_mean"]
+        best = max(r["pop_return_mean"] for r in res[1:])
+        check(best > first + 10, f"ES no improvement: {first} -> {best}")
+        rl_round_trip("ES", es, es_cfg.build)
+        ars_cfg = R.ARSConfig(env="CartPole-v1", pop_size=8, top_directions=4,
+                              max_episode_steps=100, seed=0)
+        ars = ars_cfg.build()
+        res = rl_learn("ARS CartPole", ars, 1, card, learner="",
+                       key="pop_return_mean")
+        check(res[0]["steps_this_iter"] > 0 and ars._obs_n > 0,
+              "ARS: no env steps or no filter moments")
+        rl_round_trip("ARS", ars, ars_cfg.build)
+        parts["bandits_es"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        bc_cfg = R.BCConfig(input_path=data["expert"], batch_size=128,
+                            lr=1e-2, hiddens=(32,), seed=0)
+        bc = bc_cfg.build()
+        # the JAX test takes 60 iterations on N(0, 1) observations; the
+        # controller's states sit near its boundary and take longer
+        rl_learn("BC (card rollouts)", bc, 400, card, learner="update",
+                 key="total_loss")
+        obs = np.asarray(bc.data["obs"][:100])
+        acc = float(np.mean(bc.compute_actions(obs)
+                            == np.asarray(bc.data["actions"][:100])))
+        print(f"[rllib] BC accuracy on the greedy rollouts {acc:.3f} "
+              f"(bar 0.9)")
+        check(acc > 0.9, f"BC accuracy {acc}")
+        rl_round_trip("BC", bc, bc_cfg.build)
+        mw_cfg = R.MARWILConfig(input_path=data["expert"], batch_size=32,
+                                beta=1.0, hiddens=(16,), seed=0)
+        mw = mw_cfg.build()
+        res = rl_learn("MARWIL (card rollouts)", mw, 2, card,
+                       learner="update", key="total_loss")
+        check(all(np.isfinite(r["total_loss"]) for r in res),
+              "MARWIL: non-finite loss")
+        rl_round_trip("MARWIL", mw, mw_cfg.build)
+        cql_cfg = R.CQLConfig(input_path=data["mixed"], cql_alpha=1.0,
+                              batch_size=128, grad_steps_per_iter=50, seed=0)
+        cql = cql_cfg.build()
+        res = rl_learn("CQL (card rollouts)", cql, 2, card,
+                       learner="_update", key="cql_gap")
+        check(np.isfinite(res[1]["loss"])
+              and res[1]["cql_gap"] < res[0]["cql_gap"] + 1.0
+              and cql.compute_action(np.zeros(4, np.float32)) in (0, 1),
+              f"CQL: {res}")
+        rl_round_trip("CQL", cql, cql_cfg.build)
+        dt_cfg = R.DTConfig(input_path=data["mixed"], env="CartPole-v1",
+                            context_len=10, grad_steps_per_iter=40,
+                            batch_size=32, seed=0)
+        dt = dt_cfg.build()
+        res = rl_learn("DT (card rollouts)", dt, 2, card, learner="update",
+                       key="loss")
+        check(np.isfinite(res[1]["loss"]) and res[1]["loss"] < res[0]["loss"],
+              f"DT loss did not drop: {res[0]['loss']} -> {res[1]['loss']}")
+        ret = dt.evaluate(num_episodes=3, target_return=500.0)
+        print(f"[rllib] DT conditioned on return 500: mean return {ret:.1f} "
+              f"over 3 episodes (printed, not gated)")
+        rl_round_trip("DT", dt, dt_cfg.build)
+
+        learner = R.Learner(R.DiscretePGModule(4, 2, ent_coeff=0.0), lr=0.05)
+        b = {"obs": np.random.default_rng(0).normal(size=(64, 4))
+             .astype(np.float32),
+             "actions": np.random.default_rng(1).integers(0, 2, 64),
+             "advantages": np.random.default_rng(2).normal(size=64)
+             .astype(np.float32),
+             "value_targets": np.random.default_rng(3).normal(size=64)
+             .astype(np.float32)}
+        first = learner.update(b)["loss"]
+        for _ in range(20):
+            last = learner.update(b)["loss"]
+        group = R.LearnerGroup(lambda: R.DiscretePGModule(4, 2), 0, lr=0.05)
+        print(f"[rllib] Learner on the card: loss {first:.4f} -> {last:.4f} "
+              f"in 21 updates; LearnerGroup inline loss "
+              f"{group.update(b)['loss']:.4f}")
+        check(last < first, f"Learner: loss {first} -> {last}")
+        parts["offline_learner"] = time.perf_counter() - t0
+
+        after = flash_launches()
+        check(after == (0, 0, 0),
+              f"the RLlib tail launched flash kernels: {after}")
+        print("[rllib] flash launches in phase 20: 0 / 0 / 0")
+    finally:
+        fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches = (
+            before[0] + fa.launches, before[1] + fa.bwd_kv_launches,
+            before[2] + fa.bwd_dq_launches)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[rllib] phase 20 parts (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return parts
+
+
 # ------------------------------------------------ sharded training
 
 # [batch, heads, seq, head dim] each rank gives the flash kernels on phase
@@ -4031,6 +4616,7 @@ def main() -> int:
     model_launches = run(phase_other_models, name, card)
     trainer = run(phase_trainer, name, card)
     run(phase_ppo, card)
+    run(phase_rllib_tail, card)
     tp_serve_launches, tp_serve_records = run(phase_tp_serving, name, card)
     kernels[0].update(tp_serve_records)
     tp_serve_launches.update(run(phase_slot_tp, card))

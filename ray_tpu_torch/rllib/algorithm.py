@@ -101,6 +101,9 @@ class WorkerSet:
         for w in self.workers:
             w.set_weights(weights)
 
+    def stop(self) -> None:
+        """Nothing to release: the workers are inline, not actors."""
+
 
 class Algorithm:
     """setup(config), step() -> result, save_checkpoint() -> dict,
