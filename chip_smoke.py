@@ -254,8 +254,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch counts, zeroed at the start, are 0 / 0 / 0 at the end.
    Prints each run's metric per iteration, env steps/s and learner ms
    per iteration, and the phase's seconds by part.
+21. the rest of single-learner RLlib (``phase_rllib_rest``), f32 with
+   TF32 off, learners and policies on the card.  One update per module
+   at its default widths on a fixed host batch with fixed draws, equal
+   on the card and the CPU within 1e-4 (1 + scale): multi-agent PPO (one
+   policy's epochs with fixed permutations), R2D2 (burn-in, double Q,
+   h-rescaling), QMIX, MADDPG, SlateQ, AlphaZero's train step, MAML's
+   second-order meta-update, MB-MPO's ensemble fit (fixed bootstrap
+   rows) and meta-update (fixed Gumbel noise), and Dreamer's model,
+   actor and critic update (fixed Gaussian noise).  Then the learning
+   runs at the settings and bars of the JAX package's tests, each
+   stopping once its bar is met: multi-agent PPO's mean reward above its
+   first; R2D2's TD loss falling over 3 iterations; QMIX's mean of the
+   last 50 returns above 6.0 (16 iterations at most; the test's 10);
+   MADDPG's mean of the last 20 returns up by 3; AlphaZero's mean of the
+   last 24 above 0.6 (24 at most; the test's 12); SlateQ's mean of the
+   last 30 above 1.15x random slates' (24 at most; the test's 16);
+   MAML's post-adaptation loss below 2.0 and 0.55x the unadapted one;
+   Dreamer's noise-free return above random + 10 with obs_loss below 0.3
+   (20 at most; the test's 14); MB-MPO's best mean return above 48 with
+   a falling model loss.  Every algorithm's ``save`` restores into a
+   fresh one whose ``save`` is equal and which trains on; the flash
+   launch counts, zeroed at the start, are 0 / 0 / 0 at the end.
 
-``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 17 and 19 before phase 7,
+``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 17 and 19 before phase 7,
 and 15, 16 and 18 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
@@ -3245,6 +3267,349 @@ def phase_rllib_tail(card: str) -> dict:
     return parts
 
 
+# ------------------------------------------------ the rest of RLlib
+
+def rl_rest_parity_cases() -> list:
+    """(label, build(device) -> algorithm, run(algorithm) -> tensors) per
+    module of the rest of single-learner RLlib: one update on a fixed
+    host batch with fixed draws (permutations, bootstrap rows, Gumbel and
+    Gaussian noise) at the module's default widths; ``run`` returns the
+    losses and every leaf the update wrote."""
+    from ray_tpu_torch import rllib as R
+    from ray_tpu_torch.data.feed import to_device
+
+    rng = np.random.default_rng(SEED + 70)
+
+    def f32(*shape, scale=1.0):
+        return (scale * rng.standard_normal(shape)).astype(np.float32)
+
+    def dev(a, batch):
+        return to_device(batch, a.device)
+
+    mappo_b = {"obs": f32(256, 4), "actions": rng.integers(0, 2, 256),
+               "logp": np.full(256, np.log(0.5), np.float32)
+               + f32(256, scale=0.05), "advantages": f32(256, scale=2.0),
+               "value_targets": f32(256, scale=3.0),
+               "vf_preds": f32(256)}
+    perms = [rng.permutation(256) for _ in range(4)]
+    dones = (rng.random((16, 16)) < 0.08).astype(np.float32)
+    r2d2_b = {"obs": f32(16, 17, 4), "actions": rng.integers(0, 2, (16, 16)),
+              "rewards": np.ones((16, 16), np.float32), "dones": dones,
+              "h0": f32(16, 64, scale=0.3), "c0": f32(16, 64, scale=0.3)}
+    qmix_b = {"obs": f32(64, 2, 2), "actions": rng.integers(0, 2, (64, 2)),
+              "rewards": rng.integers(0, 2, 64).astype(np.float32),
+              "dones": (rng.random(64) < 0.12).astype(np.float32),
+              "next_obs": f32(64, 2, 2), "state": f32(64, 3),
+              "next_state": f32(64, 3)}
+    maddpg_b = {"obs": f32(128, 2, 3), "actions": rng.uniform(
+        -1, 1, (128, 2, 1)).astype(np.float32),
+        "rewards": -rng.uniform(0, 2, 128).astype(np.float32),
+        "dones": (rng.random(128) < 0.04).astype(np.float32),
+        "next_obs": f32(128, 2, 3)}
+
+    def unit(*shape):
+        x = f32(*shape)
+        return x / np.linalg.norm(x, axis=-1, keepdims=True)
+    slate_b = {"user": unit(64, 4), "doc": unit(64, 8, 4),
+               "next_user": unit(64, 4), "next_doc": unit(64, 8, 4),
+               "actions": np.stack([rng.choice(8, 2, replace=False)
+                                    for _ in range(64)]),
+               "click": rng.integers(0, 3, 64),
+               "rewards": rng.uniform(0, 1, 64).astype(np.float32),
+               "dones": (rng.random(64) < 0.05).astype(np.float32)}
+    az_b = [f32(128, 17), rng.dirichlet(np.ones(4), 128).astype(np.float32),
+            rng.choice([-1.0, 1.0], 128).astype(np.float32)]
+    maml_b = R.SinusoidTasks(seed=SEED + 71).sample(25)
+    n = 512
+    obs = f32(n, 4, scale=0.2)
+    mbmpo_d = {"obs": obs, "act1h": np.eye(2, dtype=np.float32)[
+        rng.integers(0, 2, n)], "next_obs": obs + f32(n, 4, scale=0.05),
+        "rew": np.ones(n, np.float32),
+        "done": (rng.random(n) < 0.05).astype(np.float32)}
+    mbmpo_idx = rng.integers(0, n, (3, 60, n))
+    mbmpo_g = rng.gumbel(size=(6, 3, 2, 32, 64, 2)).astype(np.float32)
+    dreamer_b = {"obs": f32(16, 16, 6), "actions": rng.uniform(
+        -1, 1, (16, 16, 2)).astype(np.float32),
+        "rewards": -rng.uniform(0, 2, (16, 16)).astype(np.float32)}
+    dreamer_eps = {"observe": f32(16, 16, 8), "imagine_a": f32(10, 256, 2),
+                   "imagine_s": f32(10, 256, 8)}
+
+    def mappo_run(a):
+        _, _, m = a._update(a.params["p0"], a.opts["p0"].opt,
+                            dev(a, mappo_b), perms=perms)
+        return [torch.as_tensor(v) for v in m.values()] + rl_leaves(
+            a.params["p0"])
+
+    def mbmpo_run(a):
+        d = dev(a, mbmpo_d)
+        losses = a._fit_models(a.models, a.model_opt, d, idx=mbmpo_idx)
+        _, _, ml, ret = a._meta_update(
+            a.params, a.opt, a.models, d["obs"][:64], gumbel=mbmpo_g)
+        return [losses, ml, ret] + rl_leaves(a.models) + rl_leaves(
+            a.params)
+
+    def dreamer_run(a):
+        eps = {k: torch.from_numpy(v).to(a.device)
+               for k, v in dreamer_eps.items()}
+        m = a._update(a.params, a.opts, dev(a, dreamer_b), eps=eps)
+        return list(m.values()) + rl_leaves(a.params)
+
+    mappo = R.MultiAgentPPOConfig(
+        env_maker=lambda: R.MultiAgentCartPole(2, seed=SEED)).multi_agent(
+        policies=["p0", "p1"],
+        policy_mapping_fn=lambda aid: "p0" if aid == "agent_0" else "p1"
+    ).training(minibatch_size=128, num_epochs=2, lr=1e-3, seed=SEED)
+    return [
+        ("multi-agent PPO", lambda d: dataclasses.replace(
+            mappo, device=d).build(), mappo_run),
+        ("R2D2", lambda d: R.R2D2Config(env="CartPole-v1", seed=SEED,
+                                        device=d).build(),
+         lambda a: [a._update(a.params, a.target_params, a.opt,
+                              dev(a, r2d2_b))[2]] + rl_leaves(a.params)),
+        ("QMIX", lambda d: R.QMIXConfig(seed=SEED, device=d).build(),
+         lambda a: [a._update(a.params, a.target_params, a.opt,
+                              dev(a, qmix_b))[2]] + rl_leaves(a.params)),
+        ("MADDPG", lambda d: R.MADDPGConfig(seed=SEED, device=d).build(),
+         lambda a: list(a._update(a.state, dev(a, maddpg_b))[1:])
+         + rl_leaves(a.state)),
+        ("SlateQ", lambda d: R.SlateQConfig(seed=SEED, device=d).build(),
+         lambda a: list(a._update(a.params, a.target_params, a.opt,
+                                  dev(a, slate_b))[2:])
+         + rl_leaves(a.params)),
+        ("AlphaZero", lambda d: R.AlphaZeroConfig(seed=SEED,
+                                                  device=d).build(),
+         lambda a: list(a.update(*(torch.from_numpy(x).to(a.device)
+                                   for x in az_b))) + rl_leaves(a.params)),
+        ("MAML (second order)", lambda d: R.MAMLConfig(seed=SEED,
+                                                       device=d).build(),
+         lambda a: [a._update(a.params, a.opt, dev(a, maml_b))[2]]
+         + rl_leaves(a.params)),
+        ("MB-MPO (fit and meta-update)", lambda d: R.MBMPOConfig(
+            env="CartPole-v1", ensemble_size=3, model_epochs=60,
+            meta_steps=6, seed=SEED, device=d).build(), mbmpo_run),
+        ("Dreamer", lambda d: R.DreamerConfig(seed=SEED, prefill_episodes=1,
+                                              device=d).build(),
+         dreamer_run),
+    ]
+
+
+def bar_check(label: str, ok: bool, what: str) -> None:
+    print(f"[rllib] {label}: {what} -> {'met' if ok else 'NOT met'}")
+    check(ok, f"{label} did not meet its bar: {what}")
+
+
+def phase_rllib_rest(card: str) -> dict:
+    """The rest of single-learner RLlib on the card (phase 21): every
+    module's update card vs CPU, the learning runs at the settings and
+    bars of the JAX package's tests (each stopping once its bar is met;
+    QMIX, AlphaZero, SlateQ and Dreamer may run past the test's
+    iteration count: the port's generators draw other inits), every
+    algorithm's save/restore, and no flash launch.  Returns the phase's
+    seconds by part."""
+    from ray_tpu_torch import rllib as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    before = flash_launches()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    parts = {}
+    try:
+        t0 = time.perf_counter()
+        for label, build, run in rl_rest_parity_cases():
+            cpu, gpu = build("cpu"), build("cuda")
+            gpu.restore(cpu.save())
+            held_f32(f"RLlib {label} one update", zip(run(gpu), run(cpu)))
+        parts["parity"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        mappo_cfg = R.MultiAgentPPOConfig(
+            env_maker=lambda: R.MultiAgentCartPole(2, seed=0)).multi_agent(
+            policies=["p0", "p1"],
+            policy_mapping_fn=lambda aid: "p0" if aid == "agent_0"
+            else "p1").training(train_batch_size=512, minibatch_size=128,
+                                num_epochs=2, rollout_length=256, lr=1e-3,
+                                seed=0)
+        mappo = mappo_cfg.build()
+        res = rl_learn("multi-agent PPO MultiAgentCartPole", mappo, 6, card,
+                       learner="_update",
+                       stop=lambda rs: len(rs) > 1 and rs[-1][
+                           "episode_reward_mean"]
+                       > rs[0]["episode_reward_mean"])
+        first, last = (res[0]["episode_reward_mean"],
+                       res[-1]["episode_reward_mean"])
+        bar_check("multi-agent PPO", last > first and any(
+            k.startswith("p1/") for k in res[-1]),
+            f"mean reward {first:.2f} -> {last:.2f} (rises)")
+        rl_round_trip("multi-agent PPO", mappo, mappo_cfg.build)
+
+        r2_cfg = R.R2D2Config(env="CartPole-v1", num_envs_per_worker=2,
+                              rollout_length=64, learning_starts=8,
+                              batch_size=8, seq_len=8, burn_in=2, seed=0)
+        r2 = r2_cfg.build()
+        res = rl_learn("R2D2 CartPole", r2, 3, card, learner="_update",
+                       key="mean_td_loss")
+        losses = [r["mean_td_loss"] for r in res]
+        bar_check("R2D2", all(np.isfinite(losses))
+                  and losses[-1] < losses[0],
+                  f"TD loss {losses[0]:.4f} -> {losses[-1]:.4f} (falls)")
+        rl_round_trip("R2D2", r2, r2_cfg.build)
+        parts["mappo_r2d2"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        qmix_cfg = R.QMIXConfig(num_agents=2, rollout_length=256,
+                                learning_starts=100, batch_size=32,
+                                epsilon_decay_steps=2000, seed=0)
+        qmix = qmix_cfg.build()
+
+        def qmix_recent():
+            return float(np.mean(qmix._ep_returns[-50:]))
+        rl_learn("QMIX TeamSwitch", qmix, 16, card, learner="_update",
+                 key="mean_td_loss", stop=lambda rs: qmix_recent() > 6.0)
+        bar_check("QMIX", qmix_recent() > 6.0,
+                  f"mean of the last 50 returns {qmix_recent():.2f} (> 6.0)")
+        rl_round_trip("QMIX", qmix, qmix_cfg.build)
+
+        mad_cfg = R.MADDPGConfig(num_agents=2, rollout_length=200,
+                                 learning_starts=200, batch_size=64, seed=0)
+        mad = mad_cfg.build()
+        rets = []
+
+        def mad_stop(rs):
+            if mad._ep_returns:
+                rets.append(float(np.mean(mad._ep_returns[-20:])))
+            return len(rets) > 1 and rets[-1] > rets[0] + 3.0
+        rl_learn("MADDPG SpreadLine", mad, 8, card, learner="_update",
+                 key="critic_loss", stop=mad_stop)
+        bar_check("MADDPG", len(rets) > 1 and rets[-1] > rets[0] + 3.0,
+                  f"mean of the last 20 returns {rets[0]:.2f} -> "
+                  f"{rets[-1]:.2f} (first + 3)")
+        rl_round_trip("MADDPG", mad, mad_cfg.build)
+        parts["qmix_maddpg"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        az_cfg = R.AlphaZeroConfig(num_sims=48, episodes_per_iter=8,
+                                   batch_size=64, seed=0)
+        az = az_cfg.build()
+
+        def az_recent():
+            return float(np.mean(az._ep_returns[-24:]))
+        # the JAX test's 12 iterations at its seed; the port's generator
+        # draws another init (on the CPU, seeds 0-7 reached 0.375-0.917
+        # by iteration 12, seed 0 passed 0.6 at iteration 17)
+        rl_learn("AlphaZero GridGoal", az, 24, card, learner="update",
+                 stop=lambda rs: len(rs) >= 3 and az_recent() > 0.6)
+        bar_check("AlphaZero", az_recent() > 0.6,
+                  f"mean of the last 24 returns {az_recent():.3f} (> 0.6)")
+        rl_round_trip("AlphaZero", az, az_cfg.build)
+
+        env = R.InterestEvolution(num_candidates=8, slate_size=2, seed=99)
+        rng = np.random.default_rng(1)
+        rand, ep = [], 0.0
+        env.reset()
+        for _ in range(20 * 30):
+            _, rew, done, _ = env.step(rng.choice(env.C, env.S,
+                                                  replace=False))
+            ep += rew
+            if done:
+                rand.append(ep)
+                ep = 0.0
+                env.reset()
+        baseline = float(np.mean(rand))
+        sq_cfg = R.SlateQConfig(num_candidates=8, slate_size=2,
+                                rollout_length=256, learning_starts=400,
+                                batch_size=64, epsilon_decay_steps=2500,
+                                seed=0)
+        sq = sq_cfg.build()
+
+        def sq_learned():
+            return float(np.mean(sq._ep_returns[-30:]))
+        rl_learn("SlateQ InterestEvolution", sq, 24, card,
+                 learner="_update", key="mean_q_loss",
+                 stop=lambda rs: len(sq._ep_returns) >= 30
+                 and sq_learned() > 1.15 * baseline)
+        bar_check("SlateQ", sq_learned() > 1.15 * baseline,
+                  f"mean of the last 30 returns {sq_learned():.3f} vs "
+                  f"random slates {baseline:.3f} (x 1.15)")
+        rl_round_trip("SlateQ", sq, sq_cfg.build)
+        parts["alpha_zero_slateq"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        maml_cfg = R.MAMLConfig(meta_batch_size=25, meta_iters_per_step=200,
+                                seed=0)
+        maml = maml_cfg.build()
+        evals = []
+
+        def maml_stop(rs):
+            evals.append(maml.evaluate_adaptation(n_tasks=50))
+            ev = evals[-1]
+            return (ev["post_adapt_loss"] < 2.0 and ev["post_adapt_loss"]
+                    < 0.55 * ev["pre_adapt_loss"])
+        rl_learn("MAML sinusoids (200 meta-updates an iteration)", maml, 4,
+                 card, learner="_update", key="meta_loss", stop=maml_stop)
+        ev = evals[-1]
+        bar_check("MAML", np.isfinite(ev["post_adapt_loss"])
+                  and ev["post_adapt_loss"] < 2.0
+                  and ev["post_adapt_loss"] < 0.55 * ev["pre_adapt_loss"],
+                  f"post-adapt {ev['post_adapt_loss']:.3f} vs pre "
+                  f"{ev['pre_adapt_loss']:.3f} (< 2.0, < 0.55 x pre)")
+        rl_round_trip("MAML", maml, maml_cfg.build)
+
+        dr_cfg = R.DreamerConfig(seed=0, prefill_episodes=6,
+                                 episodes_per_step=2,
+                                 train_iters_per_step=15, batch_size=8,
+                                 seq_len=12, actor_lr=3e-4,
+                                 model_warmup_updates=45)
+        dr = dr_cfg.build()
+        random_ret = float(np.mean(dr._ep_returns))
+        evals = []              # (iteration, noise-free eval return)
+
+        def dr_stop(rs):
+            if rs[-1]["obs_loss"] >= 0.3 or dr._model_updates <= 45:
+                return False
+            evals.append((len(rs), dr.evaluate_episodes(4)))
+            return evals[-1][1] > random_ret + 10.0
+        res = rl_learn("Dreamer LinearLatentEnv", dr, 20, card,
+                       learner="_update", key="obs_loss", stop=dr_stop)
+        if not evals or evals[-1][0] != len(res):
+            evals.append((len(res), dr.evaluate_episodes(4)))
+        evals = [e for _, e in evals]
+        bar_check("Dreamer", evals[-1] > random_ret + 10.0
+                  and res[-1]["obs_loss"] < 0.3,
+                  f"eval return {evals[-1]:.2f} vs random {random_ret:.2f} "
+                  f"(+ 10), obs_loss {res[-1]['obs_loss']:.4f} (< 0.3)")
+        rl_round_trip("Dreamer", dr, dr_cfg.build)
+        parts["maml_dreamer"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        mb_cfg = R.MBMPOConfig(env="CartPole-v1", num_rollout_workers=0,
+                               num_envs_per_worker=8, rollout_length=64,
+                               real_batch_size=1024, ensemble_size=3,
+                               model_epochs=60, meta_steps=6, inner_lr=0.1,
+                               lr=8e-3, seed=0)
+        mb = mb_cfg.build()
+        res = rl_learn("MB-MPO CartPole", mb, 20, card,
+                       learner="_meta_update", stop=best_above(48))
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        first, last = res[0]["model_loss_mean"], res[-1]["model_loss_mean"]
+        bar_check("MB-MPO", best > 48 and last < first,
+                  f"best mean return {best:.1f} (> 48), model loss "
+                  f"{first:.4f} -> {last:.4f} (falls)")
+        rl_round_trip("MB-MPO", mb, mb_cfg.build)
+        parts["mbmpo"] = time.perf_counter() - t0
+
+        after = flash_launches()
+        check(after == (0, 0, 0),
+              f"the rest of RLlib launched flash kernels: {after}")
+        print("[rllib] flash launches in phase 21: 0 / 0 / 0")
+    finally:
+        fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches = (
+            before[0] + fa.launches, before[1] + fa.bwd_kv_launches,
+            before[2] + fa.bwd_dq_launches)
+    print(f"[rllib] phase 21 parts (s) on {card}: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return parts
+
+
 # ------------------------------------------------ sharded training
 
 # [batch, heads, seq, head dim] each rank gives the flash kernels on phase
@@ -4617,6 +4982,7 @@ def main() -> int:
     trainer = run(phase_trainer, name, card)
     run(phase_ppo, card)
     run(phase_rllib_tail, card)
+    run(phase_rllib_rest, card)
     tp_serve_launches, tp_serve_records = run(phase_tp_serving, name, card)
     kernels[0].update(tp_serve_records)
     tp_serve_launches.update(run(phase_slot_tp, card))

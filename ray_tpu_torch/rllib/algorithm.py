@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass, replace
-from typing import Callable, Optional, Union
+from typing import Any, Callable, Optional, Union
 
 import numpy as np
 
@@ -61,6 +61,30 @@ class AlgorithmConfig:
         if cls is None:
             raise ValueError("pass algo_cls or use PPOConfig")
         return cls({"_config": self})
+
+
+def call_env_maker(env_maker: Callable, cfg) -> Any:
+    """Build a multi-agent env, passing ``num_agents``/``seed`` only where
+    the factory's signature takes them (directly or through
+    ``**kwargs``); a ``TypeError`` about those two retries bare."""
+    import inspect
+    try:
+        params = inspect.signature(env_maker).parameters
+        var_kw = any(p.kind == inspect.Parameter.VAR_KEYWORD
+                     for p in params.values())
+        kwargs = {}
+        if var_kw or "num_agents" in params:
+            kwargs["num_agents"] = cfg.num_agents
+        if var_kw or "seed" in params:
+            kwargs["seed"] = cfg.seed
+    except ValueError:        # a callable without a signature
+        kwargs = {"num_agents": cfg.num_agents, "seed": cfg.seed}
+    try:
+        return env_maker(**kwargs)
+    except TypeError as e:
+        if kwargs and ("num_agents" in str(e) or "seed" in str(e)):
+            return env_maker()
+        raise
 
 
 class WorkerSet:

@@ -126,3 +126,38 @@ def write_offline_cartpole(path, n_steps=600, seed=0, value_targets=False):
     w.write(SampleBatch(cols))
     w.close()
     return cols
+
+
+def jax_grad_tap():
+    """An optax transform whose state after an update is the gradients
+    (its updates are zeros): a JAX update's own gradients, read back
+    exactly."""
+    import optax
+    return optax.GradientTransformation(
+        lambda params: (),
+        lambda grads, state, params=None: (
+            jax.tree_util.tree_map(jnp.zeros_like, grads), grads))
+
+
+class GradTap:
+    """Stands in for an ``optim.Adam`` in a port update: records the
+    loss and its gradients over the params' leaves (JAX's nesting) and
+    steps nothing."""
+
+    def __init__(self, params):
+        self.params = params
+        self.leaves = optim.tree_leaves(params)
+
+    def minimize(self, loss):
+        self.loss = loss.detach()
+        self.step(grads_of(loss, self.leaves))
+
+    def step(self, grads):
+        self.grads = optim.tree_unflatten(self.params, list(grads))
+
+
+def opt_back(port_opt, like):
+    """The port's Adam state (``{"count", "mu", "nu"}``) in the optax
+    layout of ``like``."""
+    from ray_tpu_torch.models import convert
+    return convert.torch_adam_to_optax(np_tree(port_opt), like=np_tree(like))
