@@ -277,8 +277,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    fresh one whose ``save`` is equal and which trains on; the flash
    launch counts, zeroed at the start, are 0 / 0 / 0 at the end.
 
+22. the elastic gang (``phase_elastic``).  22a: GPT-2 124M at full width
+   and depth, b16 s1024 bf16 "dots", ``Trainer(num_hosts=4)`` on four
+   in-process gang members sharing the card, ``{"dp": -1}``, 18a's six
+   batches, a checkpoint every 3 steps: members 1 and 3 kill themselves
+   at step 4, the gang re-forms at 2 (the survivors' ids kept) and
+   resumes at step 3; a data failure at step 5 re-admits two fresh
+   members, back to 4, which resume at step 3 and finish.  Gates: the
+   attempts' worlds, resume steps and recoveries, every member of an
+   attempt reporting the same, 24 / 12 / 12 launches every member-step at
+   [4, 12, 1024, 64] (world 4) and [8, 12, 1024, 64] (world 2), the
+   losses and grad_norm at steps 2, 4 and 6 within rel 5e-3 and 5e-2 of
+   phase 13's one-device fit; prints the wall time and the peak memory;
+   the three kernels at [8, 12, 1024, 64] bf16 causal are checked and
+   timed (``elastic_shape`` in the kernels JSON).  22b: DD-PPO on two
+   members sharing the card, f32 with TF32 off: two updates on the same
+   host batches equal on the card and the CPU within 1e-4 (1 + scale),
+   the card's ranks bit-equal; then the JAX test's learning run (best
+   mean return above 90 within 25 iterations), both ranks bit-equal
+   after it, env steps/s printed, 0 / 0 / 0 flash launches.
+
 ``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 17 and 19 before phase 7,
-and 15, 16 and 18 after 9: no serving phase runs after the profiler.  The line
+and 15, 16, 18 and 22 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
 """
@@ -2589,7 +2609,9 @@ def phase_trainer(name: str, card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return {"launches": launches, "step_ms": step_ms,
-            "history": [(st, lo) for st, lo, _ in hist]}
+            "history": [(st, lo) for st, lo, _ in hist],
+            "grad_norm": {m["step"]: m["grad_norm"]
+                          for m in res.metrics_history}}
 
 
 # ------------------------------------------------------------------- PPO
@@ -4954,6 +4976,275 @@ def phase_slot_tp(card: str) -> dict:
     return launches
 
 
+# ------------------------------------------------ the elastic gang
+
+ELASTIC_SHAPE = (8, 12, 1024, 64)      # a world-2 member's rows at b16
+
+
+class ElasticBatches:
+    """``batches`` on every pass, scripted by the gang member reading
+    them: ``deaths[(world, step)]`` names the ranks of a world of that
+    size that kill themselves (``MemberKilled``) instead of giving that
+    step's batch, once each; ``failures[(world, step)]`` counts host-data
+    failures there.  The feed raises either at the step it was read
+    for."""
+
+    def __init__(self, batches, deaths, failures):
+        self.batches = batches
+        self.deaths = {k: set(v) for k, v in deaths.items()}
+        self.failures = dict(failures)
+
+    def __iter__(self):
+        from ray_tpu_torch.parallel.gang import MemberKilled, current_member
+
+        me = current_member()
+        for i, b in enumerate(self.batches):
+            key = (me.world, i + 1)
+            if me.rank in self.deaths.get(key, ()):
+                self.deaths[key].discard(me.rank)
+                raise MemberKilled(f"rank {me.rank} of {me.world} dies at "
+                                   f"step {i + 1}")
+            if self.failures.get(key, 0) > 0:
+                self.failures[key] -= 1
+                raise RuntimeError(f"injected data failure at step {i + 1}")
+            yield b
+
+
+def elastic_trainer(name: str, card: str, one_device: list,
+                    one_grad_norm: dict, root: str) -> dict:
+    """22a: GPT-2 124M at full width and depth, b16 s1024 bf16 "dots",
+    ``Trainer(num_hosts=4)`` on in-process members sharing the card,
+    ``{"dp": -1}``, on 18a's six batches, a checkpoint every 3 steps:
+    members 1 and 3 kill themselves at step 4, the gang re-forms at 2 and
+    resumes at step 3; a data failure at step 5 re-admits two fresh
+    members, back to 4, which resume at step 3 and finish.  Returns the
+    run's launches."""
+    import logging
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.parallel.gang import current_member
+    from ray_tpu_torch.train import Trainer, adamw
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    logging.getLogger("ray_tpu_torch.train").setLevel(logging.ERROR)
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L = cfg.n_layers
+    data = ElasticBatches(HostBatches(6, 16, 1024, 4096, SEED + 20).batches,
+                          deaths={(4, 4): {1, 3}}, failures={(2, 5): 1})
+    # per member and attempt: the thread's launches at each step's start
+    # (since the last mark) and at the attempt's end
+    marks: dict = {}
+
+    class CountingTrainer(Trainer):
+        def train_loop(self, report, get_checkpoint):
+            log = marks.setdefault(current_member().member_id, [])
+            log.append([])
+            fa.reset_thread_launches()
+            try:
+                super().train_loop(report, get_checkpoint)
+            finally:
+                log[-1].append(dict(fa.thread_launches()))
+
+    def loss_fn(p, batch, mesh=None, rules=None):
+        marks[current_member().member_id][-1].append(
+            dict(fa.thread_launches()))
+        fa.reset_thread_launches()
+        return gpt.loss_fn(p, batch, cfg, mesh=mesh,
+                           **({} if rules is None else {"rules": rules}))
+
+    tr = CountingTrainer(
+        loss_fn=loss_fn, init_params=lambda seed: gpt.init_params(cfg, seed),
+        optimizer=adamw(3e-4, weight_decay=0.1), train_data=data,
+        num_steps=6, report_every=1, checkpoint_every=3, seed=SEED,
+        storage_path=os.path.join(root, "elastic"), max_failures=2,
+        num_hosts=4, mesh={"dp": -1},
+        params_logical=gpt.param_logical_axes(cfg))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    t0 = time.perf_counter()
+    res = tr.fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    total = [fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches]
+    ckpts = sorted(os.listdir(os.path.join(root, "elastic", "checkpoints")))
+
+    worlds = [a["world"] for a in tr.attempts]
+    starts = [a["start_step"] for a in tr.attempts]
+    recov = [a.get("recovery") for a in tr.attempts]
+    check(worlds == [4, 2, 4] and starts == [0, 3, 3]
+          and recov == ["shrink", "readmit", None],
+          f"22a: attempts at worlds {worlds} from steps {starts}, "
+          f"recoveries {recov}")
+    ids = [a["member_ids"] for a in tr.attempts]
+    check(ids[1] == [ids[0][0], ids[0][2]] and ids[2][:2] == ids[1]
+          and not set(ids[2][2:]) & set(ids[0]), f"22a: member ids {ids}")
+    check(tr.attempts[0]["error"].rank in (1, 3),
+          f"22a: the first attempt failed on rank "
+          f"{tr.attempts[0]['error'].rank}")
+    want_steps = [[1, 2, 3], [4], [4, 5, 6]]
+    for a, steps in zip(tr.attempts, want_steps):
+        reps = [[(m["step"], m["loss"], m["grad_norm"]) for m in r]
+                for r in a["reports"].values()]
+        check(len(reps) == a["world"] and all(r == reps[0] for r in reps)
+              and [st for st, _, _ in reps[0]] == steps,
+              f"22a: world {a['world']} members reported {reps}")
+    hist = [(m["step"], m["loss"], m["grad_norm"])
+            for m in res.metrics_history]
+    check([st for st, _, _ in hist] == [1, 2, 3, 4, 4, 5, 6],
+          f"22a: reported steps {[st for st, _, _ in hist]}")
+    check(ckpts == ["checkpoint_000000", "checkpoint_000001"]
+          and res.checkpoint.to_dict()["step"] == 6,
+          f"22a: checkpoints {ckpts}")
+    # launches per member and step: 24 / 12 / 12 at the member's rows
+    b, s1 = data.batches[0]["tokens"].shape
+    shapes = {w: (b // w, cfg.n_heads, s1 - 1, cfg.d_model // cfg.n_heads)
+              for w in (4, 2)}
+    check(shapes[2] == ELASTIC_SHAPE, f"22a: a world-2 member's shape "
+          f"{shapes[2]}, the kernels timed at {ELASTIC_SHAPE}")
+    counted = 0
+    for a, steps in zip(tr.attempts, want_steps):
+        want = per_kernel(shapes[a["world"]], 2 * L, L, L)
+        for mid in a["member_ids"]:
+            seen = marks[mid].pop(0)[1:]     # the first is before step 1
+            check(len(seen) == len(steps) and all(x == want for x in seen),
+                  f"22a: member {mid} in world {a['world']} launched "
+                  f"{seen}, expected {want} at each of steps {steps}")
+            counted += len(seen)
+    check(counted == 4 * 3 + 2 * 1 + 4 * 3,
+          f"22a: {counted} member-steps counted, expected 26")
+    want = dict(one_device)
+    rel = []
+    for st, lo, gn in hist:
+        if st in (2, 4, 6):
+            dl = abs(lo - want[st]) / abs(want[st])
+            dn = abs(gn - one_grad_norm[st]) / abs(one_grad_norm[st])
+            rel.append((st, dl, dn))
+            check(np.isfinite(lo) and dl <= 5e-3 and dn <= 5e-2,
+                  f"22a step {st}: loss {lo} vs {want[st]}, grad_norm {gn} "
+                  f"vs {one_grad_norm[st]}")
+    check(sorted({st for st, _, _ in rel}) == [2, 4, 6],
+          f"22a: compared steps {rel}")
+    print(f"[elastic 22a] GPT-2 124M b16 s1024 bf16 \"dots\", "
+          f"Trainer(num_hosts=4) on in-process members sharing {card}, "
+          f"{{\"dp\": -1}}: attempts at worlds {worlds} from steps {starts} "
+          f"(recoveries {recov[:2]}); member ids {ids}; every member "
+          f"reported the same; per member-step launches {2 * L} / {L} / "
+          f"{L} at {list(shapes[4])} (world 4) and {list(ELASTIC_SHAPE)} "
+          f"(world 2); reported (step, loss) "
+          f"{[(st, round(lo, 5)) for st, lo, _ in hist]}; vs phase 13's "
+          f"one-device fit at steps 2/4/6: largest rel loss "
+          f"{max(d for _, d, _ in rel):.2e} (bound 5e-3), grad_norm "
+          f"{max(d for _, _, d in rel):.2e} (bound 5e-2); {wall:.1f} s wall "
+          f"for the fit (three attempts, two checkpoints written, four "
+          f"members share one card and one host: not a throughput); peak "
+          f"device memory added {peak / 2**30:.2f} GiB")
+    return {"trainer_elastic_gang": total}
+
+
+def ddppo_parity(card: str) -> None:
+    """22b's parity: DD-PPO at the lockstep test's settings on the card
+    and on the CPU, the card's restored from the CPU's initial params;
+    two updates on the same host batches (the CPU workers' rollouts)
+    equal within 1e-4 (1 + scale), the card's two ranks bit-equal after
+    each."""
+    from ray_tpu_torch.rllib import DDPPOConfig
+    from ray_tpu_torch.rllib.ddppo import _worker
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    small = dict(env="CartPole-v1", num_rollout_workers=2,
+                 num_envs_per_worker=2, rollout_length=32,
+                 train_batch_size=128, minibatch_size=64, num_epochs=1,
+                 seed=3)
+    cpu = DDPPOConfig(**small, device="cpu").build()
+    gpu = DDPPOConfig(**small, device="cuda").build()
+    try:
+        gpu.load_checkpoint(cpu.save_checkpoint())
+        for k in range(2):
+            batches = [w.sample() for w in cpu.workers]
+
+            def learn(rank, batches):
+                return _worker().learn(batches[rank])
+
+            got, ref = gpu.gang.run(learn, batches), cpu.gang.run(
+                learn, batches)
+            pairs = [(torch.tensor([g[m] for m in sorted(g)]),
+                      torch.tensor([r[m] for m in sorted(r)]))
+                     for g, r in zip(got, ref)]
+            w_gpu = [w.get_weights() for w in gpu.workers]
+            w_cpu = [w.get_weights() for w in cpu.workers]
+            pairs += [(torch.from_numpy(a), torch.from_numpy(b))
+                      for r in (0, 1) for a, b in zip(
+                          tree_leaves(w_gpu[r]), tree_leaves(w_cpu[r]))]
+            check(len(pairs) == 2 + 2 * 8, f"22b: {len(pairs)} pairs")
+            held_f32(f"DD-PPO update {k + 1} (both ranks' params and "
+                     f"metrics)", pairs)
+            for a, b in zip(tree_leaves(w_gpu[0]), tree_leaves(w_gpu[1])):
+                check(np.array_equal(a, b),
+                      "22b: the card's ranks' params differ")
+    finally:
+        cpu.cleanup()
+        gpu.cleanup()
+
+
+def phase_elastic(name: str, card: str, one_device: list,
+                  one_grad_norm: dict) -> tuple:
+    """22a (``elastic_trainer``) and 22b, DD-PPO on two members sharing
+    the card: the parity of ``ddppo_parity``, then the learning run at
+    the JAX test's settings (best mean return above 90 within 25
+    iterations), both ranks bit-equal after it, no flash launch.  Also
+    the three kernels at ``ELASTIC_SHAPE`` bf16 causal.  Returns
+    (launches by path, the kernels' records at that shape)."""
+    from ray_tpu_torch.rllib import DDPPOConfig
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    root = tempfile.mkdtemp(prefix="_chip_smoke_ckpt_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        launches = elastic_trainer(name, card, one_device, one_grad_norm,
+                                   root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    records = rank_shape_times(name, card, ELASTIC_SHAPE, True,
+                               "a world-2 member's rows", "elastic",
+                               SEED + 22)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    ddppo_parity(card)
+    algo = DDPPOConfig(env="CartPole-v1", num_rollout_workers=2,
+                       num_envs_per_worker=4, rollout_length=64,
+                       train_batch_size=512, minibatch_size=128,
+                       num_epochs=2, lr=5e-3, seed=0).build()
+    try:
+        results = rl_learn("DD-PPO, 2 members sharing the card", algo, 25,
+                           card, learner="", stop=best_above(90))
+        best = max(r.get("episode_reward_mean", 0.0) for r in results)
+        bar_check("DD-PPO", best > 90, f"best mean return {best:.2f} above "
+                  f"90 within 25 iterations")
+        w0, w1 = (tree_leaves(w.get_weights()) for w in algo.workers)
+        check(len(w0) == 8, f"22b: {len(w0)} params leaves")
+        for a, b in zip(w0, w1):
+            check(np.array_equal(a, b), "22b: the ranks' params differ "
+                  "after the learning run")
+        print(f"[elastic 22b] DD-PPO: the two ranks' params bit-equal after "
+              f"{len(results)} iterations; env steps/s "
+              f"{[round(r['env_steps_per_sec'], 1) for r in results]}")
+    finally:
+        algo.cleanup()
+    seen = flash_launches()
+    print(f"[elastic 22b] flash launches {seen[0]} / {seen[1]} / {seen[2]}")
+    check(seen == (0, 0, 0), f"22b: DD-PPO launched {seen}")
+    return launches, records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -5003,6 +5294,11 @@ def main() -> int:
             k[key] = rec[k["name"]]
     train_launches.update(run(phase_mesh_trainer, card,
                               trainer["history"]))
+    elastic_launches, elastic_records = run(
+        phase_elastic, name, card, trainer["history"], trainer["grad_norm"])
+    train_launches.update(elastic_launches)
+    for k in kernels:
+        k["elastic_shape"] = elastic_records[k["name"]]
     train_launches.update(model_launches)
     train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
@@ -5013,8 +5309,9 @@ def main() -> int:
     # sharded steps: 15a's three checked ones, 15b's three per rank, and
     # phase 16's pipelined and expert-parallel steps and passes, the
     # trainer's fits on a mesh (18a's six steps at NCCL world size 1,
-    # 18b's six a rank on four threaded ranks) and the slot engine's
-    # admissions on tp (19a-c)
+    # 18b's six a rank on four threaded ranks), the slot engine's
+    # admissions on tp (19a-c) and the elastic gang's 26 member-steps
+    # (22a)
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

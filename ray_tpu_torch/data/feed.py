@@ -13,7 +13,9 @@ the batch's memory while the consumer's stream may still read it.
 
 An error raised by the host iterator reaches the consumer at the batch
 it was raised for, not earlier when the feed reads ahead, so a failure
-injected at step k fails step k.
+injected at step k fails step k.  So does any other ``BaseException``
+the iterator raises (a gang member's scripted death) except the three
+that stop the program or the generator, which pass at once.
 
 On a mesh (``mesh=``, a ``DeviceMesh``) every rank reads the same global
 host batch and copies only the rows it owns, the block of dim 0 that
@@ -85,7 +87,9 @@ def _feed(it: Iterator[dict], dev: torch.device, prefetch: int,
             batch = next(it)
         except StopIteration:
             return False
-        except Exception as e:  # raised when the consumer gets this far
+        except (KeyboardInterrupt, SystemExit, GeneratorExit):
+            raise
+        except BaseException as e:  # raised when the consumer gets this far
             window.append((None, None, e))
             return False
         cols = {k: np.asarray(v) for k, v in batch.items()}

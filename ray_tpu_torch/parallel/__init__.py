@@ -4,11 +4,15 @@ rules (DTensor placements), the in-mesh collectives and ``shard_call``
 running a mesh in one process, and the pipeline schedules over pp
 (``parallel.pipeline``: GPipe; ``parallel.pipeline_1f1b``: 1F1B).  Ring
 attention is ``ops.ring_attention``.  The single-host gang
-(``TpuGang``, ``form_gang``) is ``parallel.gang``; the multi-host gang is
-not ported yet."""
+(``TpuGang``, ``form_gang``) and the elastic multi-host gang
+(``MultiHostGang``, ``GangMember``, in-process members) are
+``parallel.gang``; a member's world is ``parallel.distributed``."""
 
 from ray_tpu_torch.parallel import collectives
-from ray_tpu_torch.parallel.gang import GangConfig, TpuGang, form_gang
+from ray_tpu_torch.parallel.gang import (GangConfig, GangMember,
+                                         GangMemberDied, MemberKilled,
+                                         MultiHostGang, TpuGang,
+                                         current_member, form_gang)
 from ray_tpu_torch.parallel.mesh import (AXIS_ORDER, MeshSpec, batch_sharding,
                                          create_hybrid_mesh, create_mesh,
                                          data_axes, mesh_shape, replicated)
@@ -24,5 +28,6 @@ __all__ = [
     "DEFAULT_LLM_RULES", "spec_for", "placements_for", "sharding_for",
     "tree_shardings", "infer_param_logical_axes", "place", "constrain",
     "collectives", "RankError", "run_ranks", "GangConfig", "TpuGang",
-    "form_gang",
+    "form_gang", "GangMember", "GangMemberDied", "MemberKilled",
+    "MultiHostGang", "current_member",
 ]

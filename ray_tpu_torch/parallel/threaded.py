@@ -13,6 +13,8 @@ The group is process-wide state: ``run_ranks`` installs it, and restores
 c10d's world, the thread-isolation mode and autograd's multithreading in
 ``finally``.  Autograd runs each backward on the rank's own thread while
 it is installed, so collectives in a backward see their rank's world.
+A rank woken when another raised stops in the first collective that can
+no longer complete; one that had completed completes on every rank.
 One rank runs at a time: a rank holds a baton from the end of its first
 collective and hands it on whenever it waits in one (or in a store
 barrier, as creating a mesh's groups does).  Eight ranks scrambling for
@@ -38,11 +40,17 @@ _active_baton: Optional["_Baton"] = None
 
 
 class RankError(RuntimeError):
-    """A rank raised; the message holds that rank's traceback."""
+    """A rank raised; the message holds that rank's traceback and
+    ``rank`` names it (the first to raise, before the woken ones)."""
+
+    def __init__(self, message: str, rank: int = -1):
+        super().__init__(message)
+        self.rank = rank
 
 
 def run_ranks(fn: Callable[[int], Any], world_size: int, *,
-              timeout: Optional[float] = 60.0) -> list:
+              timeout: Optional[float] = 60.0,
+              init: Optional[Callable[[int], Any]] = None) -> list:
     """``[fn(0), ..., fn(world_size - 1)]``, each on its own thread with
     the threaded default process group initialised for that rank.  The
     first rank to raise re-raises here as ``RankError`` with its
@@ -51,7 +59,10 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
     after ``timeout`` seconds in all raises ``TimeoutError`` (woken the
     same way; a rank that never waits in a collective is left behind, a
     daemon thread).  ``timeout=None`` waits as long as the ranks run (a
-    serving executor's ranks, stopped by their caller)."""
+    serving executor's ranks, stopped by their caller).  ``init(rank)``,
+    when given, joins the rank's thread to the world in place of the
+    default ``init_process_group`` over a fresh store (a gang member
+    joins through its coordinator: ``distributed.initialize``)."""
     from torch.testing._internal.distributed import multi_threaded_pg as mtp
 
     global _active_baton
@@ -60,7 +71,15 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
 
     def baton_join(self, rank, data):
         with baton.handed_on(reacquire=True):
-            return join(self, rank, data)
+            try:
+                return join(self, rank, data)
+            except SystemExit:
+                # a wake-up that raced the end of a collective which
+                # completed (its data is copied): it completes here too,
+                # so only a collective that can never complete raises
+                if self._done:
+                    return mtp.ret_work(data)
+                raise
 
     def baton_barrier(*a, **kw):
         with baton.handed_on(reacquire=False):
@@ -86,8 +105,12 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
             # whole below (and torch 2.11's destroy fails on it)
             try:
                 torch.set_num_threads(1)
-                dist.init_process_group("threaded", rank=rank,
-                                        world_size=world_size, store=store)
+                if init is None:
+                    dist.init_process_group("threaded", rank=rank,
+                                            world_size=world_size,
+                                            store=store)
+                else:
+                    init(rank)
                 results[rank] = fn(rank)
             except BaseException:            # reported by the caller
                 with lock:
@@ -127,7 +150,7 @@ def run_ranks(fn: Callable[[int], Any], world_size: int, *,
         rank = raised[0]
         stuck = f" (ranks {hung} still running)" if hung else ""
         raise RankError(f"rank {rank} of {world_size} failed{stuck}:\n"
-                        f"{errors[rank]}")
+                        f"{errors[rank]}", rank)
     if hung:
         raise TimeoutError(f"ranks {hung} of {world_size} did not finish "
                            f"within {timeout} s")

@@ -8,9 +8,9 @@ LinTS; ES and ARS; the RLModule / Learner / LearnerGroup stack; the
 recurrent, multi-agent and slate learners R2D2, QMIX, MADDPG, SlateQ and
 multi-agent PPO; the planning and model-based ones AlphaZero, MAML,
 MB-MPO and Dreamer; and the host-side ModelCatalog, connectors and
-PolicyServerInput / PolicyClient.  Exported under the JAX package's
-names; the multi-learner algorithms (ApexDQN, DDPPO, AlphaStar) are not
-ported."""
+PolicyServerInput / PolicyClient; and DD-PPO, whose workers are the
+members of an in-process gang.  Exported under the JAX package's names;
+Ape-X and AlphaStar are not ported."""
 
 from ray_tpu_torch.rllib.a2c import A2C, A2CConfig
 from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
@@ -29,6 +29,7 @@ from ray_tpu_torch.rllib.connectors import (ClipActions, ClipReward,
                                             MeanStdFilter, UnsquashActions)
 from ray_tpu_torch.rllib.cql import CQL, CQLConfig
 from ray_tpu_torch.rllib.ddpg import DDPG, DDPGConfig, TD3, TD3Config
+from ray_tpu_torch.rllib.ddppo import DDPPO, DDPPOConfig
 from ray_tpu_torch.rllib.dqn import DQN, DQNConfig, SimpleQ, SimpleQConfig
 from ray_tpu_torch.rllib.dreamer import (Dreamer, DreamerConfig,
                                          LinearLatentEnv)
@@ -94,4 +95,4 @@ __all__ = ["A2C", "A2CConfig", "Algorithm", "AlgorithmConfig", "WorkerSet",
            "PolicyClient", "PolicyServerInput", "R2D2", "R2D2Config",
            "QMIX", "QMIXConfig", "TeamSwitch", "MADDPG", "MADDPGConfig",
            "SpreadLine", "Dreamer", "DreamerConfig", "LinearLatentEnv",
-           "MAML", "MAMLConfig", "SinusoidTasks"]
+           "MAML", "MAMLConfig", "SinusoidTasks", "DDPPO", "DDPPOConfig"]

@@ -14,7 +14,7 @@ bridge one set of weights and compare functions, not samples.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -70,7 +70,10 @@ def policy_forward(params, obs):
 
 class TorchPolicy:
     """Params on ``device`` (None = the CUDA card) and the sampling
-    generator, seeded with ``seed + 1`` as the JAX policy seeds its key."""
+    generator, seeded with ``seed + 1`` as the JAX policy seeds its key.
+    ``gumbel_fn``, when set, gives the Gumbel noise of each draw instead
+    (``() -> [B, num_actions]``; the action is ``argmax(logits + g)``, as
+    ``jax.random.categorical`` draws), so a parity test can feed JAX's."""
 
     def __init__(self, cfg: PolicyConfig, seed: int = 0, device=None):
         self.cfg = cfg
@@ -78,6 +81,7 @@ class TorchPolicy:
         self.params = init_policy_params(cfg, seed, device=self.device)
         self._gen = torch.Generator(device=self.device).manual_seed(
             seed + 1)
+        self.gumbel_fn: Optional[Callable[[], np.ndarray]] = None
 
     @torch.no_grad()
     def compute_actions(self, obs: np.ndarray):
@@ -86,8 +90,12 @@ class TorchPolicy:
         x = torch.as_tensor(np.asarray(obs, np.float32)).to(self.device)
         logits, value = policy_forward(self.params, x)
         logp_all = torch.log_softmax(logits, dim=-1)
-        actions = torch.multinomial(logp_all.exp(), 1,
-                                    generator=self._gen)[:, 0]
+        if self.gumbel_fn is None:
+            actions = torch.multinomial(logp_all.exp(), 1,
+                                        generator=self._gen)[:, 0]
+        else:
+            g = torch.as_tensor(np.array(self.gumbel_fn(), np.float32))
+            actions = torch.argmax(logits + g.to(self.device), dim=-1)
         logp = logp_all.gather(1, actions[:, None])[:, 0]
         return (actions.cpu().numpy(), logp.cpu().numpy(),
                 value.cpu().numpy(), logits.cpu().numpy())

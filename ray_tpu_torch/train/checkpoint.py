@@ -206,7 +206,10 @@ class CheckpointManager:
     the writer does and keep the same list, writing nothing.  ``barrier``
     (the world's, on a mesh) runs on every rank after each ``save`` and
     ``flush``: after a ``flush`` the writer's last save is on disk, so
-    every rank's ``latest()`` then names the same directory."""
+    every rank's ``latest()`` then names the same directory.  It also
+    runs once at the end of ``__init__``, after this rank listed
+    ``root``: no writer saves before every rank has numbered its saves
+    from the same listing."""
 
     def __init__(self, root: str, num_to_keep: Optional[int] = None, *,
                  writer: bool = True,
@@ -219,6 +222,7 @@ class CheckpointManager:
         self._seq = 0
         self._kept: list[str] = list(self._existing())
         self._async = AsyncCheckpointer()
+        self._sync()
 
     def _existing(self):
         out = sorted(d for d in os.listdir(self.root)

@@ -32,14 +32,37 @@ Failures on a mesh of more than one rank: the ranks agree after every
 host batch (an all-reduce of who failed to get it), so an error of the
 host iterator at step k, on any rank, is raised on every rank at step k
 (``HostDataError``) and every rank restarts from the same checkpoint.
-Any other error of a rank is not retried: that rank's ``fit`` raises and
-the run ends (the others, waiting in a collective it will never join,
-are the launcher's to stop; a failure of one rank alone is the
-multi-host gang's business, not ported).
+Any other error of a rank is not retried there: that rank's ``fit``
+raises and the run ends (the others, waiting in a collective it will
+never join, are the launcher's to stop).  A failure of one rank alone is
+what the multi-host arm recovers from.
+
+The multi-host arm (``num_hosts > 1``, the port of the JAX
+``DataParallelTrainer``'s): ``fit()`` is called once, by the process
+that owns the gang, not on its members.  It forms a
+``parallel.gang.MultiHostGang`` of ``num_hosts`` members (threads of this
+process sharing ``device``) and each attempt runs the same ``train_loop``
+on every member, over a mesh of the axes given (default ``{"dp": -1}``,
+which fills each world).  Every member feeds its rows of each global
+batch, so a change of world reshards the stream at the resume step with
+no data movement; rank 0's manager writes the checkpoints and the owner's
+manager, over the same root, finds them.  The reports are rank 0's (kept from failed attempts too, as on one
+device); ``attempts`` records each attempt's world, member ids, resume
+step and every member's reports.  After an attempt fails, recovery is
+``_elastic_recover``'s, as in the JAX package: members dead, shrink to
+the survivors (the resume attempt runs at the smaller world, from the
+latest checkpoint); every member alive and the gang below target,
+re-admit; alive and at target, re-form in place; fewer than ``min_hosts``
+alive, or re-forming failed, tear the gang down and form a fresh one.  A
+fresh attempt at a re-gang boundary re-admits first, and carries on at
+the smaller world when that fails.  The final state is the last
+checkpoint's (``Result.checkpoint``; ``final_state`` stays None: the
+members' tensors belong to a world that has ended).
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import inspect
 import logging
@@ -56,7 +79,8 @@ from torch.distributed.tensor import DTensor
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data.feed import device_batches
 from ray_tpu_torch.models.convert import _map
-from ray_tpu_torch.parallel.gang import form_gang
+from ray_tpu_torch.parallel.gang import (GangConfig, MultiHostGang,
+                                         TpuGang, current_member, form_gang)
 from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, Rules
 from ray_tpu_torch.train import session as _session
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
@@ -95,7 +119,11 @@ class Trainer:
     ``mesh``: a ``DeviceMesh`` or the axes of one (formed here over the
     world, on ``device``); ``params_logical`` places the params on it
     (every leaf replicated without it) by ``rules``; the module note
-    says how the loop runs there."""
+    says how the loop runs there.
+
+    ``num_hosts > 1``: the multi-host arm (``ScalingConfig``'s
+    ``num_hosts``, ``elastic`` and ``min_hosts``); ``mesh`` is then the
+    axes each world lays over its members."""
 
     def __init__(self, *, loss_fn: Callable,
                  init_params: Callable[[int], Any],
@@ -114,9 +142,21 @@ class Trainer:
                  mesh=None,
                  params_logical: Any = None,
                  rules: Optional[Rules] = None,
-                 device=None):
-        if mesh is None and (params_logical is not None
-                             or rules is not None):
+                 device=None,
+                 num_hosts: int = 1,
+                 elastic: bool = True,
+                 min_hosts: int = 1):
+        self.num_hosts, self.elastic = num_hosts, elastic
+        self.min_hosts = min_hosts
+        self.mesh_axes = None
+        if num_hosts > 1:
+            if mesh is not None and not isinstance(mesh, dict):
+                raise ValueError("with num_hosts > 1 give the mesh as axes: "
+                                 "each world of the gang lays its own")
+            self.mesh_axes = dict(mesh or {"dp": -1})
+            mesh = None
+        elif mesh is None and (params_logical is not None
+                               or rules is not None):
             raise ValueError("params_logical and rules place the params on "
                              "a mesh; give the mesh too")
         if isinstance(mesh, dict):
@@ -143,6 +183,12 @@ class Trainer:
         self.final_state = None
         self.start_step = 0          # where the last attempt began
         self.feed_wait_s: list = []  # host seconds in the feed, per step
+        self._gang: Optional[MultiHostGang] = None
+        # set by an elastic shrink, so the resume attempt right after it
+        # runs at the smaller world (replacements wait for the next
+        # boundary)
+        self._elastic_shrunk = False
+        self.attempts: list = []     # the multi-host arm's, one a try
 
     def train_loop(self, report: Callable, get_checkpoint: Callable) -> None:
         """One attempt: ``report(metrics, checkpoint=payload or None)``
@@ -262,43 +308,56 @@ class Trainer:
         return batch
 
     def fit(self) -> Result:
-        run_dir = self.storage_path
+        if self.num_hosts > 1:
+            return self._fit_gang()
         rank, world = self._world()
-        os.makedirs(run_dir, exist_ok=True)
+        os.makedirs(self.storage_path, exist_ok=True)
         manager = CheckpointManager(
-            os.path.join(run_dir, "checkpoints"),
+            os.path.join(self.storage_path, "checkpoints"),
             num_to_keep=self.num_to_keep, writer=rank == 0,
             barrier=dist.barrier if world > 1 else None)
-        restore = self.resume_from_checkpoint or manager.latest()
-        attempt, error = 0, None
-        results: list = []
-        while True:
+
+        def attempt(restore, results):
             st = _session._start(checkpoint_cb=manager.save,
                                  latest_checkpoint=restore,
                                  world_rank=rank, world_size=world)
             try:
                 self.train_loop(_session.report, _session.get_checkpoint)
-                error = None
-                break
             except StopIteration:    # the data ran out: the run ends
-                error = None
-                break
-            except Exception as e:   # restart from the last checkpoint
-                error = e
-                attempt += 1
-                logger.warning("training attempt %d failed: %s", attempt, e)
-                # on a mesh only a failure every rank agreed on restarts
-                if attempt > self.max_failures or (
-                        world > 1 and not isinstance(e, HostDataError)):
-                    break
-                manager.flush()
-                restore = manager.latest()
+                pass
             finally:
                 results.extend(st.results)
                 _session._end()
 
-        if error is not None and world > 1 and not isinstance(
-                error, HostDataError):
+        # on a mesh only a failure every rank agreed on restarts
+        return self._restart_loop(
+            manager, attempt,
+            lambda e: world == 1 or isinstance(e, HostDataError))
+
+    def _restart_loop(self, manager: CheckpointManager,
+                      attempt: Callable, restarts: Callable) -> Result:
+        """``attempt(restore, results)`` until one ends, each failure that
+        ``restarts(error)`` accepts restarting from ``manager``'s latest
+        checkpoint, up to ``max_failures`` times; ``results`` collects the
+        reports of every attempt."""
+        restore = self.resume_from_checkpoint or manager.latest()
+        tries, error = 0, None
+        results: list = []
+        while True:
+            try:
+                attempt(restore, results)
+                error = None
+                break
+            except Exception as e:   # restart from the last checkpoint
+                error = e
+                tries += 1
+                logger.warning("training attempt %d failed: %s", tries, e)
+                if tries > self.max_failures or not restarts(e):
+                    break
+                manager.flush()
+                restore = manager.latest()
+
+        if error is not None and not restarts(error):
             # this rank failed alone: the others wait in a collective it
             # will never join, so it waits at no barrier either
             manager.flush(sync=False)
@@ -306,9 +365,141 @@ class Trainer:
             manager.flush()
             res = Result(metrics=results[-1] if results else {},
                          checkpoint=manager.latest(), error=error,
-                         path=run_dir, metrics_history=results)
+                         path=self.storage_path, metrics_history=results)
         if error is not None:
             raise TrainingFailedError(
-                f"training failed after {attempt} attempt(s): {error}\n"
+                f"training failed after {tries} attempt(s): {error}\n"
                 + "".join(traceback.format_exception(error))) from error
         return res
+
+    # -- the multi-host arm --------------------------------------------------
+
+    @property
+    def gang(self) -> MultiHostGang:
+        """The multi-host arm's gang, formed on first use (again after a
+        teardown)."""
+        if self._gang is None:
+            self._gang = MultiHostGang(self.num_hosts, device=self.device)
+        return self._gang
+
+    def _fit_gang(self) -> Result:
+        """``fit()`` of the gang's owner: every failed attempt on the gang
+        restarts (the owner reads the checkpoints rank 0 writes)."""
+        os.makedirs(self.storage_path, exist_ok=True)
+        manager = CheckpointManager(
+            os.path.join(self.storage_path, "checkpoints"),
+            num_to_keep=self.num_to_keep, writer=False)
+        self.final_state = None
+        return self._restart_loop(manager, self._attempt_gang,
+                                  lambda e: True)
+
+    def _elastic_recover(self, gang: MultiHostGang) -> Optional[str]:
+        """In-place recovery after a failed attempt: the gang re-formed
+        from its surviving members, which the next attempt reuses
+        ("shrink" to them; "readmit" toward the target when this boundary
+        saw no death; "reform" in place), or None: tear down and form a
+        fresh gang."""
+        if not self.elastic:
+            return None
+        try:
+            alive = gang.alive_ranks()
+        except Exception:
+            return None
+        if len(alive) < max(1, self.min_hosts):
+            return None
+        try:
+            if len(alive) < gang.num_members:
+                kind = "shrink"
+                logger.warning("elastic re-gang: %d/%d members survive; "
+                               "shrinking and resuming from the latest "
+                               "checkpoint", len(alive), gang.num_members)
+                gang.reform(alive)
+                self._elastic_shrunk = True
+            elif gang.num_members < gang.target_members:
+                kind = "readmit"
+                logger.warning("elastic re-gang: re-admitting %d "
+                               "replacement member(s)",
+                               gang.target_members - gang.num_members)
+                gang.readmit()
+            else:
+                # every member alive: the failure was the attempt's, so
+                # the world is rebuilt in place for the retry
+                kind = "reform"
+                gang.reform(list(range(gang.num_members)))
+        except Exception:
+            logger.warning("elastic re-gang failed; falling back to a "
+                           "fresh gang", exc_info=True)
+            return None
+        self._gang = gang
+        return kind
+
+    def _attempt_gang(self, restore: Optional[Checkpoint],
+                      results: list) -> None:
+        """One attempt on every member of the gang: each runs
+        ``train_loop`` on a copy of this trainer over the world's mesh
+        (``TpuGang`` of ``num_hosts=world``), with a checkpoint manager
+        over the run's root (rank 0 writes) and the checkpoint
+        ``restore`` names.  Rank 0's reports go to ``results``."""
+        gang = self.gang
+        if (self.elastic and not self._elastic_shrunk
+                and gang.num_members < gang.target_members):
+            # a fresh attempt at a re-gang boundary (not the resume right
+            # after a shrink): back to the target world
+            try:
+                gang.readmit()
+            except Exception:
+                logger.warning("replacement re-admission failed; "
+                               "continuing at world=%d", gang.num_members,
+                               exc_info=True)
+        self._elastic_shrunk = False
+        world = gang.num_members
+        # what the attempt ran on and saw; "error" and "recovery" (shrink,
+        # readmit, reform or fresh) when it failed
+        record = {"world": world, "member_ids": gang.member_ids(),
+                  "start_step": None, "reports": {}}
+        self.attempts.append(record)
+        ckpt_dir = os.path.join(self.storage_path, "checkpoints")
+        restore_path = restore.path if restore is not None else None
+
+        def member_attempt(rank):
+            tr = copy.copy(self)
+            tr.mesh = TpuGang(GangConfig(self.mesh_axes, num_hosts=world,
+                                         device=self.device.type)).mesh
+            tr.device = (torch.device("cuda", torch.cuda.current_device())
+                         if self.device.type == "cuda" else self.device)
+            mgr = CheckpointManager(ckpt_dir, num_to_keep=self.num_to_keep,
+                                    writer=rank == 0, barrier=dist.barrier)
+            st = _session._start(
+                checkpoint_cb=mgr.save, world_rank=rank, world_size=world,
+                latest_checkpoint=(Checkpoint(restore_path)
+                                   if restore_path else None))
+            st.results = record["reports"].setdefault(
+                current_member().member_id, [])
+            try:
+                tr.train_loop(_session.report, _session.get_checkpoint)
+            except StopIteration:    # the data ran out: the run ends
+                pass
+            finally:
+                # the writer's last save lands before the world ends;
+                # no barrier: a peer may be dead
+                mgr.flush(sync=False)
+                _session._end()
+                if rank == 0:
+                    record["start_step"] = tr.start_step
+                    results.extend(st.results)
+            return tr.start_step
+
+        try:
+            gang.run(member_attempt)
+        except Exception as e:
+            record["error"] = e
+            record["recovery"] = self._elastic_recover(gang)
+            if record["recovery"] is None:
+                # too few survivors, or re-forming failed: the next
+                # attempt forms a fresh gang
+                record["recovery"] = "fresh"
+                gang.shutdown()
+                self._gang = None
+            raise
+        self._gang = gang
+        self.start_step = record["start_step"]

@@ -65,16 +65,17 @@ def setup():
     return jcfg, tcfg, tree, batches, held
 
 
-def jax_fit(case, axes: dict, root: str):
+def jax_fit(case, axes: dict, root: str, data=None, max_failures=1):
     """``JaxTrainer.fit`` on ``axes`` (conftest's CPU devices), failing
-    once at step 4: (trainer, result, data)."""
+    once at step 4 (or as ``data`` fails, up to ``max_failures``
+    times): (trainer, result, data)."""
     jcfg, _, tree, batches, held = case
 
     def loss(p, b, mesh=None, rules=JRULES):
         return jgpt.loss_fn(p, b, jcfg, mesh=mesh, rules=rules)
 
     jeval = jax.jit(lambda p: jgpt.loss_fn(p, {"tokens": held}, jcfg))
-    data = FailingBatches(batches, FAIL_AT)
+    data = FailingBatches(batches, FAIL_AT) if data is None else data
     tr = JaxTrainer(
         loss_fn=loss,
         init_params=lambda rng: jax.tree_util.tree_map(jnp.asarray, tree),
@@ -83,7 +84,8 @@ def jax_fit(case, axes: dict, root: str):
         eval_every=3, report_every=1, checkpoint_every=CKPT_EVERY,
         scaling_config=ScalingConfig(mesh=dict(axes), use_cpu_devices=True),
         run_config=RunConfig(name="jax", storage_path=root,
-                             failure_config=FailureConfig(max_failures=1)))
+                             failure_config=FailureConfig(
+                                 max_failures=max_failures)))
     return tr, tr.fit(), data
 
 

@@ -8,6 +8,7 @@ checkpoint manager of a mesh: one writer, every rank naming the same
 directories."""
 
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -79,3 +80,41 @@ def test_mesh_checkpoint_manager_has_one_writer(tmp_path):
     assert d0 == d1 == {"i": 2, "rank": 0}
     assert sorted(os.listdir(root)) == ["checkpoint_000001",
                                         "checkpoint_000002"]
+
+
+def test_a_rank_building_its_manager_late_names_saves_alike(tmp_path,
+                                                            monkeypatch):
+    """Rank 1 builds its manager only once rank 0 has reached the world's
+    barrier, and rank 0's writes are synchronous here, so a save of rank
+    0 that did not wait for rank 1's listing would already be on disk
+    when rank 1 lists ``root``: both ranks must still name every save
+    alike (``checkpoint_000000`` first), because the manager waits at the
+    barrier at the end of ``__init__``."""
+    from ray_tpu_torch.parallel import threaded
+    from ray_tpu_torch.train import checkpoint as ckpt
+
+    def write_now(self, data, path):
+        ckpt.Checkpoint.from_dict(data, path)
+        self.last_path = path
+
+    monkeypatch.setattr(ckpt.AsyncCheckpointer, "save", write_now)
+    root = str(tmp_path / "late")
+    at_barrier = threading.Event()
+
+    def barrier0():
+        at_barrier.set()
+        dist.barrier()
+
+    def rank(r):
+        if r == 1:
+            with threaded.waiting_outside_collectives():
+                assert at_barrier.wait(30), "rank 0 never reached a barrier"
+        mgr = CheckpointManager(root, writer=r == 0,
+                                barrier=barrier0 if r == 0 else dist.barrier)
+        paths = [mgr.save({"i": i}) for i in range(2)]
+        mgr.flush()
+        return [os.path.basename(p) for p in paths]
+
+    p0, p1 = ranks(rank, 2)
+    assert p0 == p1 == ["checkpoint_000000", "checkpoint_000001"]
+    assert sorted(os.listdir(root)) == p0

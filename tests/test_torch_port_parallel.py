@@ -382,8 +382,10 @@ def test_unported_mesh_arms_raise():
     the prefill on a tp mesh, the tp-sharded paged and slot decode
     (tests/test_torch_port_tp_*.py) and the Trainer on a mesh (tests/
     test_torch_port_mesh_*.py): the Trainer takes a mesh.  The prefill
-    and serving on a mesh split over another axis (dp here), rules
-    without a mesh and a gang of more than one host still raise."""
+    and serving on a mesh split over another axis (dp here) and rules
+    without a mesh still raise; a gang of more than one host is formed
+    inside a member of a multi-host gang (tests/test_torch_port_gang.py),
+    so outside one it raises."""
     from ray_tpu_torch.inference.serving import GPTServer
     from ray_tpu_torch.parallel import form_gang
     from ray_tpu_torch.train import Trainer
@@ -398,8 +400,9 @@ def test_unported_mesh_arms_raise():
         (ValueError, "give the mesh", lambda: Trainer(
             loss_fn=None, init_params=None, optimizer=None, train_data=[],
             num_steps=1, rules=DEFAULT_LLM_RULES, device="cpu")),
-        (NotImplementedError, "2 hosts",
-         lambda: form_gang({"dp": -1}, num_hosts=2, device="cpu")),
+        (ValueError, "2 hosts over a world of 1 ranks: form it inside a "
+                     "member", lambda: form_gang({"dp": -1}, num_hosts=2,
+                                                 device="cpu")),
     ]
     for exc, match, call in cases:
         with pytest.raises(exc, match=match):
