@@ -297,7 +297,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    mean return above 90 within 25 iterations), both ranks bit-equal
    after it, env steps/s printed, 0 / 0 / 0 flash launches.
 
-``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 17 and 19 before phase 7,
+23. RLlib's actor arms (``phase_rllib_actors``), f32 with TF32 off, on the
+   in-process stand-in ``core.actors``, its actors' and tasks' threads
+   sharing the card.  23a: Ape-X's update card vs CPU within 1e-4 (1 +
+   scale); Ape-X inline and with 2 collector and 2 shard actors at
+   ``tests/test_rllib_extra.py``'s settings (its gates: env steps and
+   replay rows above 0); 20 iterations at the defaults (2 collector
+   actors, 1 shard), env steps/s, grad steps/s and the best mean return
+   printed.  23b: AlphaStar at the JAX test's 100 iterations: its bars
+   (league exploitability and the main exploiter's edge below 0.25, more
+   than 10 players), every player's logits within 1e-4 (1 + scale) of a
+   CPU run's, the checkpoint into a fresh league that trains on.  23c:
+   ``LearnerGroup(2)`` at ``tests/test_rl_module.py``'s settings (the
+   loss below the first within 12 updates, both learners bit-equal), ES
+   with ``eval_parallelism=4`` equal to the inline arm over two
+   iterations of fixed perturbations, PPO's two actor workers' batches
+   equal to two inline workers' over two rounds (env steps/s of both
+   printed).  0 / 0 / 0 flash launches.
+
+``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 23, 17 and 19 before phase 7,
 and 15, 16, 18 and 22 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
@@ -3632,6 +3650,264 @@ def phase_rllib_rest(card: str) -> dict:
     return parts
 
 
+# ------------------------------------------------ RLlib's actor arms
+
+# tests/test_rllib_extra.py's Ape-X settings
+APEX_TEST = dict(env="CartPole-v1", num_envs_per_worker=2,
+                 collect_steps_per_round=32, train_rounds_per_iter=2,
+                 grad_steps_per_round=2, learning_starts=32, batch_size=16,
+                 seed=0)
+
+
+def apex_parity() -> None:
+    """23a's parity: Ape-X inline on the CPU and on the card, the card's
+    restored from the CPU's save; one ``make_dqn_update`` on a batch the
+    CPU's shard drew after one iteration (params, loss, |TD|) within
+    1e-4 (1 + scale)."""
+    from ray_tpu_torch.data.feed import to_device
+    from ray_tpu_torch.rllib import ApexDQNConfig
+    from ray_tpu_torch.rllib.dqn import BATCH_KEYS
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    cpu = ApexDQNConfig(**APEX_TEST, num_rollout_workers=0,
+                        device="cpu").build()
+    cpu.train()
+    gpu = ApexDQNConfig(**APEX_TEST, num_rollout_workers=0,
+                        device="cuda").build()
+    gpu.restore(cpu.save())
+    batch = cpu.shards[0].sample(16, 0.4)
+    pairs = []
+    for a in (gpu, cpu):
+        _, _, loss, td = a._update(
+            a.params, a.target_params, a.opt,
+            to_device({k: batch[k] for k in BATCH_KEYS}, a.device))
+        pairs.append([loss, td] + tree_leaves(a.params))
+    held_f32("Ape-X one update", zip(*pairs))
+
+
+def apex_runs(card: str) -> None:
+    """23a: Ape-X inline and with 2 collectors and 2 shards as actors at
+    the JAX test's settings (its gates: env steps and replay rows), then
+    20 iterations at the defaults (2 collector actors, 1 shard actor);
+    prints env steps/s, grad steps/s and the best mean return."""
+    from ray_tpu_torch.core import actors
+    from ray_tpu_torch.rllib import ApexDQNConfig
+
+    for label, kw in (("inline", dict(num_rollout_workers=0)),
+                      ("2 collectors, 2 shards",
+                       dict(num_rollout_workers=2, num_replay_shards=2))):
+        algo = ApexDQNConfig(**APEX_TEST, **kw).build()
+        try:
+            check(algo._distributed == (label != "inline"),
+                  f"23a {label}: distributed {algo._distributed}")
+            r = algo.train()
+            bar_check(f"Ape-X {label}", r["steps_this_iter"] > 0
+                      and r["replay_size"] > 0,
+                      f"steps_this_iter {r['steps_this_iter']}, replay_size "
+                      f"{r['replay_size']} (> 0)")
+        finally:
+            algo.cleanup()
+    check(len(actors._runtime().actors) == 0, "23a: actors left alive")
+
+    algo = ApexDQNConfig().build()
+    try:
+        check(algo._distributed and len(algo.collectors) == 2,
+              "23a: the defaults' collectors are not actors")
+        grads = [0]
+        update = algo._update
+
+        def counted(*a):
+            grads[0] += 1
+            return update(*a)
+        algo._update = counted
+        t0 = time.perf_counter()
+        res = rl_learn("Ape-X CartPole defaults (2 collector actors, 1 "
+                       "shard actor)", algo, 20, card, learner="_update")
+        wall = time.perf_counter() - t0
+        best = max(r.get("episode_reward_mean", 0.0) for r in res)
+        steps = sum(r["steps_this_iter"] for r in res)
+        print(f"[actors 23a] Ape-X defaults: {steps} env steps, {grads[0]} "
+              f"grad steps in {wall:.1f} s: {steps / wall:.1f} env steps/s, "
+              f"{grads[0] / wall:.1f} grad steps/s; best mean return "
+              f"{best:.2f}; replay {res[-1]['replay_size']}; on {card}")
+        check(grads[0] > 0 and np.isfinite(res[-1]["mean_td_loss"]),
+              "23a: the defaults' run took no finite grad step")
+    finally:
+        algo.cleanup()
+
+
+def alpha_star_run(card: str) -> None:
+    """23b: AlphaStar at the JAX test's 100 iterations on the card, its
+    bars; the card's players held to a CPU run's (f32, 1e-4 (1 +
+    scale)); the checkpoint into a fresh league and on."""
+    from ray_tpu_torch.rllib import AlphaStarConfig
+
+    run = dict(seed=0, snapshot_every=5, entropy_coeff=0.05, league_lr=0.3)
+    algo = AlphaStarConfig(**run).build()
+    cpu = AlphaStarConfig(**run, device="cpu").build()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        r = algo.train()
+    wall = time.perf_counter() - t0
+    for _ in range(100):
+        cpu.train()
+    bar_check("AlphaStar", r["league_exploitability"] < 0.25
+              and abs(r.get("mexp0_vs_main", 1.0)) < 0.25
+              and r["league_size"] > 10,
+              f"league exploitability {r['league_exploitability']:.4f} (< "
+              f"0.25), mexp0_vs_main {r.get('mexp0_vs_main', 1.0):.4f} (|.| "
+              f"< 0.25), league size {r['league_size']} (> 10)")
+    check(list(algo.league.players) == list(cpu.league.players),
+          "23b: the card's league differs from the CPU's")
+    held_f32("AlphaStar's 100 iterations (every player's logits)", [
+        (torch.from_numpy(p.logits),
+         torch.from_numpy(cpu.league.players[pid].logits))
+        for pid, p in algo.league.players.items()])
+    other = AlphaStarConfig(seed=9).build()
+    other.restore(algo.save())
+    check(set(other.league.players) == set(algo.league.players)
+          and other.league.payoff == algo.league.payoff
+          and all(np.array_equal(other.league.players[k].logits, p.logits)
+                  for k, p in algo.league.players.items()),
+          "23b: the restored league differs")
+    check(other.train()["league_size"] == len(other.league.players),
+          "23b: the restored league did not train on")
+    print(f"[actors 23b] AlphaStar: 100 iterations in {wall:.2f} s "
+          f"({wall * 10:.2f} ms an iteration), {r['league_size']} players; "
+          f"checkpoint round trip ok; on {card}")
+
+
+def actor_arms(card: str) -> None:
+    """23c: ``LearnerGroup(2)`` (the JAX test's settings: its loss falls
+    below the first, within 12 updates, and every learner holds the same
+    weights), ES with
+    ``eval_parallelism=4`` (its returns and theta equal the inline arm's
+    on the same perturbations) and PPO with ``use_actors=True`` (its
+    batches equal the inline workers')."""
+    from ray_tpu_torch.core import actors
+    from ray_tpu_torch.rllib import (DiscretePGModule, ESConfig,
+                                     LearnerGroup, PPOConfig)
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    group = LearnerGroup(lambda: DiscretePGModule(
+        obs_dim=4, num_actions=2, ent_coeff=0.0), 2, lr=0.05, seed=3)
+    try:
+        rng = np.random.default_rng(3)
+        batch = {"obs": rng.normal(size=(128, 4)).astype(np.float32),
+                 "actions": rng.integers(0, 2, 128).astype(np.int64),
+                 "advantages": rng.normal(size=128).astype(np.float32),
+                 "value_targets": rng.normal(size=128).astype(np.float32)}
+        # the JAX test's bar is on its init after 5 more updates; the
+        # port's generator draws another init, so the updates run until
+        # the loss is below the first (12 at most)
+        t0 = time.perf_counter()
+        losses = [group.update(batch)["loss"]]
+        while len(losses) < 12 and not (len(losses) > 1
+                                        and losses[-1] < losses[0]):
+            losses.append(group.update(batch)["loss"])
+        ms = (time.perf_counter() - t0) / len(losses) * 1e3
+        bar_check("LearnerGroup(2)", losses[-1] < losses[0],
+                  f"loss {[round(x, 4) for x in losses]} (the last below "
+                  f"the first)")
+        ws = actors.get([lrn.get_weights.remote()
+                         for lrn in group._learners])
+        check(all(np.array_equal(a, b) for a, b in zip(
+            tree_leaves(ws[0]), tree_leaves(ws[1]))),
+            "23c: the learners' weights differ")
+        print(f"[actors 23c] LearnerGroup(2): both learners bit-equal; "
+              f"{ms:.2f} ms an update (split, 2 actor updates, average, "
+              f"set); on {card}")
+    finally:
+        group.stop()
+
+    es_kw = dict(env="CartPole-v1", pop_size=12, sigma=0.1, step_size=0.05,
+                 max_episode_steps=200, seed=0)
+    par = ESConfig(**es_kw, eval_parallelism=4).build()
+    inline = ESConfig(**es_kw).build()
+    inline.restore(par.save())
+    rng = np.random.default_rng(SEED + 23)
+    for it in range(2):
+        eps = rng.standard_normal((12, par.theta.shape[0])).astype(
+            np.float32)
+        times = []
+        for a in (par, inline):
+            t0 = time.perf_counter()
+            r = a.iterate(eps=eps)
+            times.append(time.perf_counter() - t0)
+            a._iteration += 1
+        check(par._ep_returns == inline._ep_returns
+              and torch.equal(par.theta, inline.theta),
+              f"23c: ES iteration {it}: the parallel arm's returns or theta "
+              f"differ from the inline arm's")
+        print(f"[actors 23c] ES iteration {it}: eval_parallelism=4 equals "
+              f"the inline arm (pop_return_mean {r['pop_return_mean']:.2f}, "
+              f"{r['steps_this_iter']} env steps); {times[0]:.2f} s vs "
+              f"{times[1]:.2f} s inline; on {card}")
+
+    ppo_kw = dict(env="CartPole-v1", num_rollout_workers=2,
+                  num_envs_per_worker=8, rollout_length=64,
+                  train_batch_size=1024, minibatch_size=128, num_epochs=2,
+                  lr=3e-3, seed=0)
+    arms = [PPOConfig(**ppo_kw, use_actors=u).build() for u in (True, False)]
+    try:
+        check([a.workers.use_actors for a in arms] == [True, False],
+              "23c: PPO's worker arms")
+        for rnd in range(2):
+            (ba, ra), (bi, ri) = (a.workers.sample_sync() for a in arms)
+            check(ra == ri and set(ba) == set(bi)
+                  and all(np.array_equal(ba[k], bi[k]) for k in ba),
+                  f"23c: PPO round {rnd}: the actor workers' batch differs "
+                  f"from the inline workers'")
+            w = arms[1].save_checkpoint()["params"]
+            for a in arms:
+                a.workers.sync_weights(w)
+        sps = [statistics.median(a.train()["env_steps_per_sec"]
+                                 for _ in range(3)) for a in arms]
+        print(f"[actors 23c] PPO: actor workers' batches equal the inline "
+              f"workers' (2 rounds); env steps/s median of 3 iterations "
+              f"{sps[0]:.1f} with actors, {sps[1]:.1f} inline; on {card}")
+    finally:
+        for a in arms:
+            a.cleanup()
+
+
+def phase_rllib_actors(card: str) -> dict:
+    """RLlib's actor arms on the in-process stand-in ``core.actors``
+    (phase 23), f32 with TF32 off, the actors' threads sharing the card:
+    23a Ape-X (``apex_parity``, ``apex_runs``), 23b AlphaStar
+    (``alpha_star_run``), 23c ``LearnerGroup(2)``, parallel ES and PPO's
+    actor workers (``actor_arms``); no flash launch.  Returns the phase's
+    seconds by part."""
+    from ray_tpu_torch.core import actors
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    before = flash_launches()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    parts = {}
+    actors.init()
+    try:
+        for name, fn, args in (("apex_parity", apex_parity, ()),
+                               ("apex", apex_runs, (card,)),
+                               ("alpha_star", alpha_star_run, (card,)),
+                               ("actor_arms", actor_arms, (card,))):
+            t0 = time.perf_counter()
+            fn(*args)
+            parts[name] = time.perf_counter() - t0
+        seen = flash_launches()
+        print(f"[actors] flash launches in phase 23: {seen[0]} / {seen[1]} "
+              f"/ {seen[2]}")
+        check(seen == (0, 0, 0), f"phase 23 launched flash kernels: {seen}")
+    finally:
+        actors.shutdown()
+        fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches = (
+            before[0] + fa.launches, before[1] + fa.bwd_kv_launches,
+            before[2] + fa.bwd_dq_launches)
+    print(f"[actors] phase 23 parts (s) on {card}: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()))
+    return parts
+
+
 # ------------------------------------------------ sharded training
 
 # [batch, heads, seq, head dim] each rank gives the flash kernels on phase
@@ -5274,6 +5550,7 @@ def main() -> int:
     run(phase_ppo, card)
     run(phase_rllib_tail, card)
     run(phase_rllib_rest, card)
+    run(phase_rllib_actors, card)
     tp_serve_launches, tp_serve_records = run(phase_tp_serving, name, card)
     kernels[0].update(tp_serve_records)
     tp_serve_launches.update(run(phase_slot_tp, card))

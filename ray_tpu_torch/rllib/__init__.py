@@ -8,16 +8,21 @@ LinTS; ES and ARS; the RLModule / Learner / LearnerGroup stack; the
 recurrent, multi-agent and slate learners R2D2, QMIX, MADDPG, SlateQ and
 multi-agent PPO; the planning and model-based ones AlphaZero, MAML,
 MB-MPO and Dreamer; and the host-side ModelCatalog, connectors and
-PolicyServerInput / PolicyClient; and DD-PPO, whose workers are the
-members of an in-process gang.  Exported under the JAX package's names;
-Ape-X and AlphaStar are not ported."""
+PolicyServerInput / PolicyClient; DD-PPO, whose workers are the members
+of an in-process gang; Ape-X DQN, whose replay shards and collectors are
+actors of the in-process stand-in ``core.actors`` (as are WorkerSet's
+actor workers, LearnerGroup's learners and ES's parallel evaluation);
+and the AlphaStar league.  Exported under the JAX package's names."""
 
 from ray_tpu_torch.rllib.a2c import A2C, A2CConfig
 from ray_tpu_torch.rllib.algorithm import (Algorithm, AlgorithmConfig,
                                            WorkerSet)
+from ray_tpu_torch.rllib.alpha_star import (AlphaStar, AlphaStarConfig,
+                                            League, Player, rps_payoff)
 from ray_tpu_torch.rllib.alpha_zero import (MCTS, AlphaZero,
                                             AlphaZeroConfig, GridGoal,
                                             RankedRewardsBuffer)
+from ray_tpu_torch.rllib.apex import ApexDQN, ApexDQNConfig
 from ray_tpu_torch.rllib.appo import APPO, APPOConfig
 from ray_tpu_torch.rllib.bandit import (BanditConfig, LinTS, LinUCB,
                                         LinearBanditEnv)
@@ -95,4 +100,6 @@ __all__ = ["A2C", "A2CConfig", "Algorithm", "AlgorithmConfig", "WorkerSet",
            "PolicyClient", "PolicyServerInput", "R2D2", "R2D2Config",
            "QMIX", "QMIXConfig", "TeamSwitch", "MADDPG", "MADDPGConfig",
            "SpreadLine", "Dreamer", "DreamerConfig", "LinearLatentEnv",
-           "MAML", "MAMLConfig", "SinusoidTasks", "DDPPO", "DDPPOConfig"]
+           "MAML", "MAMLConfig", "SinusoidTasks", "DDPPO", "DDPPOConfig",
+           "ApexDQN", "ApexDQNConfig", "AlphaStar", "AlphaStarConfig",
+           "League", "Player", "rps_payoff"]

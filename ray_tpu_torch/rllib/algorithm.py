@@ -6,10 +6,10 @@ package's ``Algorithm`` inherits from ``ray_tpu/tune/trainable.py``
 (``train``, ``save``, ``restore``, ``iteration``), because the port does
 not import ``ray_tpu.tune``.  ``training_step`` is the override point.
 
-``WorkerSet`` samples inline only: rollout workers as actors need a host
-runtime, which the port does not have, so ``use_actors=True`` raises.
-``AlgorithmConfig.device`` places the learner and the workers' policies
-(None = the CUDA card).
+``WorkerSet`` samples inline, or with its rollout workers as actors of
+the in-process stand-in ``core.actors`` (where the JAX package spawns
+actors on its core runtime).  ``AlgorithmConfig.device`` places the
+learner and the workers' policies (None = the CUDA card).
 """
 
 from __future__ import annotations
@@ -19,6 +19,8 @@ from dataclasses import dataclass, replace
 from typing import Any, Callable, Optional, Union
 
 import numpy as np
+
+from ray_tpu_torch.core import actors
 
 
 @dataclass
@@ -35,7 +37,8 @@ class AlgorithmConfig:
     num_epochs: int = 4
     hiddens: tuple = (64, 64)
     seed: int = 0
-    use_actors: Optional[bool] = None  # True raises: inline only
+    use_actors: Optional[bool] = None  # None = actors iff workers > 0
+                                       # and core.actors is initialised
     device: Optional[str] = None
 
     def environment(self, env) -> "AlgorithmConfig":
@@ -88,45 +91,66 @@ def call_env_maker(env_maker: Callable, cfg) -> Any:
 
 
 class WorkerSet:
-    """The learner's handle to its rollout workers, all inline."""
+    """The learner's handle to its rollout workers: inline, or actors of
+    ``core.actors`` that sample in parallel (``use_actors``; None = actors
+    when ``num_rollout_workers > 0`` and the stand-in is initialised)."""
 
     def __init__(self, config: AlgorithmConfig):
         from ray_tpu_torch.rllib.rollout_worker import RolloutWorker
-        if config.use_actors:
-            raise NotImplementedError(
-                "rollout workers as actors are not ported; the port "
-                "samples inline")
+        use_actors = config.use_actors
+        if use_actors is None:
+            use_actors = (config.num_rollout_workers > 0
+                          and actors.is_initialized())
+        self.use_actors = use_actors
         kw = dict(num_envs=config.num_envs_per_worker,
                   rollout_length=config.rollout_length,
                   gamma=config.gamma, lam=config.lam,
                   hiddens=config.hiddens, device=config.device)
-        self.workers = [
-            RolloutWorker(config.env, seed=config.seed + 1000 * i, **kw)
-            for i in range(max(1, config.num_rollout_workers))]
+        make = (actors.remote(RolloutWorker).remote if use_actors
+                else RolloutWorker)
+        self.workers = [make(config.env, seed=config.seed + 1000 * i, **kw)
+                        for i in range(max(1, config.num_rollout_workers))]
+        # a local probe worker for the obs/action dims
+        self._probe = (RolloutWorker(config.env, seed=config.seed, **kw)
+                       if use_actors else self.workers[0])
 
     @property
     def obs_dim(self):
-        return self.workers[0].cfg.obs_dim
+        return self._probe.cfg.obs_dim
 
     @property
     def num_actions(self):
-        return self.workers[0].cfg.num_actions
+        return self._probe.cfg.num_actions
 
     def sample_sync(self):
-        """One rollout from every worker, concatenated, and the returns
-        of the episodes that ended meanwhile."""
+        """One rollout from every worker, concatenated in worker order,
+        and the returns of the episodes that ended meanwhile."""
         from ray_tpu_torch.rllib.sample_batch import SampleBatch
-        batches = [w.sample() for w in self.workers]
-        rets = [r for w in self.workers for r in w.episode_returns()]
+        if self.use_actors:
+            batches = actors.get([w.sample.remote() for w in self.workers])
+            rets = actors.get([w.episode_returns.remote()
+                               for w in self.workers])
+        else:
+            batches = [w.sample() for w in self.workers]
+            rets = [w.episode_returns() for w in self.workers]
         return SampleBatch.concat_samples(
-            [SampleBatch(b) for b in batches]), rets
+            [SampleBatch(b) for b in batches]), [r for rs in rets for r in rs]
 
     def sync_weights(self, weights) -> None:
-        for w in self.workers:
-            w.set_weights(weights)
+        """Every worker's policy from ``weights`` (actors: one ``put``,
+        every worker reads the same ref and copies it)."""
+        if self.use_actors:
+            ref = actors.put(weights)
+            actors.get([w.set_weights.remote(ref) for w in self.workers])
+        else:
+            for w in self.workers:
+                w.set_weights(weights)
 
     def stop(self) -> None:
-        """Nothing to release: the workers are inline, not actors."""
+        """Kill the actors (nothing to release inline)."""
+        if self.use_actors:
+            for w in self.workers:
+                actors.kill(w)
 
 
 class Algorithm:

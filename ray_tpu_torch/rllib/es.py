@@ -10,9 +10,10 @@ each candidate's greedy episodes on the host's numpy envs with the
 policy on the device (one device round trip per env step), shapes the
 returns by centred rank (ES) or keeps the top-k directions scaled by
 their returns' std (ARS), and steps the vector.  ARS's ``MeanStdFilter``
-moments stay on the host.  Evaluation runs inline: fanning it out as
-remote tasks (``eval_parallelism > 0``) needs a host runtime the port
-does not have, and raises.
+moments stay on the host.  With ``eval_parallelism > 0`` the candidates'
+episodes run as tasks of the in-process stand-in ``core.actors`` (its
+thread pool), over the same arguments and seeds, and their outputs are
+folded into the filter in candidate order.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.core import actors
 from ray_tpu_torch.rllib.algorithm import Algorithm, AlgorithmConfig
 from ray_tpu_torch.rllib.env import make_env
 from ray_tpu_torch.rllib.optim import (to_numpy, tree_leaves,
@@ -40,7 +42,7 @@ class ESConfig(AlgorithmConfig):
     episodes_per_eval: int = 1
     max_episode_steps: int = 500
     top_directions: int = 0     # 0 = use all (ES); >0 = ARS top-k
-    eval_parallelism: int = 0   # >0 raises: evaluation runs inline
+    eval_parallelism: int = 0   # >0: evaluations as core.actors tasks
     observation_filter: str = "NoFilter"   # "MeanStdFilter" = ARS V2
 
     def build(self, algo_cls=None) -> "ES":
@@ -118,10 +120,6 @@ class ES(Algorithm):
 
     def _build(self):
         cfg = self.config
-        if cfg.eval_parallelism > 0:
-            raise NotImplementedError(
-                "evaluation as remote tasks (eval_parallelism > 0) is not "
-                "ported; the port evaluates inline")
         self.device = resolve_device(cfg.device)
         probe = make_env(cfg.env, seed=cfg.seed)
         probe.reset()
@@ -149,12 +147,15 @@ class ES(Algorithm):
         cfg = self.config
         track = cfg.observation_filter == "MeanStdFilter"
         stats = self._obs_stats()
-        outs = [rollout_return(cfg.env, unflatten(c, self.spec),
-                               self.pcfg.obs_dim,
-                               cfg.seed + 7919 * self.iteration + i,
-                               cfg.episodes_per_eval, cfg.max_episode_steps,
-                               stats, track)
+        args = [(cfg.env, unflatten(c, self.spec), self.pcfg.obs_dim,
+                 cfg.seed + 7919 * self.iteration + i,
+                 cfg.episodes_per_eval, cfg.max_episode_steps, stats, track)
                 for i, c in enumerate(candidates)]
+        if cfg.eval_parallelism > 0:
+            task = actors.remote(rollout_return)
+            outs = actors.get([task.remote(*a) for a in args], timeout=1200)
+        else:
+            outs = [rollout_return(*a) for a in args]
         if track:
             for _, s, s2, n, _ in outs:
                 self._obs_sum += s

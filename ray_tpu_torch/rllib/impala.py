@@ -7,7 +7,8 @@ over T on the tensors' device.  The learner consumes each inline
 worker's rollout as it comes, time-major [T, B], bootstrapping from the
 rollout's ``bootstrap_obs`` (the state after its last step), and pushes
 the new weights back to that worker, as the JAX package's inline mode
-does; rollout workers as actors are not ported (``WorkerSet`` raises).
+does.  The JAX package's asynchronous actor arm (``ray_tpu.wait`` on
+in-flight samples) is not ported: with actor workers ``Impala`` raises.
 """
 
 from __future__ import annotations
@@ -102,6 +103,11 @@ class Impala(OnPolicyLearner):
 
     def _build(self):
         self._build_learner()
+        if self.workers.use_actors:
+            self.workers.stop()
+            raise NotImplementedError(
+                "IMPALA's asynchronous actor arm is not ported; it "
+                "samples with inline workers")
         self._update = make_impala_update(self.config)
 
     def _time_major(self, b: SampleBatch) -> dict:

@@ -7,9 +7,11 @@ a ``torch.Generator``; ``forward_exploration`` samples with the
 generator its batch carries under ``"generator"``, where the JAX
 package's carries a key under ``"rng"``).  A ``Learner`` owns one
 module's params on its device and an Adam over them.  ``LearnerGroup``
-runs one learner inline: fanning updates out over learner actors with
-parameter averaging (``num_learners > 0``) needs the host runtime and
-waits for the multi-learner item of the roadmap; it raises.
+runs one learner inline, or, with ``num_learners > 0`` while the
+in-process stand-in ``core.actors`` is initialised, that many learner
+actors from the same seed: each update splits the batch's rows over
+them, then their params are averaged and set on every one (synchronous
+data parallelism), as the JAX package does on its core runtime.
 """
 
 from __future__ import annotations
@@ -20,8 +22,10 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
+from ray_tpu_torch.core import actors
 from ray_tpu_torch.rllib.optim import (Adam, copy_into, params_on,
-                                       to_numpy, tree_map)
+                                       to_numpy, tree_leaves, tree_map,
+                                       tree_unflatten)
 from ray_tpu_torch.rllib.pg import entropy, log_probs, standardize
 from ray_tpu_torch.rllib.policy import (PolicyConfig, init_policy_params,
                                         policy_forward)
@@ -164,31 +168,72 @@ class Learner:
 
 
 class LearnerGroup:
-    """Updates through one inline ``Learner``."""
+    """Updates through one inline ``Learner``, or through ``num_learners``
+    learner actors of ``core.actors`` when it is initialised."""
 
     def __init__(self, module_factory: Callable[[], RLModule],
                  num_learners: int = 0, *, lr: float = 3e-4,
                  seed: int = 0, device=None):
-        if num_learners > 0:
-            raise NotImplementedError(
-                "learner actors (num_learners > 0) wait for the "
-                "multi-learner item of ROADMAP.md's Queue A (they need a "
-                "host runtime); the port runs one learner inline")
-        self._local = Learner(module_factory(), lr=lr, seed=seed,
-                              device=device)
-        self.num_learners = 1
+        self._distributed = num_learners > 0 and actors.is_initialized()
+        if not self._distributed:
+            self._local = Learner(module_factory(), lr=lr, seed=seed,
+                                  device=device)
+            self.num_learners = 1
+            return
+        # the same seed: every learner starts from the same params, and
+        # the averaging keeps them in lockstep
+        make = actors.remote(Learner).remote
+        self._learners = [make(module_factory(), lr=lr, seed=seed,
+                               device=device) for _ in range(num_learners)]
+        self.num_learners = num_learners
+
+    @staticmethod
+    def _rows(batch: Dict) -> int:
+        leaves = tree_leaves(batch)
+        return min(len(v) for v in leaves) if leaves else 0
+
+    def _call(self, method: str, *args) -> list:
+        return actors.get([getattr(lrn, method).remote(*args)
+                           for lrn in self._learners])
 
     def update(self, batch: Dict) -> Dict:
-        return self._local.update(batch)
+        if not self._distributed:
+            return self._local.update(batch)
+        n, rows = self.num_learners, self._rows(batch)
+        if rows < n:
+            # too few rows to split: every learner updates on all of them
+            # (an empty shard's NaN loss would spread through the average)
+            results = self._call("update", batch)
+        else:
+            bounds = np.linspace(0, rows, n + 1, dtype=int)
+            results = actors.get([lrn.update.remote(tree_map(
+                lambda v, lo=int(lo), hi=int(hi): v[lo:hi], batch))
+                for lrn, lo, hi in zip(self._learners, bounds, bounds[1:])])
+        # parameter averaging over host copies (sync DP)
+        ws = self._call("get_weights")
+        avg = tree_unflatten(ws[0], [np.mean(np.stack(leaf), axis=0)
+                                     for leaf in zip(*map(tree_leaves, ws))])
+        self._call("set_weights", actors.put(avg))
+        return {"loss": float(np.mean([r["loss"] for r in results]))}
 
     def get_weights(self):
-        return self._local.get_weights()
+        if not self._distributed:
+            return self._local.get_weights()
+        return actors.get(self._learners[0].get_weights.remote())
 
     def get_state(self) -> dict:
-        return self._local.get_state()
+        if not self._distributed:
+            return self._local.get_state()
+        return actors.get(self._learners[0].get_state.remote())
 
     def set_state(self, state: dict) -> None:
-        self._local.set_state(state)
+        if not self._distributed:
+            self._local.set_state(state)
+        else:
+            self._call("set_state", actors.put(state))
 
     def stop(self):
-        """Nothing to release inline."""
+        """Kill the learner actors (nothing to release inline)."""
+        if self._distributed:
+            for lrn in self._learners:
+                actors.kill(lrn)

@@ -11,7 +11,10 @@ CPU, in f32.
   same greedy returns, ARS's observation filter moments and theta
   within atol 1e-5;
 - JAX ``save()``s restored into the port and back; ``eval_parallelism
-  > 0`` and ``device=None`` without a card raise.
+  > 0`` without the actor stand-in initialised raises at the first
+  evaluation, as the JAX package's does without ``ray_tpu.init()`` (the
+  arm itself is in ``test_torch_port_es_parallel.py``); ``device=None``
+  without a card raises.
 """
 
 import jax
@@ -152,8 +155,10 @@ def test_two_iterations_with_jax_perturbations_match(which):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="eval_parallelism"):
-        tes.ESConfig(eval_parallelism=2, device="cpu").build()
+    algo = tes.ESConfig(eval_parallelism=2, pop_size=2, hiddens=(8,),
+                        device="cpu").build()
+    with pytest.raises(RuntimeError, match="not initialized"):
+        algo.train()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for cfg in (tbandit.BanditConfig(), tbandit.BanditConfig(
             exploration="ts"), tes.ESConfig(), tes.ARSConfig()):

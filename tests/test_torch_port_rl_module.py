@@ -9,8 +9,11 @@ on the CPU, in f32.
   batches: params within atol 1e-5, losses within rel 1e-4, and the
   port's state back in optax's layout equal to JAX's Adam state within
   the same bounds; a ``MultiRLModule`` over two policies the same way;
-- ``LearnerGroup(num_learners > 0)`` and ``device=None`` without a card
-  raise.
+- ``LearnerGroup(num_learners > 0)`` without the actor stand-in
+  initialised runs one learner inline, as the JAX package's does without
+  ``ray_tpu.init()`` (the learner actors are in
+  ``test_torch_port_actor_arms.py``); ``device=None`` without a card
+  raises.
 """
 
 import jax
@@ -112,9 +115,11 @@ def test_updates_match_jax(kind):
 
 
 def test_refusals(monkeypatch):
-    with pytest.raises(NotImplementedError, match="multi-learner"):
-        trl.LearnerGroup(lambda: trl.DiscretePGModule(4, 2), 2,
-                         device="cpu")
+    for group in (jrl.LearnerGroup(lambda: jrl.DiscretePGModule(4, 2), 2),
+                  trl.LearnerGroup(lambda: trl.DiscretePGModule(4, 2), 2,
+                                   device="cpu")):
+        assert not group._distributed and group.num_learners == 1
+        assert np.isfinite(group.update(_batch(3))["loss"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: trl.Learner(trl.DiscretePGModule(4, 2)),
                  lambda: trl.LearnerGroup(
