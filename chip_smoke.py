@@ -313,9 +313,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
    with ``eval_parallelism=4`` equal to the inline arm over two
    iterations of fixed perturbations, PPO's two actor workers' batches
    equal to two inline workers' over two rounds (env steps/s of both
-   printed).  0 / 0 / 0 flash launches.
+   printed).  23d: IMPALA's and APPO's asynchronous actor arm: one actor
+   worker on the card against the same arm on the CPU (both workers fed
+   one Gumbel stream), every update's metrics and params within 1e-4 (1
+   + scale); then each at ``tests/test_rllib.py``'s settings for 10
+   iterations inline and with two actor workers (every batch consumed
+   once, each worker's consumed), env steps/s and updates/s of both
+   printed.  0 / 0 / 0 flash launches.
 
-``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 23, 17 and 19 before phase 7,
+24. the gang as processes (``phase_process_gang``):
+   ``MultiHostGang(4, host=ProcessHost())``, four member processes
+   sharing the card on a gloo world over CUDA tensors, each holding a
+   flat f32 gradient of GPT-2 124M's 124,439,808 parameters: its
+   all-reduce sums to 10 at world 4; in the second, rank 1 SIGKILLs its
+   own process while the others wait in it and ``GangMemberDied`` must
+   name rank 1 within 30 s; ``alive_ranks`` [0, 2, 3], ``reform`` keeps
+   their pids, the sum is 6 at world 3; ``readmit`` adds exactly one new
+   pid, 10 at world 4 again; ``shutdown`` leaves no child process.
+   Prints the seconds of spawn, formation, naming the death, reform and
+   readmit, and each world's all-reduce time and bus rate.  0 / 0 / 0
+   flash launches, summed over this process and every member process.
+
+``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 23, 24, 17 and 19 before phase 7,
 and 15, 16, 18 and 22 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
@@ -325,6 +344,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import importlib
 import json
@@ -3871,13 +3891,146 @@ def actor_arms(card: str) -> None:
             a.cleanup()
 
 
+# tests/test_rllib.py's IMPALA settings
+IMPALA_TEST = dict(env="CartPole-v1", num_envs_per_worker=8,
+                   rollout_length=32, batches_per_step=8, lr=2e-3,
+                   entropy_coeff=0.01, seed=0)
+
+
+class GumbelStream:
+    """The Gumbel noise of a worker policy's draws from a numpy
+    generator: a card worker and a CPU worker fed the same stream take
+    the same actions (``argmax(logits + g)``)."""
+
+    def __init__(self, seed: int, shape: tuple):
+        self.rng, self.shape = np.random.default_rng(seed), shape
+
+    def __call__(self):
+        return self.rng.gumbel(size=self.shape).astype(np.float32)
+
+
+def impala_algos():
+    from ray_tpu_torch.rllib import APPOConfig, ImpalaConfig
+
+    return (("IMPALA", ImpalaConfig, {}),
+            ("APPO", APPOConfig, {"target_update_freq": 3}))
+
+
+def impala_parity() -> None:
+    """23d's parity: IMPALA and APPO with one actor worker on the card
+    and on the CPU, the card's restored from the CPU's save and both
+    workers fed one Gumbel stream; every update of three iterations (two
+    a step; APPO's target refreshed every third) within 1e-4 (1 +
+    scale): its metrics and the params after it."""
+    from ray_tpu_torch.core import actors
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    kw = dict(IMPALA_TEST, num_rollout_workers=1, use_actors=True,
+              batches_per_step=2)
+    for name, cls, extra in impala_algos():
+        algos = [cls(**kw, **extra, device=d).build()
+                 for d in ("cuda", "cpu")]
+        try:
+            algos[0].restore(algos[1].save())
+            logs = ([], [])
+            for a, log in zip(algos, logs):
+                actors.get(a.workers.workers[0]._built).policy.gumbel_fn = (
+                    GumbelStream(SEED + 23, (kw["num_envs_per_worker"], 2)))
+
+                def learn_on(b, a=a, log=log, learn=a._learn_on):
+                    m = learn(b)
+                    log.append([torch.stack([m[k] for k in sorted(m)])]
+                               + [p.detach().clone()
+                                  for p in tree_leaves(a.params)])
+                    return m
+                a._learn_on = learn_on
+            for _ in range(3):
+                for a in algos:
+                    a.train()
+            check(len(logs[0]) == len(logs[1]) == 6,
+                  f"23d {name}: {len(logs[0])} / {len(logs[1])} updates")
+            held_f32(f"{name}, one actor worker: 6 updates (metrics, "
+                     f"params)", [pair for ug, ur in zip(*logs)
+                                  for pair in zip(ug, ur)])
+        finally:
+            for a in algos:
+                a.cleanup()
+
+
+def impala_runs(card: str) -> None:
+    """23d: IMPALA and APPO at ``tests/test_rllib.py``'s settings for 10
+    iterations, inline (its ``num_rollout_workers=0``) and with 2 actor
+    workers: every batch consumed once, each worker's consumed, 80
+    updates; env steps/s, updates/s and the best mean return printed."""
+    from ray_tpu_torch.core import actors
+
+    for name, cls, extra in impala_algos():
+        rates = {}
+        for label, kw in (("inline", dict(num_rollout_workers=0)),
+                          ("2 actor workers", dict(num_rollout_workers=2,
+                                                   use_actors=True))):
+            algo = cls(**IMPALA_TEST, **kw, **extra).build()
+            made, used = {}, []
+            try:
+                check(algo.workers.use_actors == (label != "inline"),
+                      f"23d {name} {label}: use_actors "
+                      f"{algo.workers.use_actors}")
+                if algo.workers.use_actors:
+                    for i, w in enumerate(algo.workers.workers):
+                        worker = actors.get(w._built)
+
+                        def sample(i=i, inner=worker.sample):
+                            b = inner()
+                            made[hash(b["obs"].tobytes())] = i
+                            return b
+                        worker.sample = sample
+
+                def learn_on(b, learn=algo._learn_on):
+                    used.append(hash(b["obs"].tobytes()))
+                    return learn(b)
+                algo._learn_on = learn_on
+                t0 = time.perf_counter()
+                res = [algo.train() for _ in range(10)]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                algo.cleanup()
+            steps = sum(r["steps_this_iter"] for r in res)
+            check(len(used) == 80 and steps == 80 * 8 * 32
+                  and all(np.isfinite(r["total_loss"]) for r in res),
+                  f"23d {name} {label}: {len(used)} updates, {steps} env "
+                  f"steps, losses {[r['total_loss'] for r in res]}")
+            if made:
+                by_worker = [sum(made.get(h) == i for h in used)
+                             for i in (0, 1)]
+                check(len(set(used)) == len(used) and set(used) <= set(made)
+                      and min(by_worker) > 0,
+                      f"23d {name}: batches consumed by worker {by_worker}, "
+                      f"{len(used) - len(set(used))} twice, "
+                      f"{len(set(used) - set(made))} unknown")
+                label += (f" (batches consumed by worker {by_worker[0]} / "
+                          f"{by_worker[1]})")
+            best = max(r.get("episode_reward_mean", 0.0) for r in res)
+            rates[bool(made)] = (steps / wall, len(used) / wall)
+            print(f"[actors 23d] {name} {label}: 10 iterations in {wall:.2f} "
+                  f"s, {steps / wall:.1f} env steps/s, {len(used) / wall:.1f} "
+                  f"updates/s; best mean return {best:.2f}; on {card}")
+        left = [h._cls.__name__ for h in actors._runtime().actors]
+        check(left == [], f"23d {name}: actors left alive: {left}")
+        (a_sps, a_ups), (i_sps, i_ups) = rates[True], rates[False]
+        print(f"[actors 23d] {name}: the actor arm at {a_sps / i_sps:.2f}x the "
+              f"inline arm's env steps/s, {a_ups / i_ups:.2f}x its updates/s; "
+              f"on {card}")
+
+
 def phase_rllib_actors(card: str) -> dict:
     """RLlib's actor arms on the in-process stand-in ``core.actors``
     (phase 23), f32 with TF32 off, the actors' threads sharing the card:
     23a Ape-X (``apex_parity``, ``apex_runs``), 23b AlphaStar
     (``alpha_star_run``), 23c ``LearnerGroup(2)``, parallel ES and PPO's
-    actor workers (``actor_arms``); no flash launch.  Returns the phase's
-    seconds by part."""
+    actor workers (``actor_arms``), 23d IMPALA's and APPO's asynchronous
+    actor arm (``impala_parity``, ``impala_runs``); no flash launch.
+    Returns the phase's seconds by part."""
     from ray_tpu_torch.core import actors
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3890,7 +4043,9 @@ def phase_rllib_actors(card: str) -> dict:
         for name, fn, args in (("apex_parity", apex_parity, ()),
                                ("apex", apex_runs, (card,)),
                                ("alpha_star", alpha_star_run, (card,)),
-                               ("actor_arms", actor_arms, (card,))):
+                               ("actor_arms", actor_arms, (card,)),
+                               ("impala_parity", impala_parity, ()),
+                               ("impala", impala_runs, (card,))):
             t0 = time.perf_counter()
             fn(*args)
             parts[name] = time.perf_counter() - t0
@@ -3906,6 +4061,186 @@ def phase_rllib_actors(card: str) -> dict:
     print(f"[actors] phase 23 parts (s) on {card}: " + ", ".join(
         f"{k} {v:.1f}" for k, v in parts.items()))
     return parts
+
+
+# ------------------------------------------------ the gang as processes
+
+# GPT-2 124M's parameter count: the flat gradient a data-parallel step
+# all-reduces
+GPT2_PARAMS = 124_439_808
+# how long phase 24's dying member lets the others settle into the
+# all-reduce before it SIGKILLs its own process
+GANG_HOLD_S = 0.5
+
+
+def gang_grad_allreduce(rank: int, numel: int, device: str) -> tuple:
+    """A member of phase 24 (a process of its own): its flat f32
+    gradient of ``numel`` elements, kept in the member's state from its
+    first call, filled with ``rank + 1`` and all-reduced -> (the value
+    every element must hold, the world's sum of rank + 1; whether all do;
+    the all-reduce's seconds; the member's pid; this process's flash
+    launches (forward, bwd_kv, bwd_dq) since its first call)."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel.gang import current_member
+
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    state = current_member().state
+    if "grad" not in state:
+        fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+        state["grad"] = torch.empty(numel, dtype=torch.float32,
+                                    device=device)
+    x = state["grad"]
+    x.fill_(float(rank + 1))
+    sync = torch.cuda.synchronize if x.is_cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    dist.all_reduce(x)
+    sync()
+    secs = time.perf_counter() - t0
+    world = dist.get_world_size()
+    want = world * (world + 1) / 2
+    return (want, bool((x == want).all()), secs, os.getpid(),
+            (fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches))
+
+
+def gang_grad_allreduce_or_die(rank: int, numel: int, device: str,
+                               victim: int) -> tuple:
+    """``gang_grad_allreduce``, but ``victim`` SIGKILLs its own process
+    (``GangMember.kill()`` in a process member) in place of entering the
+    all-reduce, once the others wait in it."""
+    if rank == victim:
+        from ray_tpu_torch.parallel.gang import current_member
+
+        time.sleep(GANG_HOLD_S)
+        current_member().kill()
+    return gang_grad_allreduce(rank, numel, device)
+
+
+def phase_process_gang(card: str, device: str = "cuda",
+                       numel: int = GPT2_PARAMS) -> dict:
+    """Phase 24: ``MultiHostGang(4, host=ProcessHost())``, four member
+    processes sharing the card on a gloo world over CUDA tensors, each
+    holding a flat f32 gradient of GPT-2 124M's parameter count: the
+    all-reduce's sum at world 4; in the second, rank 1 SIGKILLs itself
+    while the others wait in it and ``GangMemberDied(rank=1)`` must come
+    within 30 s; ``alive_ranks`` [0, 2, 3], ``reform`` keeping their
+    pids, the sum at world 3; ``readmit`` to 4 with exactly one new pid,
+    the sum at 4; ``shutdown`` leaving no child.  Prints the seconds of
+    spawn, formation, naming the death, reform and readmit, and each
+    world's all-reduce time and bus rate (2 (n - 1) / n bytes a second);
+    no flash launch, in this process or in any member's (each member
+    reports its own counts).  Returns those seconds."""
+    import multiprocessing
+
+    from ray_tpu_torch.parallel.gang import (GangMemberDied, MultiHostGang,
+                                             ProcessHost)
+
+    secs: dict = {}
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    before = flash_launches()
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+
+    class TimedHost(ProcessHost):
+        """Times the spawn (every member answering a ping) apart from
+        the formation call."""
+
+        def call(self, members, coordinator, method, args, what, timeout):
+            if what == "formation setup":
+                deadline = time.perf_counter() + 120
+                for m in members:
+                    while not self.probe(m, 5.0):
+                        check(m.alive and time.perf_counter() < deadline,
+                              f"24: member {m.member_id} did not come up")
+                secs["spawn"] = time.perf_counter() - t_spawn
+            t = time.perf_counter()
+            out = super().call(members, coordinator, method, args, what,
+                               timeout)
+            if what == "formation setup":
+                secs["formation"] = time.perf_counter() - t
+            return out
+
+    nbytes = numel * 4
+    member_launches: dict = {}      # pid -> its flash launches so far
+
+    def allreduce(gang, label: str) -> None:
+        world = gang.num_members
+        out = gang.run(functools.partial(gang_grad_allreduce, numel=numel,
+                                         device=device), timeout=300)
+        want = world * (world + 1) / 2
+        check(all(o[0] == want and o[1] for o in out),
+              f"24 {label}: all-reduced values {[o[:2] for o in out]}, "
+              f"expected {want} everywhere")
+        check([o[3] for o in out] == gang.member_pids(),
+              f"24 {label}: the members' pids")
+        member_launches.update((o[3], o[4]) for o in out)
+        t = max(o[2] for o in out)
+        secs[f"allreduce_world{world}_{label}"] = t
+        print(f"[procgang 24] {label}: all-reduce of {numel:,} f32 "
+              f"({nbytes / 1e6:.1f} MB) at world {world} = {want} "
+              f"everywhere, {t * 1e3:.1f} ms (slowest member), bus rate "
+              f"{2 * (world - 1) / world * nbytes / t / 1e9:.3f} GB/s; on "
+              f"{card}")
+
+    t_spawn = time.perf_counter()
+    gang = MultiHostGang(4, device=device, host=TimedHost())
+    try:
+        pids = gang.member_pids()
+        check(len(set(pids)) == 4 and os.getpid() not in pids,
+              f"24: member pids {pids}")
+        allreduce(gang, "formed")
+        t = time.perf_counter()
+        err = None
+        try:
+            gang.run(functools.partial(gang_grad_allreduce_or_die,
+                                       numel=numel, device=device,
+                                       victim=1), timeout=300)
+        except GangMemberDied as e:
+            err = e
+        secs["death_named"] = time.perf_counter() - t
+        check(err is not None and err.rank == 1 and "rank 1/4" in str(err),
+              f"24: the second all-reduce raised {err!r}")
+        check(secs["death_named"] < 30, f"24: the death took "
+              f"{secs['death_named']:.2f} s to be named")
+        alive = gang.alive_ranks()
+        check(alive == [0, 2, 3], f"24: alive ranks {alive}")
+        t = time.perf_counter()
+        gang.reform(alive)
+        secs["reform"] = time.perf_counter() - t
+        check(gang.member_pids() == [pids[0], pids[2], pids[3]],
+              f"24: pids after reform {gang.member_pids()} (were {pids})")
+        allreduce(gang, "reformed")
+        t = time.perf_counter()
+        world = gang.readmit()
+        secs["readmit"] = time.perf_counter() - t
+        final = gang.member_pids()
+        check(world == 4 and final[:3] == [pids[0], pids[2], pids[3]]
+              and final[3] not in pids,
+              f"24: readmit gave world {world}, pids {final} (were {pids})")
+        allreduce(gang, "readmitted")
+    finally:
+        gang.shutdown()
+    left = multiprocessing.active_children()
+    check(left == [], f"24: child processes left after shutdown: {left}")
+    own = flash_launches()
+    fa.launches, fa.bwd_kv_launches, fa.bwd_dq_launches = (
+        before[0] + own[0], before[1] + own[1], before[2] + own[2])
+    seen = tuple(own[k] + sum(c[k] for c in member_launches.values())
+                 for k in range(3))
+    print(f"[procgang 24] flash launches {seen[0]} / {seen[1]} / {seen[2]} "
+          f"(this process and the {len(member_launches)} member processes "
+          f"that answered)")
+    check(len(member_launches) == 5,
+          f"24: flash counts from {len(member_launches)} member processes")
+    check(seen == (0, 0, 0), f"phase 24 launched flash kernels: {seen}")
+    print(f"[procgang 24] four member processes sharing {card}, gloo over "
+          f"CUDA tensors: spawn {secs['spawn']:.2f} s, formation "
+          f"{secs['formation']:.2f} s, the SIGKILL named as "
+          f"{err.__class__.__name__}(rank={err.rank}) {secs['death_named']:.2f} s "
+          f"after the all-reduce was called ({GANG_HOLD_S} s of it the "
+          f"victim's wait), reform {secs['reform']:.2f} s, readmit "
+          f"{secs['readmit']:.2f} s (one spawn); no child left")
+    return secs
 
 
 # ------------------------------------------------ sharded training
@@ -5551,6 +5886,7 @@ def main() -> int:
     run(phase_rllib_tail, card)
     run(phase_rllib_rest, card)
     run(phase_rllib_actors, card)
+    run(phase_process_gang, card)
     tp_serve_launches, tp_serve_records = run(phase_tp_serving, name, card)
     kernels[0].update(tp_serve_records)
     tp_serve_launches.update(run(phase_slot_tp, card))

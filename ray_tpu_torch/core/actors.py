@@ -1,6 +1,6 @@
 """An in-process stand-in for the runtime calls of RLlib's actor arms:
-``init``, ``shutdown``, ``is_initialized``, ``remote``, ``get``, ``put``
-and ``kill``.
+``init``, ``shutdown``, ``is_initialized``, ``remote``, ``get``, ``wait``,
+``put`` and ``kill``.
 
 The JAX package runs rollout workers, learners, replay shards,
 collectors and evaluation tasks on its core runtime (``ray_tpu.remote``).
@@ -15,8 +15,9 @@ The port has no runtime, so those arms run here, in the calling process:
   actor that keeps what it is given copies it;
 - a ref passed as a top-level argument is resolved before the call;
 - an exception raised in an actor or a task is raised again at ``get``;
-- every wait is bounded: ``get`` by its ``timeout`` (``GET_TIMEOUT_S``
-  when none is given), ``kill`` and ``shutdown`` join their threads
+- every wait is bounded: ``get`` and ``wait`` by their ``timeout``
+  (``GET_TIMEOUT_S`` when none is given: then ``wait`` raises rather
+  than return short), ``kill`` and ``shutdown`` join their threads
   within ``JOIN_TIMEOUT_S`` and raise if one still runs.
 
 There is no scheduling, no resource, no process and no object store.
@@ -29,7 +30,8 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import FIRST_COMPLETED, Future
+from concurrent.futures import wait as futures_wait
 from concurrent.futures import TimeoutError as FutureTimeout
 from typing import Optional
 
@@ -233,6 +235,36 @@ def get(refs, *, timeout: Optional[float] = None):
             raise GetTimeoutError(f"get() timed out after {timeout} s") \
                 from None
     return out if many else out[0]
+
+
+def wait(refs, *, num_returns: int = 1, timeout: Optional[float] = None):
+    """-> ``(ready, not_ready)``, both in the order of ``refs``: the first
+    ``num_returns`` refs (in that order) whose calls have ended, a failed
+    call counting as ready, or with a ``timeout`` whatever is ready when
+    it passes.  With ``timeout=None`` the wait is bounded by
+    ``GET_TIMEOUT_S``, after which it raises ``GetTimeoutError``."""
+    refs = list(refs)
+    if num_returns > len(refs):
+        raise ValueError("num_returns exceeds number of refs")
+    for r in refs:
+        if not isinstance(r, ObjectRef):
+            raise TypeError(f"wait() takes ObjectRefs, not {type(r)}")
+    limit = GET_TIMEOUT_S if timeout is None else timeout
+    deadline = time.monotonic() + limit
+    while True:
+        ready = [r for r in refs if r._future.done()]
+        if len(ready) >= num_returns:
+            ready = ready[:num_returns]
+            break
+        left = deadline - time.monotonic()
+        if left <= 0:
+            if timeout is None:
+                raise GetTimeoutError(f"wait() timed out after {limit} s")
+            break
+        futures_wait({r._future for r in refs if not r._future.done()},
+                     timeout=left, return_when=FIRST_COMPLETED)
+    chosen = {id(r) for r in ready}
+    return ready, [r for r in refs if id(r) not in chosen]
 
 
 def kill(handle: ActorHandle) -> None:

@@ -4,8 +4,9 @@ elastic half of ``ray_tpu/parallel/jax_compat.py``
 (``distributed_initialize``, ``distributed_abandon``, ``clear_backends``).
 
 A member joins a world with ``initialize(coordinator, world, rank,
-backend)`` and leaves it with ``abandon()``.  Leaving must not talk to the
-old world: once a peer is dead, any shutdown handshake (a barrier, a
+backend)`` and leaves it with ``abandon()``, or as a process over gloo
+with ``leave()`` (gloo's teardown closes sockets and sends nothing).
+Leaving must not talk to the old world: once a peer is dead, any shutdown handshake (a barrier, a
 communicator's collective abort) can block or raise in the survivors.  So
 ``abandon`` never calls ``destroy_process_group`` or ``shutdown``: it
 parks the old groups in a module-level list (a bounded leak, one world
@@ -25,13 +26,18 @@ Backends are named by where the members live:
     ends; ``abandon`` has nothing to park.
   * ``"nccl"`` (CUDA) and ``"gloo"`` (CPU), by the device
     (``backend_for``): one member per process, the coordinator a
-    ``tcp://host:port`` address chosen by rank 0.  This is
-    the route for members hosted as processes; the in-process gang does
-    not take it (NCCL runs no two ranks on one card).
+    ``tcp://host:port`` address.  This is the route for members hosted
+    as processes (``gang.ProcessHost``), which takes gloo, also over CUDA
+    tensors on a card the members share (NCCL runs no two ranks on one
+    card).  ``WORLD_TIMEOUT_S`` bounds the formation and every
+    collective of such a world.  A member process whose call failed
+    ``leave``s its world: its connections close, so peers blocked in a
+    collective with it raise at once instead of at the timeout.
 """
 
 from __future__ import annotations
 
+import datetime
 import socket
 import threading
 import uuid
@@ -46,6 +52,9 @@ _stores: dict = {}
 _stores_lock = threading.Lock()
 # worlds left by abandon(): never shut down, never destroyed
 _abandoned_worlds: list = []
+# the bound on forming a world and, for a world of processes, on each of
+# its collectives
+WORLD_TIMEOUT_S = 120.0
 
 
 def backend_for(device) -> str:
@@ -81,8 +90,9 @@ def release_coordinator(coordinator: str) -> None:
 def initialize(coordinator: str, world: int, rank: int,
                backend: str) -> str:
     """Join the world of ``world`` ranks at ``coordinator`` as ``rank``:
-    ``dist.init_process_group`` on this thread (threaded) or process.
-    Returns the backend."""
+    ``dist.init_process_group`` on this thread (threaded) or process,
+    whose collectives (a process world's) wait at most
+    ``WORLD_TIMEOUT_S``.  Returns the backend."""
     if backend == "threaded":
         with _stores_lock:
             base = _stores.get(coordinator)
@@ -95,9 +105,19 @@ def initialize(coordinator: str, world: int, rank: int,
         dist.init_process_group("threaded", rank=rank, world_size=world,
                                 store=store)
     else:
-        dist.init_process_group(backend, init_method=coordinator,
-                                world_size=world, rank=rank)
+        dist.init_process_group(
+            backend, init_method=coordinator, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
     return backend
+
+
+def leave() -> None:
+    """Leave this process's world and close its connections
+    (``destroy_process_group``), so that peers waiting in a collective
+    with this process raise at once.  Nothing to do when no world is
+    initialised."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def abandon() -> None:
@@ -122,5 +142,5 @@ def abandon() -> None:
     w.group_count = 0
 
 
-__all__ = ["THREADED", "backend_for", "new_coordinator",
-           "release_coordinator", "initialize", "abandon"]
+__all__ = ["THREADED", "WORLD_TIMEOUT_S", "backend_for", "new_coordinator",
+           "release_coordinator", "initialize", "leave", "abandon"]

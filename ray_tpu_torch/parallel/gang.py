@@ -18,38 +18,54 @@ objects, renumbered in order, a fresh coordinator), and replacements are
 re-admitted at the next boundary (``readmit``).  Full teardown and a
 fresh gang stay the fallback.
 
-Members are hosted behind a small interface (``InProcessHost``: spawn a
-member, run a method on a set of members in one world, probe one, kill
-one).  The port ships in-process members: each ``GangMember`` is an
-object that lasts across worlds, and each world is one
-``threaded.run_ranks`` call over the current members, whose threads join
-through the gang's coordinator (``distributed.initialize``, backend
-``"threaded"``, named here: in-process members take no other).  Members may then share one device: the CPU in tests,
-one card in the smoke run.  Hosting members as processes or as actors on
-other hosts (``distributed``'s NCCL and gloo routes) needs a host
-runtime, which the port does not import.
+Members are hosted behind a small interface (spawn a member, pick a
+world's coordinator, run a method on a set of members in one world,
+probe one, kill one), with two hosts:
+
+- ``InProcessHost`` (the default): each ``GangMember`` is an object of
+  this process that lasts across worlds, and each world is one
+  ``threaded.run_ranks`` call over the current members, whose threads
+  join through the gang's coordinator (``distributed.initialize``,
+  backend ``"threaded"``).  Members may then share one device: the CPU in
+  tests, one card in the smoke run.  An in-process member cannot be
+  killed from outside while it runs (Python has no SIGKILL for a
+  thread): it dies when its own code kills it, ``GangMember.kill()`` or
+  raising ``MemberKilled`` out of ``run``, and from then on it answers no
+  ``ping``.
+- ``ProcessHost``: each member is a process of its own (spawned, never
+  forked), the JAX package's member actor; a SIGKILL ends it, from
+  outside or from its own code.  Its world is gloo over a
+  ``tcp://127.0.0.1`` coordinator, on the CPU or on a card the members
+  share (NCCL runs no two ranks on one card).  The member object and its
+  ``state`` live in the child; the parent holds a ``ProcessMember``
+  handle.  Functions reach the child by reference with the standard
+  ``pickle``: a module-level function or a ``functools.partial`` of one,
+  never a lambda or a closure.
 
 A member's identity (``member_id``, process-wide, never reused) lasts
 across re-forms as a process id does in the JAX package
-(``member_ids()``, the counterpart of ``member_pids()``).  An in-process
-member cannot be killed from outside while it runs (Python has no
-SIGKILL for a thread): a member dies when its own code kills it,
-``GangMember.kill()`` or raising ``MemberKilled`` out of ``run``, and
-from then on it answers no ``ping``.  ``current_member()`` is the member
-whose thread calls it (None elsewhere).
+(``member_ids()``; ``member_pids()`` the processes hosting them).
+``current_member()`` is the member whose thread calls it (None
+elsewhere).
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+import os
+import pickle
+import queue
+import signal
 import threading
 import time
+import traceback
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.core import fault_injection as _fi
@@ -140,8 +156,9 @@ class MemberKilled(BaseException):
 
 _local = threading.local()
 _member_ids = itertools.count(1)
-# the bound on forming a world (formation, re-form, readmission)
-SETUP_TIMEOUT_S = 120.0
+# the bound on forming a world (formation, re-form, readmission); a
+# process world's collectives have the same bound
+SETUP_TIMEOUT_S = distributed.WORLD_TIMEOUT_S
 
 
 def current_member() -> Optional["GangMember"]:
@@ -150,8 +167,10 @@ def current_member() -> Optional["GangMember"]:
 
 
 class GangMember:
-    """One member, hosted in this process: its rank in the current world,
-    its ``device``, a ``state`` dict kept across worlds (a member's
+    """One member, in this process or (``ProcessHost``) in a process of
+    its own: its rank in the current world, its ``device``, the
+    ``backend`` of its worlds (``"threaded"`` in this process, ``"gloo"``
+    in its own), a ``state`` dict kept across worlds (a member's
     long-lived objects: a learner, a rollout worker) and its identity
     ``member_id``.  The gang calls ``formed`` and ``run`` on the member's
     thread inside a world; ``ping`` and ``kill`` anywhere."""
@@ -159,6 +178,7 @@ class GangMember:
     def __init__(self, rank: int, world: int, *, device=None):
         self.rank, self.world = rank, world
         self.device = torch.device("cuda" if device is None else device)
+        self.backend = "threaded"   # "gloo" in a process of its own
         self.member_id = next(_member_ids)
         self.coordinator: Optional[str] = None
         self.state: dict = {}
@@ -173,15 +193,18 @@ class GangMember:
     def join(self, coordinator: str, world: int, rank: int) -> None:
         """Enter a world on this member's thread (the gang's per-world
         init): take the rank and world given, join through
-        ``coordinator``."""
+        ``coordinator``; a process member leaves its previous world
+        first."""
         if not self._alive:
             raise MemberKilled(f"member {self.member_id} is dead")
+        if self.backend != "threaded":
+            distributed.leave()     # the previous world, if any
         self.coordinator, self.world, self.rank = coordinator, world, rank
         self._thread = threading.current_thread()
         _local.member = self
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device.index or 0)
-        distributed.initialize(coordinator, world, rank, "threaded")
+        distributed.initialize(coordinator, world, rank, self.backend)
 
     def formed(self) -> None:
         """Every member has joined the world (``join``: a formation, a
@@ -208,12 +231,17 @@ class GangMember:
         if not self._alive:
             raise GangMemberDied(self.rank,
                                  f"member {self.member_id} is dead")
-        return {"rank": self.rank, "member_id": self.member_id}
+        return {"rank": self.rank, "member_id": self.member_id,
+                "pid": os.getpid()}
 
     def kill(self) -> None:
-        """Die.  On the member's own thread this raises ``MemberKilled``,
-        so its call unwinds; from another thread only an idle member can
-        be killed (a running thread cannot be stopped from outside)."""
+        """Die.  A member hosted in a process of its own SIGKILLs that
+        process.  In this process, on the member's own thread this raises
+        ``MemberKilled``, so its call unwinds; from another thread only an
+        idle member can be killed (a running thread cannot be stopped
+        from outside)."""
+        if self.backend != "threaded":          # a process of its own
+            os.kill(os.getpid(), signal.SIGKILL)
         if threading.current_thread() is self._thread and self._busy:
             self._alive = False
             raise MemberKilled(f"member {self.member_id} killed itself")
@@ -237,13 +265,17 @@ class InProcessHost:
               **kw) -> GangMember:
         return member_cls(rank=rank, world=world, **kw)
 
-    def call(self, members: list, coordinator: str,
-             calls: list, what: str,
-             timeout: Optional[float]) -> list:
-        """``calls[i](members[i])`` on member i's thread, all in one world
-        of ``len(members)`` at ``coordinator``; the first member to fail
-        raises ``GangMemberDied`` naming its rank (the others, waiting in
-        a collective it will never join, are woken and unwound first)."""
+    def new_coordinator(self, members: list) -> str:
+        """The next world's rendezvous, picked by its rank 0."""
+        return members[0].choose_coordinator()
+
+    def call(self, members: list, coordinator: str, method: str,
+             args: tuple, what: str, timeout: Optional[float]) -> list:
+        """``members[i].<method>(*args)`` on member i's thread, all in one
+        world of ``len(members)`` at ``coordinator``; the first member to
+        fail raises ``GangMemberDied`` naming its rank (the others,
+        waiting in a collective it will never join, are woken and unwound
+        first)."""
         from ray_tpu_torch.parallel.threaded import RankError, run_ranks
 
         world = len(members)
@@ -252,8 +284,9 @@ class InProcessHost:
             members[rank].join(coordinator, world, rank)
 
         try:
-            return run_ranks(lambda r: calls[r](members[r]), world,
-                             timeout=timeout, init=init)
+            return run_ranks(
+                lambda r: getattr(members[r], method)(*args), world,
+                timeout=timeout, init=init)
         except RankError as e:
             raise GangMemberDied(
                 e.rank, f"gang member rank {e.rank}/{world} failed during "
@@ -261,7 +294,7 @@ class InProcessHost:
         except TimeoutError as e:
             raise TimeoutError(f"gang {what} timed out: {e}") from e
 
-    def probe(self, member: GangMember) -> bool:
+    def probe(self, member: GangMember, timeout: float) -> bool:
         try:
             member.ping()
             return True
@@ -274,11 +307,300 @@ class InProcessHost:
         except Exception:
             pass
 
+    def pid(self, member: GangMember) -> int:
+        return os.getpid()
+
+
+# ---------------------------------------------------------------------------
+# members as processes
+
+# after a member's first error, how long the others' answers and exits are
+# awaited before one is blamed (a peer's "connection closed" error can
+# come before the death that caused it is seen)
+BLAME_WINDOW_S = 3.0
+# the bound on a killed member's exit
+KILL_JOIN_S = 10.0
+
+
+def _serve_member(conn, member_cls: type, rank: int, world: int,
+                  member_id: int, kw: dict) -> None:
+    """A member process's loop.  The main thread reads the owner's
+    commands from ``conn`` and answers ``ping`` itself, so a member stuck
+    in a collective still answers; ``call`` runs on one worker thread, in
+    order, so a survivor joins a new world only once its previous call
+    has unwound.  A call that raises leaves its world before it answers,
+    so that peers blocked in a collective with it raise at once (and the
+    next call joins afresh); the failure is stamped with
+    ``time.monotonic()`` (one clock for every process of a machine) when
+    it is caught.  At EOF (the owner died) the
+    process exits."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")   # 127.0.0.1 worlds
+    member = member_cls(rank=rank, world=world, **kw)
+    member.member_id, member.backend = member_id, "gloo"
+    send_lock = threading.Lock()
+
+    def send(msg) -> None:
+        with send_lock:
+            conn.send_bytes(pickle.dumps(msg))
+
+    calls: queue.SimpleQueue = queue.SimpleQueue()
+
+    def work() -> None:
+        while True:
+            seq, where, blob = calls.get()
+            try:
+                method, args = pickle.loads(blob)
+                if where != (member.coordinator, member.world, member.rank):
+                    member.join(*where)
+                send((seq, "ok", getattr(member, method)(*args)))
+            except MemberKilled:
+                os.kill(os.getpid(), signal.SIGKILL)
+            except Exception as e:      # answered; the member lives on
+                stamp = time.monotonic()
+                distributed.leave()
+                member.coordinator = None
+                send((seq, "error", stamp, f"{type(e).__name__}: {e}",
+                      traceback.format_exc()))
+            except BaseException:       # SystemExit and the like
+                os._exit(1)
+
+    threading.Thread(target=work, name="gang-member-call",
+                     daemon=True).start()
+    while True:
+        try:
+            kind, seq, *rest = pickle.loads(conn.recv_bytes())
+        except (EOFError, OSError):
+            os._exit(0)
+        if kind == "ping":
+            send((seq, "ok", member.ping()))
+        else:
+            calls.put((seq, *rest))
+
+
+class ProcessMember:
+    """The owner's handle to a member in a process of its own: its
+    ``member_id``, current ``rank`` and ``world``, ``pid`` and
+    ``alive``, and the ``address`` of the world it was last sent to.  A
+    reader thread files the child's answers by sequence number and marks
+    the member gone at EOF (its process ended)."""
+
+    def __init__(self, proc, conn, member_id: int, rank: int, world: int,
+                 cond: threading.Condition):
+        self.proc, self.pid = proc, proc.pid
+        self.member_id, self.rank, self.world = member_id, rank, world
+        self.address: Optional[str] = None     # of the world it was sent to
+        self._conn, self._cond = conn, cond
+        self._send_lock = threading.Lock()
+        self._seq = itertools.count()
+        self._waiting: set = set()
+        self._answers: dict = {}
+        self.gone_at: Optional[float] = None
+        self._reader = threading.Thread(
+            target=self._read, name=f"gang-member-{member_id}-reader",
+            daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        while True:
+            try:
+                seq, *answer = pickle.loads(self._conn.recv_bytes())
+            except (EOFError, OSError):
+                with self._cond:
+                    self.gone_at = time.monotonic()
+                    self._cond.notify_all()
+                return
+            with self._cond:
+                if seq in self._waiting:
+                    self._answers[seq] = answer
+                    self._cond.notify_all()
+
+    def submit(self, kind: str, *rest) -> int:
+        """Send a command -> its sequence number (its answer is awaited
+        until ``forget``)."""
+        seq = next(self._seq)
+        with self._cond:
+            self._waiting.add(seq)
+        try:
+            with self._send_lock:
+                self._conn.send_bytes(pickle.dumps((kind, seq, *rest)))
+        except OSError:
+            pass                        # gone: the reader marks it
+        return seq
+
+    def answer(self, seq: int):
+        """The answer to ``seq`` or None; call under the host's lock."""
+        return self._answers.get(seq)
+
+    def forget(self, seq: int) -> None:
+        with self._cond:
+            self._waiting.discard(seq)
+            self._answers.pop(seq, None)
+
+    @property
+    def alive(self) -> bool:
+        return self.gone_at is None and self.proc.is_alive()
+
+    def exit_code(self) -> Optional[int]:
+        self.proc.join(KILL_JOIN_S)
+        return self.proc.exitcode
+
+    def close(self) -> None:
+        """SIGKILL the process (if alive), join it and the reader (each
+        bounded), close the pipe."""
+        if self.proc.is_alive():
+            try:
+                os.kill(self.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+        self.proc.join(KILL_JOIN_S)
+        self._reader.join(KILL_JOIN_S)
+        self._conn.close()
+
+
+class ProcessHost:
+    """Hosts each gang member in a process of its own, spawned by
+    ``torch.multiprocessing`` (never forked: the owner may hold CUDA or
+    XLA threads).  ``member_cls`` and every function given to ``run``
+    must be importable in the child; a process whose owner dies exits
+    (EOF on its pipe), and members are daemons."""
+
+    def __init__(self):
+        self._ctx = torch.multiprocessing.get_context("spawn")
+        self._cond = threading.Condition()
+        # a gang's coordinator -> the address its members join, and the
+        # addresses of spent worlds, which some member has left (its call
+        # failed, or it joined another world since): the next call on a
+        # spent world joins a fresh one, as an in-process world is joined
+        # afresh on every call
+        self._address: dict = {}
+        self._spent: set = set()
+
+    def spawn(self, member_cls: type, rank: int, world: int,
+              **kw) -> ProcessMember:
+        member_id = next(_member_ids)
+        parent, child = self._ctx.Pipe()
+        proc = self._ctx.Process(
+            target=_serve_member, name=f"gang-member-{member_id}",
+            args=(child, member_cls, rank, world, member_id, kw),
+            daemon=True)
+        proc.start()
+        child.close()
+        return ProcessMember(proc, parent, member_id, rank, world,
+                             self._cond)
+
+    def new_coordinator(self, members: list) -> str:
+        """A free port on 127.0.0.1, chosen by the owner."""
+        return distributed.new_coordinator("gloo")
+
+    def call(self, members: list, coordinator: str, method: str,
+             args: tuple, what: str, timeout: Optional[float]) -> list:
+        """``<method>(*args)`` on every member in one world of
+        ``len(members)`` at ``coordinator`` (a member not yet in it joins
+        first) -> the results in rank order.  The arguments travel by
+        reference with the standard pickle: a lambda or a closure raises
+        ``TypeError`` before any member is sent anything.
+        ``GangMemberDied`` names a member whose process exited as soon as
+        its pipe closes; after an error, every member's answer or exit is
+        awaited for ``BLAME_WINDOW_S`` first, and without a death the
+        member whose failure came first is named (its peers' "connection
+        closed" errors come after it).  A failure spends the world: the
+        next call's members join a fresh one, with no re-form needed."""
+        try:
+            blob = pickle.dumps((method, args))
+        except (pickle.PicklingError, AttributeError, TypeError) as e:
+            raise TypeError(
+                f"a process member runs a module-level function or a "
+                f"functools.partial of one, sent by reference with the "
+                f"standard pickle; {method}{args!r} cannot be: {e}") from e
+        world = len(members)
+        address = self._address.get(coordinator, coordinator)
+        if address in self._spent:
+            address = self._address[coordinator] = self.new_coordinator(
+                members)
+        seqs = []
+        for rank, m in enumerate(members):
+            if m.address not in (None, address):
+                self._spent.add(m.address)      # m leaves it to join this
+            m.rank, m.world, m.address = rank, world, address
+            seqs.append(m.submit("call", (address, world, rank), blob))
+        try:
+            return self._collect(members, seqs, what, timeout)
+        except BaseException:
+            self._spent.add(address)
+            raise
+        finally:
+            for m, seq in zip(members, seqs):
+                m.forget(seq)
+
+    def _collect(self, members, seqs, what, timeout) -> list:
+        world = len(members)
+        deadline = (math.inf if timeout is None
+                    else time.monotonic() + timeout)
+        window_end = math.inf
+        with self._cond:
+            while True:
+                answers = [m.answer(s) for m, s in zip(members, seqs)]
+                dead = [i for i, (m, a) in enumerate(zip(members, answers))
+                        if a is None and m.gone_at is not None]
+                failed = [i for i, a in enumerate(answers)
+                          if a is not None and a[0] == "error"]
+                if dead:                # a death outranks every error
+                    break
+                if not failed and None not in answers:
+                    return [a[1] for a in answers]
+                now = time.monotonic()
+                if failed:
+                    window_end = min(window_end, now + BLAME_WINDOW_S)
+                    if None not in answers or now >= window_end:
+                        break
+                if now >= deadline:
+                    raise TimeoutError(f"gang {what} timed out after "
+                                       f"{timeout} s")
+                left = min(deadline, window_end) - now
+                # no bound yet (run's default): wait for any answer or exit
+                self._cond.wait(None if math.isinf(left) else left)
+        if dead:
+            r = min(dead, key=lambda i: members[i].gone_at)
+            raise GangMemberDied(
+                r, f"gang member rank {r}/{world} died during {what} "
+                   f"(pid {members[r].pid}, exit code "
+                   f"{members[r].exit_code()})")
+        r = min(failed, key=lambda i: answers[i][1])
+        _, _, err, tb = answers[r]
+        raise GangMemberDied(
+            r, f"gang member rank {r}/{world} failed during {what}: "
+               f"{err}\n{tb}")
+
+    def probe(self, member: ProcessMember, timeout: float) -> bool:
+        """Alive and answering a ``ping`` within ``timeout``."""
+        if not member.alive:
+            return False
+        seq = member.submit("ping")
+        deadline = time.monotonic() + timeout
+        try:
+            with self._cond:
+                while member.answer(seq) is None and member.alive:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        return False
+                    self._cond.wait(left)
+                return member.answer(seq) is not None
+        finally:
+            member.forget(seq)
+
+    def kill(self, member: ProcessMember) -> None:
+        member.close()
+
+    def pid(self, member: ProcessMember) -> int:
+        return member.pid
+
 
 class MultiHostGang:
     """A formed multi-host gang: one ``GangMember`` per host, formed
     together through rank 0's coordinator (SPMD across members), on
-    ``device`` (None: the card; the members share it).
+    ``device`` (None: the card; the members share it), hosted by
+    ``host`` (None: ``InProcessHost()``; ``ProcessHost()`` for a process
+    per member).
 
     The gang is elastic: ``reform(survivors)`` re-forms it at the smaller
     world from the surviving members (the same objects and ids, a fresh
@@ -288,11 +610,11 @@ class MultiHostGang:
     too few members survive or re-forming fails."""
 
     def __init__(self, num_members: int, *, device=None,
-                 member_cls: Optional[type] = None):
+                 member_cls: Optional[type] = None, host=None):
         self.num_members = num_members
         self.target_members = num_members
         self.device = resolve_device(device)
-        self.host = InProcessHost()
+        self.host = InProcessHost() if host is None else host
         self._member_cls = member_cls or GangMember
         self.coordinator: Optional[str] = None
         self.members = [self._spawn(i, num_members)
@@ -315,10 +637,9 @@ class MultiHostGang:
         proves it formed.  Only then are they the gang's and the old
         rendezvous released; a failure releases the fresh one and leaves
         the gang as it was."""
-        coordinator = members[0].choose_coordinator()
+        coordinator = self.host.new_coordinator(members)
         try:
-            self.host.call(members, coordinator,
-                           [lambda m: m.formed()] * len(members), what,
+            self.host.call(members, coordinator, "formed", (), what,
                            SETUP_TIMEOUT_S)
         except BaseException:
             distributed.release_coordinator(coordinator)
@@ -343,13 +664,16 @@ class MultiHostGang:
         first failure, a member's death or its exception, surfaces as
         ``GangMemberDied`` naming the rank, after the members waiting in a
         collective it will never join were woken."""
-        return self.host.call(
-            self.members, self.coordinator,
-            [lambda m: m.run(fn, *args)] * self.num_members, "run",
-            timeout)
+        return self.host.call(self.members, self.coordinator, "run",
+                              (fn, *args), "run", timeout)
 
     def member_ids(self) -> list[int]:
         return [m.member_id for m in self.members]
+
+    def member_pids(self) -> list[int]:
+        """The processes hosting the members (this process's id for each
+        in-process member)."""
+        return [self.host.pid(m) for m in self.members]
 
     # ------------------------------------------------------------ elasticity
 
@@ -360,9 +684,10 @@ class MultiHostGang:
         deadline = time.monotonic() + timeout
         out = []
         for i, m in enumerate(self.members):
-            if time.monotonic() > deadline:
+            left = deadline - time.monotonic()
+            if left <= 0:
                 break
-            if self.host.probe(m):
+            if self.host.probe(m, left):
                 out.append(i)
         return out
 
@@ -417,5 +742,5 @@ class MultiHostGang:
 
 
 __all__ = ["GangConfig", "TpuGang", "form_gang", "GangMemberDied",
-           "MemberKilled", "GangMember", "InProcessHost", "MultiHostGang",
-           "current_member"]
+           "MemberKilled", "GangMember", "InProcessHost", "ProcessHost",
+           "ProcessMember", "MultiHostGang", "current_member"]

@@ -190,7 +190,11 @@ class Algorithm:
         pass
 
     def cleanup(self):
-        pass
+        """Stop the rollout workers of an algorithm that has a
+        ``WorkerSet`` (its actors; nothing to release inline)."""
+        workers = getattr(self, "workers", None)
+        if isinstance(workers, WorkerSet):
+            workers.stop()
 
     def step(self) -> dict:
         t0 = time.perf_counter()

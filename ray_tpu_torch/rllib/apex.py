@@ -242,6 +242,11 @@ class ApexDQN(Algorithm):
         self._sync_collector_weights()
 
     def cleanup(self):
+        """Kill every collector and shard; one kill that raises (a thread
+        still running past the join bound) does not spare the rest."""
         if self._distributed:
             for o in self.collectors + self.shards:
-                actors.kill(o)
+                try:
+                    actors.kill(o)
+                except RuntimeError:
+                    pass

@@ -7,8 +7,11 @@ over T on the tensors' device.  The learner consumes each inline
 worker's rollout as it comes, time-major [T, B], bootstrapping from the
 rollout's ``bootstrap_obs`` (the state after its last step), and pushes
 the new weights back to that worker, as the JAX package's inline mode
-does.  The JAX package's asynchronous actor arm (``ray_tpu.wait`` on
-in-flight samples) is not ported: with actor workers ``Impala`` raises.
+does.  With actor workers (``core.actors``) it is the JAX package's
+asynchronous arm: one ``sample`` in flight per worker, completions taken
+as they land (``actors.wait``), one update on each, the new weights
+pushed to that worker alone without waiting, and its ``sample``
+resubmitted.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ray_tpu_torch.core import actors
 from ray_tpu_torch.data.feed import to_device
 from ray_tpu_torch.rllib import sample_batch as SB
 from ray_tpu_torch.rllib.algorithm import AlgorithmConfig
@@ -103,12 +107,8 @@ class Impala(OnPolicyLearner):
 
     def _build(self):
         self._build_learner()
-        if self.workers.use_actors:
-            self.workers.stop()
-            raise NotImplementedError(
-                "IMPALA's asynchronous actor arm is not ported; it "
-                "samples with inline workers")
         self._update = make_impala_update(self.config)
+        self._inflight = {}     # ref -> worker (actor workers)
 
     def _time_major(self, b: SampleBatch) -> dict:
         tm = SampleBatch({k: b[k] for k in TIME_MAJOR_KEYS}
@@ -123,9 +123,18 @@ class Impala(OnPolicyLearner):
         return metrics
 
     def training_step(self) -> dict:
-        cfg = self.config
+        metrics, steps = (self._async_batches() if self.workers.use_actors
+                          else self._inline_batches())
+        self._timesteps += steps
+        out = {k: float(v) for k, v in metrics.items()}
+        out["steps_this_iter"] = steps
+        return out
+
+    def _inline_batches(self) -> tuple:
+        """Each worker's rollout in turn, ``batches_per_step`` rounds ->
+        (the last update's metrics, env steps)."""
         metrics, steps = {}, 0
-        for _ in range(cfg.batches_per_step):
+        for _ in range(self.config.batches_per_step):
             # one worker's batch at a time keeps the [T, B] layout intact
             for w in self.workers.workers:
                 b = SampleBatch(w.sample())
@@ -133,7 +142,27 @@ class Impala(OnPolicyLearner):
                 metrics = self._learn_on(b)
                 steps += b.count
                 w.set_weights(to_numpy(self.params))
-        self._timesteps += steps
-        out = {k: float(v) for k, v in metrics.items()}
-        out["steps_this_iter"] = steps
-        return out
+        return metrics, steps
+
+    def _async_batches(self) -> tuple:
+        """``batches_per_step`` rollouts of actor workers, each taken as
+        it lands, every worker kept sampling -> (the last update's
+        metrics, env steps)."""
+        metrics, steps = {}, 0
+        for w in self.workers.workers:
+            if w not in self._inflight.values():
+                self._inflight[w.sample.remote()] = w
+        for _ in range(self.config.batches_per_step):
+            ready, _ = actors.wait(list(self._inflight), num_returns=1,
+                                   timeout=600)
+            ref = ready[0]
+            w = self._inflight.pop(ref)
+            b = SampleBatch(actors.get(ref))
+            self._ep_returns.extend(
+                actors.get(w.episode_returns.remote(), timeout=600))
+            metrics = self._learn_on(b)
+            steps += b.count
+            # the weights to this worker alone, unawaited; then resubmit
+            w.set_weights.remote(actors.put(to_numpy(self.params)))
+            self._inflight[w.sample.remote()] = w
+        return metrics, steps

@@ -295,6 +295,3 @@ class MBMPO(Algorithm):
         copy_into(self.models, ck["models"])
         self._timesteps = ck.get("timesteps", 0)
         self.workers.sync_weights(to_numpy(self.params))
-
-    def cleanup(self):
-        self.workers.stop()

@@ -96,9 +96,6 @@ class OnPolicyLearner(Algorithm):
         self._timesteps = ck.get("timesteps", 0)
         self.workers.sync_weights(to_numpy(self.params))
 
-    def cleanup(self):
-        self.workers.stop()
-
 
 class PG(OnPolicyLearner):
     _default_config = PGConfig

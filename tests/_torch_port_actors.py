@@ -1,18 +1,22 @@
 """Test glue for the actor arms: the port's in-process stand-in
 ``ray_tpu_torch.core.actors``, initialised for one test, with the JAX
 package's runtime calls (``ray_tpu.is_initialized``, ``remote``, ``get``,
-``put``, ``kill``) pointed at it, so the JAX arms run on the same
-threads with no runtime and no edit to ``ray_tpu/``.  After the test it
-is shut down and no stand-in thread may be left alive."""
+``wait``, ``put``, ``kill``) pointed at it, so the JAX arms run on the
+same threads with no runtime and no edit to ``ray_tpu/``.  After the test
+it is shut down and no stand-in thread may be left alive.  ``JaxKeys``
+feeds a port worker's policy the Gumbel noise of its JAX twin."""
 
+import functools
 import threading
 
+import jax
+import numpy as np
 import pytest
 
 import ray_tpu
 from ray_tpu_torch.core import actors
 
-CALLS = ("is_initialized", "remote", "get", "put", "kill")
+CALLS = ("is_initialized", "remote", "get", "wait", "put", "kill")
 
 
 def live_threads() -> list:
@@ -30,6 +34,26 @@ def standin(monkeypatch):
     finally:
         actors.shutdown()
         assert live_threads() == []
+
+
+class JaxKeys:
+    """A JAX policy's key stream: each call splits the key as
+    ``JaxPolicy.compute_actions`` does and returns the Gumbel noise
+    ``jax.random.categorical`` adds to the logits.  A JAX
+    ``RolloutWorker(seed=s)`` keys its policy ``s + 1``."""
+
+    def __init__(self, seed: int, shape: tuple):
+        self.rng, self.shape = jax.random.PRNGKey(seed), shape
+
+    @staticmethod
+    @functools.partial(jax.jit, static_argnums=1)
+    def _next(rng, shape):
+        rng, sub = jax.random.split(rng)
+        return rng, jax.random.gumbel(sub, shape)
+
+    def __call__(self):
+        self.rng, g = self._next(self.rng, self.shape)
+        return np.asarray(g)
 
 
 def instance(handle):

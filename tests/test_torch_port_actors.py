@@ -2,10 +2,12 @@
 arms (``ray_tpu_torch.core.actors``): an actor's calls run in the order
 they were submitted on its own thread, refs passed as top-level
 arguments resolve, an error raised in an actor or a task is raised again
-at ``get``, ``get`` fails fast at its timeout, ``kill`` and ``shutdown``
-leave no live thread and fail the calls still queued, and without
-``init()`` ``.remote(...)`` raises, as the JAX package's runtime does
-uninitialised."""
+at ``get``, ``get`` fails fast at its timeout, ``wait`` keeps the order
+of its refs and is bounded, ``kill`` and ``shutdown`` leave no live
+thread and fail the calls still queued, and without ``init()``
+``.remote(...)`` raises, as the JAX package's runtime does
+uninitialised.  Ape-X's ``cleanup`` stops every actor even when one kill
+raises."""
 
 import sys
 import threading
@@ -117,9 +119,11 @@ def test_kill_fails_queued_calls_and_joins_the_thread(rt):
     other = rt.remote(Counter).remote(0)
     running = c.block.remote(ev)
     queued = c.push.remote(1)
+    deadline = time.monotonic() + 10
+    while not running._future.running() and time.monotonic() < deadline:
+        time.sleep(0.001)          # the call has started before the kill
     killer = threading.Thread(target=rt.kill, args=(c,))
     killer.start()
-    deadline = time.monotonic() + 10
     while not c._lane._closed and time.monotonic() < deadline:
         pass
     ev.set()                       # the running call finishes
@@ -197,3 +201,70 @@ def test_concurrent_submitters_lose_no_call(rt):
                 assert [i for kk, i in log if kk == k] == list(range(100))
     finally:
         sys.setswitchinterval(switch)
+
+
+def test_wait_keeps_order_and_counts_failed_calls_as_ready(rt):
+    evs = [threading.Event() for _ in range(4)]
+    cs = [rt.remote(Counter).remote(0) for _ in range(4)]
+    refs = [c.block.remote(ev) for c, ev in zip(cs, evs)]
+    failed = cs[0].fail.remote()          # queued behind refs[0]
+    for i in (3, 1):
+        evs[i].set()
+    ready, rest = rt.wait(refs, num_returns=2)
+    assert ready == [refs[1], refs[3]] and rest == [refs[0], refs[2]]
+    # num_returns caps ready (in the order of refs), not_ready keeps the rest
+    ready, rest = rt.wait(refs, num_returns=1, timeout=10)
+    assert ready == [refs[1]] and rest == [refs[0], refs[2], refs[3]]
+    evs[0].set()
+    ready, rest = rt.wait([failed, refs[2]], num_returns=1, timeout=10)
+    assert ready == [failed] and rest == [refs[2]]
+    with pytest.raises(ValueError, match="raised in the actor"):
+        rt.get(failed)
+    with pytest.raises(ValueError, match="num_returns exceeds"):
+        rt.wait(refs, num_returns=5)
+    with pytest.raises(TypeError):
+        rt.wait([3])
+    evs[2].set()
+    ready, rest = rt.wait(refs, num_returns=4, timeout=10)
+    assert ready == refs and rest == []
+
+
+def test_wait_returns_short_at_its_timeout_and_none_is_bounded(
+        rt, monkeypatch):
+    ev = threading.Event()
+    c = rt.remote(Counter).remote(0)
+    blocked, done = c.block.remote(ev), rt.put(1)
+    t0 = time.monotonic()
+    ready, rest = rt.wait([blocked, done], num_returns=2, timeout=0.05)
+    assert time.monotonic() - t0 < 2.0
+    assert ready == [done] and rest == [blocked]
+    monkeypatch.setattr(actors, "GET_TIMEOUT_S", 0.05)
+    t0 = time.monotonic()
+    with pytest.raises(actors.GetTimeoutError, match="wait"):
+        rt.wait([blocked, done], num_returns=2)
+    assert time.monotonic() - t0 < 2.0
+    ev.set()
+    assert rt.wait([blocked], timeout=10) == ([blocked], [])
+
+
+def test_apex_cleanup_stops_every_actor_when_a_kill_raises(rt,
+                                                           monkeypatch):
+    from ray_tpu_torch.rllib import apex
+
+    algo = apex.ApexDQNConfig(env="CartPole-v1", num_rollout_workers=2,
+                              num_replay_shards=2, num_envs_per_worker=2,
+                              device="cpu", seed=0).build()
+    assert algo._distributed
+    handles = algo.collectors + algo.shards
+    kill, tried = actors.kill, []
+
+    def first_raises(h):
+        tried.append(h)
+        if len(tried) == 1:
+            raise RuntimeError("threads still running after being stopped")
+        kill(h)
+    monkeypatch.setattr(actors, "kill", first_raises)
+    algo.cleanup()
+    assert tried == handles
+    assert all(h._lane._closed for h in handles[1:])
+    assert rt._runtime().actors == [handles[0]]

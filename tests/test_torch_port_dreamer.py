@@ -191,8 +191,21 @@ def test_policy_step_matches(jalgo):
                                    atol=1e-6, rtol=1e-5)
 
 
+def _after_two_updates(jalgo):
+    """The JAX Dreamer after ``test_updates_from_a_save_match``'s two
+    updates, made here when that test ran on another xdist worker."""
+    algo, _, state = jalgo
+    if algo._model_updates == 0:
+        for i in range(2):
+            state, _ = algo._update(state, jnp_tree(_batch(seed=3 + i)),
+                                    jax.random.PRNGKey(6 + i),
+                                    train_ac=True)
+        algo.state, algo._model_updates = state, 2
+    return algo
+
+
 def test_save_restores_into_the_port_and_back(jalgo):
-    algo = jalgo[0]          # after the two updates above
+    algo = _after_two_updates(jalgo)
     saved = algo.save()
     port = _port(saved, seed=3)
     assert port._model_updates == algo._model_updates == 2

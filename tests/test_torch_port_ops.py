@@ -245,3 +245,11 @@ def test_flash_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(8, 1, 1, 64, 64))
     with pytest.raises(ValueError, match="CUDA"):
         port_flash._launch(q, k, v, 0.125, True, False)
+
+
+def test_ops_export_every_name_the_jax_ops_export():
+    import ray_tpu.ops as jops
+    import ray_tpu_torch.ops as tops
+    assert set(jops.__all__) <= set(tops.__all__)
+    ring = importlib.import_module("ray_tpu_torch.ops.ring_attention")
+    assert tops.ring_attention is ring.ring_attention

@@ -11,17 +11,14 @@ calls at it), on the CPU, in f32:
   twin's key stream): observations, actions, rewards and returns exact,
   log-probabilities, values and advantages within 1e-5, before and after
   a weight sync through one ``put``;
-- IMPALA, whose asynchronous actor arm is not ported, refuses actor
-  workers.
+- IMPALA takes actor workers (its asynchronous arm), runs an iteration
+  and kills them at ``cleanup``.
 """
-
-import functools
 
 import jax
 import numpy as np
-import pytest
 
-from _torch_port_actors import instance, standin  # noqa: F401
+from _torch_port_actors import JaxKeys, instance, standin  # noqa: F401
 from _torch_port_rl import assert_trees_equal, np_tree
 from ray_tpu.rllib import ppo as jppo
 from ray_tpu_torch.rllib import ppo as tppo
@@ -45,25 +42,7 @@ def test_ppo_actor_workers_equal_inline_workers(standin):  # noqa: F811
         assert_trees_equal(algos[0].params, algos[1].params)
     for a in algos:
         a.cleanup()
-
-
-class JaxKeys:
-    """A JAX policy's key stream: each call splits the key as
-    ``JaxPolicy.compute_actions`` does and returns the Gumbel noise
-    ``jax.random.categorical`` adds to the logits."""
-
-    def __init__(self, seed: int, shape: tuple):
-        self.rng, self.shape = jax.random.PRNGKey(seed), shape
-
-    @staticmethod
-    @functools.partial(jax.jit, static_argnums=1)
-    def _next(rng, shape):
-        rng, sub = jax.random.split(rng)
-        return rng, jax.random.gumbel(sub, shape)
-
-    def __call__(self):
-        self.rng, g = self._next(self.rng, self.shape)
-        return np.asarray(g)
+    assert standin._runtime().actors == []      # the workers are killed
 
 
 def test_actor_workers_match_the_jax_actor_arm(standin):  # noqa: F811
@@ -96,10 +75,17 @@ def test_actor_workers_match_the_jax_actor_arm(standin):  # noqa: F811
 
 
 def test_impala_refuses_actor_workers(standin):  # noqa: F811
-    """IMPALA's asynchronous actor arm (``ray_tpu.wait`` on in-flight
-    samples) is not ported: with actor workers it raises, its workers
-    killed."""
+    """Named for the refusal it once checked: IMPALA now takes actor
+    workers, runs an iteration on the stand-in and kills them at
+    ``cleanup``."""
     from ray_tpu_torch.rllib import impala as timpala
-    with pytest.raises(NotImplementedError, match="asynchronous actor arm"):
-        timpala.ImpalaConfig(**PPO, use_actors=True, device="cpu").build()
+    algo = timpala.ImpalaConfig(**PPO, use_actors=True, device="cpu",
+                                batches_per_step=2).build()
+    assert algo.workers.use_actors
+    assert len(standin._runtime().actors) == 2
+    r = algo.train()
+    assert r["steps_this_iter"] == 2 * 2 * 32
+    assert all(np.isfinite(v) for v in r.values())
+    algo.cleanup()
     assert standin._runtime().actors == []
+    assert all(w._lane._closed for w in algo.workers.workers)
