@@ -8,20 +8,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: a CUDA card must be present; prints the card's name and
    power limit, builds every Hopper kernel from ops/csrc (one nvcc per
    source, started together) and prints the build time and ptxas report;
-   the bf16 forward and both bf16 backward kernels (the tensor-core
-   routes) must hold HMMA instructions at every head dim, and the f32
-   backward kernels (the scalar route) none (cuobjdump -sass of the built
-   libraries); the bf16 d = 64 instantiations of all three spill nothing;
+   the forward kernel in bf16 and in f32 (split TF32) and both bf16
+   backward kernels (the tensor-core routes) must hold HMMA instructions
+   at every head dim, and the f32 backward kernels (the scalar route)
+   none (cuobjdump -sass of the built libraries); the bf16 d = 64
+   instantiations of all three and the f32 forward's spill nothing;
 2. kernels against their plain versions on the card: the flash forward
    at the serving path's shape and at cross-length, ragged (kv 77 too),
    decode-like (q 1 / kv 1000), key-less-row (q 300 / kv 100: output 0,
    lse -inf), strided, misaligned (a view at a 1-element offset, which
-   the bf16 route copies), non-causal, wider-head and BERT-base training
-   ([32, 12, 512, 64] non-causal) shapes, in bf16 and f32; prints the
+   both routes copy), non-causal, wider-head and BERT-base training
+   ([32, 12, 512, 64] non-causal) shapes, in bf16 and f32, and in f32
+   with q and k scaled by 4 (logits far beyond +-30); prints the
    kernel's, the plain version's and SDPA's times and the bound (device
    time, and time per call), and the f32 kernel's, its plain version's
-   and f32 SDPA's device time at the serving path's shape, and the bf16
-   times at the BERT-base shape;
+   and f32 SDPA's device time at the serving path's shape beside the f32
+   bound (three TF32 products a multiply-add) and the CUDA cores' figure,
+   and the bf16 times at the BERT-base shape;
 3. the backward kernels (flash_bwd_kv, flash_bwd_dq) against their plain
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
    and 256, ragged (kv 77 too), cross-length, decode-like (q 1 / kv
@@ -201,9 +204,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    printed; the full-width prefill's last-position logits on each mesh
    within 0.125 of the same prefill on plain attention.  Then the flash
    forward at [1, 6, 1024, 64] and [1, 3, 1024, 64], bf16 and f32 causal,
-   against its plain version, timed beside its bound, the plain version
-   and SDPA (the kernel's ``serve_tp{2,4}_shape_{bfloat16,float32}``
-   records).
+   against its plain version, timed beside its bound (in f32 also the
+   CUDA cores' figure), the plain version and SDPA (the kernel's
+   ``serve_tp{2,4}_shape_{bfloat16,float32}`` records).
 18. the trainer on a mesh.  18a: ``Trainer.fit`` on a {dp: 1} mesh at
    NCCL world size 1, GPT-2 124M at full width and depth, b16 s1024 bf16
    "dots", AdamW(3e-4, weight_decay=0.1), six steps on phase 13's first
@@ -366,8 +369,12 @@ import torch
 # NVIDIA's data sheets; the first match wins
 CARD_RATES = [("H100 PCIe", 2.0e12, 756e12), ("H100 NVL", 3.9e12, 835e12),
               ("H200", 4.8e12, 989e12), ("H100", 3.35e12, 989e12)]
-# f32 work on the card's f32 CUDA cores; the 16-bit types on tensor cores
+# f32 on the card's CUDA cores, and dense TF32 on its tensor cores, where
+# an f32-accurate product costs three TF32 products (the flash forward's
+# f32 route); the 16-bit types on tensor cores at the card's rate
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
+TF32_PRODUCTS = 3
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # bf16 logits of the served model: flash vs plain-attention prefill
 BF16_LOGIT_TOL = 0.125
@@ -467,6 +474,19 @@ def attention_work(b, h, sq, skv, d, causal, itemsize):
             4 * b * h * visible_pairs(sq, skv, causal) * d)
 
 
+def f32_forward_bounds(nbytes: float, nflop: float, bw: float) -> tuple:
+    """(bound ms, what bounds it, the CUDA cores' figure in ms) of the
+    flash forward's f32 work: the least time the card can take for it
+    f32-accurately is bytes over the memory rate or three TF32 products a
+    multiply-add over the dense TF32 rate, whichever is larger; the same
+    FLOPs over the CUDA cores' f32 rate were the scalar kernel's
+    yardstick."""
+    t_bytes = nbytes / bw * 1e3
+    t_ops = TF32_PRODUCTS * nflop / TF32_FLOPS * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else
+            "operations", max(t_bytes, nflop / F32_FLOPS * 1e3))
+
+
 def backward_work(kernel, b, h, sq, skv, d, causal, itemsize):
     """(bytes, FLOPs) a backward kernel needs.  Both read q, do, k, v
     once and lse, delta (f32) once; flash_bwd_kv writes dk, dv and does
@@ -506,22 +526,30 @@ def phase_environment():
                 print(f"[env] {entry} ptxas: {ln.strip()}")
                 if "spill" in ln:
                     spills[entry] = ln.strip()
-    # the bf16 kernels: no spills on the path's head dim, and tensor-core
-    # products in every instantiation; the f32 backward stays scalar
-    for kern in ("flash_fwd", "flash_bwd_kv", "flash_bwd_dq"):
-        d64 = spills.get(f"{kern}_kernel<bf16, 64>", "not reported")
+    # the tensor-core kernels (all bf16 ones and the f32 forward): no
+    # spills on the path's head dim, and tensor-core products in every
+    # instantiation; the f32 backward stays scalar
+    for entry in ("flash_fwd_kernel<bf16, 64>", "flash_fwd_kernel<f32, 64>",
+                  "flash_bwd_kv_kernel<bf16, 64>",
+                  "flash_bwd_dq_kernel<bf16, 64>"):
+        d64 = spills.get(entry, "not reported")
         check("0 bytes spill stores, 0 bytes spill loads" in d64,
-              f"{kern}_kernel<bf16, 64> spills: {d64}")
+              f"{entry} spills: {d64}")
     for lib_name, kerns in (("flash_fwd", ("flash_fwd",)),
                             ("flash_bwd", ("flash_bwd_kv", "flash_bwd_dq"))):
         hmma = sass_hmma_counts(_build._target(lib_name)[1])
+        tf32 = sass_hmma_counts(_build._target(lib_name)[1], "TF32")
         print(f"[env] HMMA instructions per {lib_name} instantiation "
-              f"(cuobjdump -sass): {hmma}")
+              f"(cuobjdump -sass): {hmma}; of the TF32 form: {tf32}")
         for kern in kerns:
             for d in (64, 128, 256):
                 check(hmma.get(f"{kern}_kernel<bf16, {d}>", 0) > 0,
                       f"{kern}_kernel<bf16, {d}> holds no HMMA instruction")
-                if lib_name == "flash_bwd":
+                if lib_name == "flash_fwd":
+                    check(tf32.get(f"{kern}_kernel<f32, {d}>", 0) > 0,
+                          f"{kern}_kernel<f32, {d}> holds no TF32 HMMA "
+                          f"instruction")
+                else:
                     check(hmma.get(f"{kern}_kernel<f32, {d}>") == 0,
                           f"{kern}_kernel<f32, {d}>: "
                           f"{hmma.get(f'{kern}_kernel<f32, {d}>')} HMMA "
@@ -547,9 +575,11 @@ def kernel_entry(text: str):
             if m else None)
 
 
-def sass_hmma_counts(lib_path: str) -> dict:
+def sass_hmma_counts(lib_path: str, form: str = "HMMA") -> dict:
     """{kernel instantiation: number of HMMA (tensor-core) instructions}
-    in the SASS of a built library, from the toolkit's cuobjdump."""
+    in the SASS of a built library, from the toolkit's cuobjdump; with
+    ``form``, only those whose line holds it (``"TF32"``: the
+    ``HMMA.1684.F32.TF32`` products)."""
     from ray_tpu_torch.ops import _build
 
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
@@ -561,7 +591,7 @@ def sass_hmma_counts(lib_path: str) -> dict:
             entry = kernel_entry(ln)
             if entry:
                 counts[entry] = 0
-        elif entry and "HMMA" in ln:
+        elif entry and "HMMA" in ln and form in ln:
             counts[entry] += 1
     return counts
 
@@ -619,6 +649,23 @@ def phase_kernels(name: str, card: str) -> dict:
             if label.startswith("BERT") and dtype == torch.bfloat16:
                 bert_err = err
 
+    # f32 with q and k scaled by 4 at the serving path's shape: logits far
+    # beyond +-30, where the products' error is the softmax exponents'
+    gen4 = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    q, k, v = (torch.randn((1, 12, 1024, 64), generator=gen4, device="cuda")
+               for _ in range(3))
+    q, k = q * 4, k * 4
+    out, got_lse = flash_attention_with_lse(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = forward_err("f32 q, k x4", out, got_lse, q, k, v, True)
+    reach = (q @ k.transpose(-1, -2)).abs().max().item() * 64 ** -0.5
+    ok = err <= TOL[torch.float32]
+    print(f"[kernel] flash_fwd q, k scaled by 4 [1,12,1024/1024,64] float32 "
+          f"causal=True (|logits| up to {reach:.1f}) max_abs_err {err:.3e} "
+          f"(bound {TOL[torch.float32]:g}) {'ok' if ok else 'FAIL'}")
+    check(ok, f"flash_fwd f32 with q, k scaled by 4: error {err} > "
+              f"{TOL[torch.float32]}")
+
     # q, k, v as the model hands them over: strided views of one qkv
     qkv = rand((1, 1024, 3 * 768), torch.bfloat16)
     q, k, v = (t.reshape(1, 1024, 12, 64).transpose(1, 2)
@@ -633,7 +680,7 @@ def phase_kernels(name: str, card: str) -> dict:
     check(err <= TOL[torch.bfloat16], f"strided case error {err}")
 
     # q, k, v contiguous at a 1-element offset: not 16-byte aligned, so
-    # the bf16 route copies them (the f32 route reads them as they are)
+    # both routes copy them
     for dtype in (torch.bfloat16, torch.float32):
         shape = (1, 12, 200, 64)
         q, k, v = (rand((int(np.prod(shape)) + 1,), dtype)[1:].view(shape)
@@ -679,7 +726,7 @@ def phase_kernels(name: str, card: str) -> dict:
     lib32 = device_ms(lambda: F.scaled_dot_product_attention(
         q32, k32, v32, is_causal=True))
     b32, f32 = attention_work(1, 12, 1024, 1024, 64, True, 4)
-    bound32 = max(b32 / bw, f32 / F32_FLOPS) * 1e3
+    bound32, by32, cores32 = f32_forward_bounds(b32, f32, bw)
     print(f"[kernel] flash_fwd [1,12,1024,64] bf16 causal on {card}: "
           f"kernel {ms:.4f} ms ({nflop / ms / 1e9:.1f} TFLOP/s; per call "
           f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms (per call "
@@ -688,8 +735,16 @@ def phase_kernels(name: str, card: str) -> dict:
           f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
           f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms); f32 kernel "
           f"{ms32:.4f} ms, f32 plain {plain32:.4f} ms, f32 SDPA "
-          f"{lib32:.4f} ms, f32 bound "
-          f"{bound32:.5f} ms")
+          f"{lib32:.4f} ms, f32 bound {bound32:.5f} ms ({by32}: "
+          f"{b32 / 1e6:.2f} MB -> {b32 / bw * 1e3:.5f} ms, "
+          f"{f32 / 1e9:.3f} GFLOP x {TF32_PRODUCTS} TF32 products -> "
+          f"{TF32_PRODUCTS * f32 / TF32_FLOPS * 1e3:.5f} ms), on the CUDA "
+          f"cores {cores32:.5f} ms")
+    # the f32 gates' full-width prefills launch it once a layer (host-bound
+    # serving may show the kernel only as a shorter prefill; not gated)
+    print(f"[kernel] f32 full-width prefill at [1,12,1024,64]: 12 layers x "
+          f"{ms32:.4f} ms = {12 * ms32:.3f} ms of flash forward a prompt on "
+          f"{card}")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
             "replaces": "ray_tpu/ops/flash_attention.py:38",
@@ -697,6 +752,7 @@ def phase_kernels(name: str, card: str) -> dict:
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": lib_ms, "f32_ms": ms32, "f32_bound_ms": bound32,
+            "f32_bound_by": by32, "f32_cuda_core_bound_ms": cores32,
             "f32_plain_ms": plain32, "f32_library_ms": lib32,
             "bert_shape": bert_forward_times(name, card, rand, bert_err)}
 
@@ -4318,8 +4374,9 @@ def forward_times(name: str, card: str, tag: str, q, k, v,
                   causal: bool) -> dict:
     """The flash forward on q, k, v timed (device time) beside its bound
     (bytes over the card's rate, or FLOPs over its peak for the dtype:
-    tensor cores for bf16, CUDA cores for f32), the plain version and
-    SDPA: a kernel record."""
+    bf16 on tensor cores; f32 as three TF32 products on them, with the
+    CUDA cores' figure beside it), the plain version and SDPA: a kernel
+    record."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
@@ -4330,18 +4387,23 @@ def forward_times(name: str, card: str, tag: str, q, k, v,
     lib_ms = device_ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal))
     bw, flops = rates(name)
-    if q.dtype == torch.float32:
-        flops = F32_FLOPS
     nbytes, nflop = attention_work(b, h, s, s, d, causal, q.element_size())
-    t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
+    extra, cores = {}, ""
+    if q.dtype == torch.float32:
+        bound, by, cores_ms = f32_forward_bounds(nbytes, nflop, bw)
+        extra = {"cuda_core_bound_ms": cores_ms}
+        cores = f" ({by}), on the CUDA cores {cores_ms:.5f} ms"
+    else:
+        t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
+        bound = max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
     print(f"[{tag}] flash_fwd [{b},{h},{s},{d}] "
           f"{str(q.dtype).split('.')[-1]} "
           f"{'causal' if causal else 'non-causal'} on {card}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms, "
-          f"bound {max(t_bytes, t_ops):.5f} ms")
+          f"bound {bound:.5f} ms{cores}")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_ms": bound, "bound_by": by, **extra}
 
 
 def free_port() -> int:

@@ -46,11 +46,10 @@
 //   The inputs must be 16-byte aligned with (batch, head, row) strides in
 //   multiples of 8 elements; the wrapper copies one that is not.
 //
-// f32: the original scalar kernel (flash_fwd_kernel<float, D>, scalar::
-//   below), kept as it was.  On f32 the tensor cores would run TF32, about
-//   three decimal digits, which the f32 route's 1e-4 bound and the f32
-//   serving path's token-exact replies do not allow.  It stages f32 tiles
-//   in shared memory and runs f32 FMAs on the CUDA cores.
+// f32: tensor cores too (flash_fwd_kernel<float, D>, tf32x3:: below), with
+//   every f32 operand split into two TF32 values and each product taken as
+//   three TF32 products, which keeps f32's accuracy; the note at the top of
+//   tf32x3:: gives the design, its error and its bound.
 //
 // Bound (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16), bf16 causal, d = 64:
 // q, k, v read once and o written once.  Serving prefill [1, 12, 1024, 64]:
@@ -83,179 +82,11 @@
 namespace {
 
 constexpr int NT = 128;  // threads per CTA, both routes
-constexpr int BQ = 64;   // q rows per CTA of the f32 route
 
 // (batch, head, row) element strides of q, k and v
 struct Strides {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
 };
-
-// ---------------------------------------------------------------- f32 route
-
-namespace scalar {
-
-constexpr int BK = 64;
-constexpr int PS = BK + 1;  // row stride of the probability tile
-
-__device__ __forceinline__ float row_max8(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum8(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  return x;
-}
-
-constexpr size_t smem_bytes(int d) {
-  return (size_t)(3 * BQ * (d + 1) + BQ * PS) * sizeof(float);
-}
-
-// Stages Q once, then loops over 64-row K/V tiles staged in shared memory
-// (f32, rows padded by one word), stopping at the causal diagonal.  Warp
-// w owns q rows [16w, 16w+16); lane l owns 4 rows (l / 8) and 8 key
-// columns (l % 8 + 8j); the probabilities go through shared memory to the
-// P.V product, where the same lane owns 4 rows x D/8 output columns.
-template <int D>
-__device__ __forceinline__ void fwd(
-    unsigned char* smem_raw, const float* __restrict__ q,
-    const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse, int H, int q_len,
-    int kv_len, const Strides& st, float scale, int causal) {
-  constexpr int DP = D + 1;
-  constexpr int DN = D / 8;  // output columns per lane
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + BQ * DP;
-  float* Vs = Ks + BK * DP;
-  float* Ps = Vs + BK * DP;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int q0 = blockIdx.x * BQ;
-  const float* qp = q + b * st.qsb + h * st.qsh;
-  const float* kp = k + b * st.ksb + h * st.ksh;
-  const float* vp = v + b * st.vsb + h * st.vsh;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int cg = lane & 7;                           // key/column group
-  const int r0 = (tid >> 5) * 16 + (lane >> 3) * 4;  // first of 4 rows
-
-  for (int i = tid; i < BQ * D; i += NT) {
-    const int r = i / D, c = i - (i / D) * D;
-    const int gr = q0 + r;
-    Qs[r * DP + c] = gr < q_len ? qp[gr * st.qss + c] : 0.f;
-  }
-
-  const int off = kv_len - q_len;  // causal diagonal offset
-  int n_tiles = (kv_len + BK - 1) / BK;
-  if (causal) {
-    const int last_col = min(q0 + BQ, q_len) - 1 + off;
-    n_tiles = min(n_tiles, last_col < 0 ? 0 : last_col / BK + 1);
-  }
-
-  float m[4], l[4], acc[4][DN];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < DN; ++n) acc[i][n] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D; i += NT) {
-      const int r = i / D, c = i - (i / D) * D;
-      const int gr = k0 + r;
-      const bool ok = gr < kv_len;
-      Ks[r * DP + c] = ok ? kp[gr * st.kss + c] : 0.f;
-      Vs[r * DP + c] = ok ? vp[gr * st.vss + c] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = Qs[(r0 + i) * DP + d];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) kv[j] = Ks[(cg + 8 * j) * DP + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int grow = q0 + r0 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int gc = k0 + cg + 8 * j;
-        const bool ok = gc < kv_len && (!causal || gc <= grow + off);
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max8(mx));
-      // a row with no visible key yet keeps m = -inf; subtracting 0
-      // instead keeps exp() finite (exp(-inf) = 0 for the masked scores)
-      const float m_safe = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_safe);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const float p = expf(s[i][j] - m_safe);
-        rs += p;
-        Ps[(r0 + i) * PS + cg + 8 * j] = p;
-      }
-      l[i] = l[i] * alpha + row_sum8(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int n = 0; n < DN; ++n) acc[i][n] *= alpha;
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = Ps[(r0 + i) * PS + j];
-#pragma unroll
-      for (int n = 0; n < DN; ++n) {
-        const float vv = Vs[j * DP + cg + 8 * n];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][n] = fmaf(pv[i], vv, acc[i][n]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int grow = q0 + r0 + i;
-    if (grow >= q_len) continue;
-    const float inv = l[i] > 0.f ? 1.f / l[i] : 0.f;  // no visible key: 0
-    float* orow = o + ((long long)bh * q_len + grow) * D;
-#pragma unroll
-    for (int n = 0; n < DN; ++n) orow[cg + 8 * n] = acc[i][n] * inv;
-    if (lse != nullptr && cg == 0)
-      lse[(long long)bh * q_len + grow] =
-          l[i] > 0.f ? m[i] + logf(l[i]) : -INFINITY;
-  }
-}
-
-}  // namespace scalar
 
 // ------------------------------------------------------- bf16 tensor cores
 
@@ -517,6 +348,394 @@ __device__ __forceinline__ void fwd(
 
 }  // namespace tc
 
+// ------------------------------------------------ f32 on the tensor cores
+//
+// Replaces the f32 use of ray_tpu/ops/flash_attention.py:_fwd_kernel, which
+// keeps q, k, v and p in f32 and accumulates in f32.  Same function as the
+// bf16 route above, in f32 in and out.
+//
+// The split (CUTLASS's 3xTF32).  TF32 keeps 10 of f32's 23 mantissa bits,
+// so one TF32 product is off by up to 2^-10 of each operand, about three
+// decimal digits: too coarse for the f32 route's 1e-4 bound and the f32
+// serving path's token-exact replies.  So each f32 operand x becomes
+// hi = rna(x) and lo = rna(x - hi) (cvt.rna, round to nearest with ties
+// away from zero; x - hi is exact in f32), with x = hi + lo + e,
+// |e| <= 2^-22 |x|, and a product is a_lo b_hi + a_hi b_lo + a_hi b_hi,
+// accumulated in f32 by the tensor core.  Each TF32 x TF32 product is exact
+// in f32; what is lost is a_lo b_lo and the two e's, each at most 2^-22 of
+// |ab|, a few f32 roundings: the split's error is that of an f32 dot
+// product with a few times f32's rounding per term.  The conversion is
+// explicit: the tensor core given a raw f32 register drops its low 13
+// bits, and truncation doubles the error of each split.  Both products,
+// S = Q K^T and O = alpha O + P V, run this way; the probabilities are
+// split like any other operand, and l sums the unsplit p.  The route is
+// f32-accurate by design and reads no TF32 switch of torch's.
+// Three more choices keep it so where the logits are large (|s| ~ 100,
+// where an f32 ulp of a score is ~1e-5):
+//   - the tensor core truncates each sum it forms, so each k-step's three
+//     products of S go into a fresh accumulator that is added to the
+//     scores with round-to-nearest, and each tile's P V into a fresh one
+//     folded into O by one FFMA with alpha; a running accumulator would
+//     take a truncation against its whole size at every product;
+//   - the weights are 2^((s - m) scale log2 e): the row's largest score
+//     gives exactly 1 and alpha is exactly 1 while m holds, where a fused
+//     s sl2 - m sl2 leaves the rounding of m sl2 in every weight and
+//     compounds it through alpha tile after tile;
+//   - 2^x is ex2.approx.ftz (the instruction behind exp2f, within 2 ulp,
+//     about 2.4e-7 relative; results below 2^-126 flush to 0, far below the
+//     row's largest weight of 1).
+//
+// Layout.  One CTA of 4 warps per (batch*head, 32 q rows): two m16 row
+// tiles, each shared by two warps that take the two halves of every kv
+// tile, each with its own online softmax; at the end the second warp of a
+// pair hands its (m, l, O) to the first through shared memory, which
+// merges them as two more tiles.  A warp's sweep is a chain of dependent
+// loads, splits and products that its one scheduler cannot hide, and the
+// heaviest CTA's chain sets the time: halving each warp's keys halves that
+// chain, and 32-row CTAs (two an SM) spread a causal sweep over twice the
+// warps.  Q, K and V tiles are f32 in shared memory, filled by
+// 16-byte cp.async copies, K and V through a 2-stage ring (the copy of
+// tile t+1 in flight while tile t is computed; two __syncthreads a tile).
+// Fragments come from plain shared loads on padded rows, no ldmatrix
+// (whose .trans form moves 16-bit elements only):
+//   - S = Q K^T, m16n8k8 k-steps of 8 dims.  The reduction order within a
+//     step is free, so slot t4 takes dim 2 t4 and slot t4 + 4 dim 2 t4 + 1,
+//     in both Q's A-fragment and K's B-fragment: each row's pair is one
+//     8-byte load.  Q and K rows are D + 8 floats apart, so the 16 lanes of
+//     each half-warp read 16 distinct 8-byte bank pairs.  Q is split once:
+//     at D = 64 its hi/lo A-fragments (64 registers) stay in registers for
+//     the whole sweep; at D = 128 and 256 they are re-read from shared
+//     memory and split at each k-step.
+//   - P V, m16n8k8 k-steps of 8 keys.  P stays in registers: S's
+//     C-fragment holds keys (2 t4, 2 t4 + 1) of rows g and g + 8, and is
+//     the A-fragment of the step as it lies when key 2 t4 takes slot t4 and
+//     key 2 t4 + 1 slot t4 + 4 (the sum over keys does not depend on their
+//     order); V's B-fragment reads its rows in that order (b0 row 2 t4, b1
+//     row 2 t4 + 1, column g), so no shuffle is needed.  V rows are D + 4
+//     floats apart, so those 4-byte reads fall in 32 distinct banks.
+//   - Each of the three rounds of products runs over several n-tiles
+//     before the next round starts (S: the warp's WK / 8 key n-tiles; P V:
+//     4 of O's n-tiles at a time, with the tile's P split in registers,
+//     8 NS of them), so consecutive products do not wait on each other;
+//     the fresh accumulators of P V take 16 registers, not another O.
+//   - The online softmax runs in registers on the accumulator layout, as
+//     in the bf16 route (quad shuffles for a row's max and sum).
+//   - Causal and ragged masks only on keys that touch the diagonal or the
+//     ragged kv edge; a warp whose rows see none of its keys of a tile
+//     skips them;
+//     causal launches take q tiles heaviest-first (blockIdx.x reversed).
+// Tiles: BK = 64 keys at D = 64 (32 a warp), 32 at D = 128 and 256 (16 a
+// warp).  Shared memory (32 (D + 8) + 2 BK (2 D + 12)) * 4 bytes: 80,896 B
+// at D = 64, 86,016 B at D = 128 (two CTAs an SM), 167,936 B at D = 256.
+// The inputs must be 16-byte aligned with (batch, head, row) strides in
+// multiples of 4 elements; the wrapper copies one that is not.
+//
+// Bound.  f32-accurate products cost three TF32 products, so the least
+// time this card can take is max(bytes / 3.35 TB/s, 3 x FLOP / 495 TFLOP/s)
+// (dense TF32 rate).  Serving prefill [1, 12, 1024, 64] causal: 12.6 MB ->
+// 0.00376 ms; 1.612 GFLOP x 3 -> 0.00977 ms; so operations, 0.00977 ms
+// (on the CUDA cores' 67 TFLOP/s the same FLOPs would take 0.02406 ms).
+//
+// What held the scalar kernel this replaces back, and what this design
+// does about each: f32 FMAs on the CUDA cores (12 shared loads per 32
+// FMAs) -> mma.sync TF32 products on the tensor cores, three per
+// multiply-add; P written to and read back from shared memory -> P in
+// registers; synchronous one-element copies -> 16-byte cp.async copies,
+// the next tile's in flight during this one's math; three __syncthreads a
+// tile -> two; q tiles launched lightest-first under causal masking ->
+// heaviest-first.
+
+namespace tf32x3 {
+
+using namespace tc;  // cp.async, the split, mma_tf32x3, quad shuffles, ex2
+
+template <int D> struct Tile {
+  static constexpr int ROWS = 32;               // q rows per CTA: 2 x m16
+  static constexpr int BK = D == 64 ? 64 : 32;  // keys per kv tile
+  static constexpr int WK = BK / 2;             // keys per warp in a tile
+  static constexpr int QS = D + 8;              // row stride of Q, K tiles
+  static constexpr int VS = D + 4;              // row stride of V tiles
+  static constexpr bool Q_IN_REGS = D == 64;    // Q hi/lo fragments kept
+};
+
+template <int D> constexpr size_t smem_bytes() {
+  return (size_t)(Tile<D>::ROWS * Tile<D>::QS +
+                  2 * Tile<D>::BK * (Tile<D>::QS + Tile<D>::VS)) *
+         sizeof(float);
+}
+
+template <int D>
+__device__ __forceinline__ void fwd(
+    unsigned char* smem_raw, const float* __restrict__ q,
+    const float* __restrict__ k, const float* __restrict__ v,
+    float* __restrict__ o, float* __restrict__ lse, int H, int q_len,
+    int kv_len, const Strides& st, float scale, int causal) {
+  constexpr int BK = Tile<D>::BK;
+  constexpr int WK = Tile<D>::WK;
+  constexpr int ROWS = Tile<D>::ROWS;
+  constexpr int QS = Tile<D>::QS;
+  constexpr int VS = Tile<D>::VS;
+  constexpr int KS = D / 8;   // k-steps of Q.K^T (8 dims each)
+  constexpr int NS = WK / 8;  // n-tiles of S = k-steps of P.V (8 keys each)
+  constexpr int DS = D / 8;   // n-tiles of O (8 columns each)
+  constexpr int DG = 4;       // O's n-tiles a P V pass takes at once
+  constexpr bool Q_IN_REGS = Tile<D>::Q_IN_REGS;
+  constexpr float LOG2E = 1.4426950408889634f;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + ROWS * QS;   // 2 stages of [BK, QS]
+  float* Vs = Ks + 2 * BK * QS; // 2 stages of [BK, VS]
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  // causal: heaviest q tile first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * ROWS;
+  const float* qp = q + b * st.qsb + h * st.qsh;
+  const float* kp = k + b * st.ksb + h * st.ksh;
+  const float* vp = v + b * st.vsb + h * st.vsh;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+  const int rt = warp & 1, half = warp >> 1;  // row tile, half of each kv tile
+  const int wr = q0 + 16 * rt;             // the warp's first row
+
+  const int off = kv_len - q_len;  // causal diagonal offset
+  int n_tiles = (kv_len + BK - 1) / BK;
+  if (causal) {
+    const int last_col = min(q0 + ROWS, q_len) - 1 + off;
+    n_tiles = min(n_tiles, last_col < 0 ? 0 : last_col / BK + 1);
+  }
+
+  load_tile_f32<D, ROWS, QS>(Qs, qp, st.qss, q0, q_len, tid);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile_f32<D, BK, QS>(Ks, kp, st.kss, 0, kv_len, tid);
+    load_tile_f32<D, BK, VS>(Vs, vp, st.vss, 0, kv_len, tid);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed
+  __syncthreads();
+
+  // Q's A-fragment of k-step ks, split: slot t4 holds dim 8 ks + 2 t4 and
+  // slot t4 + 4 dim 8 ks + 2 t4 + 1, one 8-byte load per row
+  auto q_frag = [&](uint32_t (&hi)[4], uint32_t (&lo)[4], int ks) {
+    const float* p = Qs + (16 * rt + g) * QS + 8 * ks + 2 * t4;
+    const float2 r0 = *reinterpret_cast<const float2*>(p);           // row g
+    const float2 r1 = *reinterpret_cast<const float2*>(p + 8 * QS);  // g + 8
+    split_tf32(r0.x, hi[0], lo[0]);
+    split_tf32(r1.x, hi[1], lo[1]);
+    split_tf32(r0.y, hi[2], lo[2]);
+    split_tf32(r1.y, hi[3], lo[3]);
+  };
+  uint32_t qhi[Q_IN_REGS ? KS : 1][4], qlo[Q_IN_REGS ? KS : 1][4];
+  if constexpr (Q_IN_REGS) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) q_frag(qhi[ks], qlo[ks], ks);
+  }
+
+  float acc[DS][4];
+#pragma unroll
+  for (int n = 0; n < DS; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // rows g and g + 8; m the running max of the raw scores, l this
+  // thread's partial sum (its quad adds them up at the end)
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float sl2 = scale * LOG2E;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {  // the next tile's copy, in flight during this one
+      load_tile_f32<D, BK, QS>(Ks + (stage ^ 1) * BK * QS, kp, st.kss,
+                               k0 + BK, kv_len, tid);
+      load_tile_f32<D, BK, VS>(Vs + (stage ^ 1) * BK * VS, vp, st.vss,
+                               k0 + BK, kv_len, tid);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();
+
+    // the warp's WK keys of the tile; a warp whose rows all lie before
+    // the first of them skips them
+    const int kw = k0 + half * WK;
+    if (!causal || kw <= wr + 15 + off) {
+      const float* Kt = Ks + (stage * BK + half * WK) * QS;
+      const float* Vt = Vs + (stage * BK + half * WK) * VS;
+
+      float s[NS][4];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a_hi[4], a_lo[4];
+        if constexpr (Q_IN_REGS) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            a_hi[i] = qhi[ks][i];
+            a_lo[i] = qlo[ks][i];
+          }
+        } else {
+          q_frag(a_hi, a_lo, ks);
+        }
+        // key 8 n + g, dims 8 ks + 2 t4 (slot t4) and + 1 (slot t4 + 4)
+        uint32_t b_hi[NS][2], b_lo[NS][2];
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          const float2 kv = *reinterpret_cast<const float2*>(
+              Kt + (8 * n + g) * QS + 8 * ks + 2 * t4);
+          split_tf32(kv.x, b_hi[n][0], b_lo[n][0]);
+          split_tf32(kv.y, b_hi[n][1], b_lo[n][1]);
+        }
+        // the step's three products in fresh accumulators, added to the
+        // scores with round-to-nearest: the tensor core truncates each
+        // sum it forms, which against the running scores of large logits
+        // would cost several times f32's rounding
+        float c[NS][4] = {};
+        mma_tf32x3_n<NS>(c, a_hi, a_lo, b_hi, b_lo);
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[n][e] += c[n][e];
+      }
+
+      // mask only keys that touch the ragged kv edge or this warp's
+      // causal diagonal
+      if (kw + WK > kv_len || (causal && kw + WK - 1 > wr + off)) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = kw + 8 * n + 2 * t4 + (e & 1);
+            const int row = wr + g + (e >> 1) * 8;
+            if (col >= kv_len || (causal && col > row + off))
+              s[n][e] = -INFINITY;
+          }
+      }
+
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+          mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+        const float m_new = fmaxf(m[i], quad_max(mx));
+        // a row with no visible key yet keeps m = -inf; subtracting 0
+        // instead keeps exp2() finite (exp2(-inf) = 0 for masked scores)
+        const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+        // exponents as (s - m) scale log2(e): the row's largest score
+        // gives exactly 1, and alpha is exactly 1 while m holds (a fused
+        // s sl2 - m sl2 would leave the rounding of m sl2 in every weight,
+        // compounding through alpha from tile to tile)
+        alpha[i] = fast_exp2((m[i] - m_safe) * sl2);
+        float rs = 0.f;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          s[n][2 * i] = fast_exp2((s[n][2 * i] - m_safe) * sl2);
+          s[n][2 * i + 1] = fast_exp2((s[n][2 * i + 1] - m_safe) * sl2);
+          rs += s[n][2 * i] + s[n][2 * i + 1];
+        }
+        l[i] = l[i] * alpha[i] + rs;
+        m[i] = m_new;
+      }
+
+      // O = alpha O + P V.  S tile kk's C-fragment, split, is the
+      // A-fragment of k-step kk with key 2 t4 in slot t4 and key 2 t4 + 1
+      // in slot t4 + 4
+      uint32_t p_hi[NS][4], p_lo[NS][4];
+#pragma unroll
+      for (int kk = 0; kk < NS; ++kk) {
+        split_tf32(s[kk][0], p_hi[kk][0], p_lo[kk][0]);  // row g, key 2 t4
+        split_tf32(s[kk][2], p_hi[kk][1], p_lo[kk][1]);  // row g + 8
+        split_tf32(s[kk][1], p_hi[kk][2], p_lo[kk][2]);  // row g, 2 t4 + 1
+        split_tf32(s[kk][3], p_hi[kk][3], p_lo[kk][3]);  // row g + 8
+      }
+      const float* vr = Vt + 2 * t4 * VS + g;
+#pragma unroll
+      for (int d0 = 0; d0 < DS; d0 += DG) {
+        // this tile's P V for O's n-tiles d0 .. d0 + DG - 1 in fresh
+        // accumulators, folded into O with one rounding (the tensor core
+        // truncates its sums: a running O would take that at every
+        // product of every tile)
+        float c[DG][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < NS; ++kk) {
+          // column 8 dn + g of keys 8 kk + 2 t4 (b0) and 8 kk + 2 t4 + 1
+          uint32_t b_hi[DG][2], b_lo[DG][2];
+#pragma unroll
+          for (int j = 0; j < DG; ++j) {
+            const float* vk = vr + 8 * kk * VS + 8 * (d0 + j);
+            split_tf32(vk[0], b_hi[j][0], b_lo[j][0]);
+            split_tf32(vk[VS], b_hi[j][1], b_lo[j][1]);
+          }
+          mma_tf32x3_n<DG>(c, p_hi[kk], p_lo[kk], b_hi, b_lo);
+        }
+#pragma unroll
+        for (int j = 0; j < DG; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[d0 + j][e] = fmaf(acc[d0 + j][e], alpha[e >> 1], c[j][e]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();
+
+  // the two warps of a row tile saw disjoint keys: the second hands its
+  // (m, l, O) to the first through shared memory (the K ring, free now),
+  // lane by lane (a lane of either holds the same rows and columns)
+  float* xs = Ks + rt * (4 * DS + 4) * 32;
+  if (half == 1) {
+#pragma unroll
+    for (int n = 0; n < DS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) xs[(4 * n + e) * 32 + lane] = acc[n][e];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      xs[(4 * DS + i) * 32 + lane] = m[i];
+      xs[(4 * DS + 2 + i) * 32 + lane] = l[i];
+    }
+  }
+  __syncthreads();
+  if (half == 1) return;
+  float a1[2], a2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m2 = xs[(4 * DS + i) * 32 + lane];
+    const float m_new = fmaxf(m[i], m2);
+    const float m_safe = m_new == -INFINITY ? 0.f : m_new;
+    a1[i] = fast_exp2((m[i] - m_safe) * sl2);
+    a2[i] = fast_exp2((m2 - m_safe) * sl2);
+    l[i] = l[i] * a1[i] + xs[(4 * DS + 2 + i) * 32 + lane] * a2[i];
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < DS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      acc[n][e] = fmaf(acc[n][e], a1[e >> 1],
+                       xs[(4 * n + e) * 32 + lane] * a2[e >> 1]);
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr + g + 8 * i;
+    const float li = quad_sum(l[i]);
+    if (row >= q_len) continue;
+    const float inv = li > 0.f ? 1.f / li : 0.f;  // no visible key: 0
+    float* orow = o + ((long long)bh * q_len + row) * D + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DS; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(acc[n][2 * i] * inv, acc[n][2 * i + 1] * inv);
+    if (lse != nullptr && t4 == 0)
+      lse[(long long)bh * q_len + row] =
+          li > 0.f ? m[i] * scale + logf(li) : -INFINITY;
+  }
+}
+
+}  // namespace tf32x3
+
 // q/k/v are [B, H, len, D] with the last dim contiguous and arbitrary
 // batch / head / row strides (in elements); o is contiguous [B*H, q_len, D].
 // The dtype picks the route; both keep this name, so a profile or ptxas
@@ -528,7 +747,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     Strides st, float scale, int causal) {
   extern __shared__ __align__(16) unsigned char smem[];
   if constexpr (std::is_same<T, float>::value)
-    scalar::fwd<D>(smem, q, k, v, o, lse, H, q_len, kv_len, st, scale, causal);
+    tf32x3::fwd<D>(smem, q, k, v, o, lse, H, q_len, kv_len, st, scale, causal);
   else
     tc::fwd<D>(smem, q, k, v, o, lse, H, q_len, kv_len, st, scale, causal);
 }
@@ -539,12 +758,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            float scale, int causal, cudaStream_t stream) {
   constexpr bool f32 = std::is_same<T, float>::value;
   auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = f32 ? scalar::smem_bytes(D) : tc::smem_bytes<D>();
+  const size_t smem = f32 ? tf32x3::smem_bytes<D>() : tc::smem_bytes<D>();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const Strides st{s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8]};
-  const int rows = f32 ? BQ : tc::Tile<D>::ROWS;
+  const int rows = f32 ? tf32x3::Tile<D>::ROWS : tc::Tile<D>::ROWS;
   dim3 grid((q_len + rows - 1) / rows, B * H);
   kern<<<grid, NT, smem, stream>>>((const T*)q, (const T*)k, (const T*)v,
                                    (T*)o, lse, H, q_len, kv_len, st, scale,
@@ -566,8 +785,9 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor cores; q, k, v
-// 16-byte aligned with strides in multiples of 8 elements).  strides: 9
+// dtype: 0 = float32, 1 = bfloat16, both on tensor cores, q, k, v 16-byte
+// aligned with strides in multiples of 16 bytes (4 f32 or 8 bf16
+// elements).  strides: 9
 // element strides (batch, head, row) of q, then k, then v.  lse may be
 // null.  Returns 0, a cudaError_t code, or -1 for an unsupported dtype /
 // head dim.

@@ -15,8 +15,11 @@ the Pallas ``_fwd_kernel``) and the backward launches
 ``csrc/flash_bwd.cu``: ``flash_bwd_kv`` (of ``_bwd_kv_kernel``) then
 ``flash_bwd_dq`` (of ``_bwd_dq_kernel``), after ``delta = rowsum(do * o)``
 as a torch reduction, which the JAX package also computes outside its
-kernels.  Each kernel runs bf16 on the tensor cores and f32 on a scalar
-kernel that keeps full f32 precision.  On CPU tensors the ops run the
+kernels.  Each kernel runs bf16 on the tensor cores.  The forward runs
+f32 on them too, each operand split into two TF32 values and each
+product taken as three TF32 products, which keeps f32's accuracy by
+design (so no TF32 switch of torch's is read); the backward kernels run
+f32 on scalar kernels.  On CPU tensors the ops run the
 plain versions, ``flash_attention_reference`` and
 ``flash_attention_backward_reference``: the same blocked recompute
 written in torch.  There is no route from one to the other: a CUDA
@@ -292,17 +295,18 @@ def _row_major(*ts):
 
 
 def _cp_async_aligned(t) -> bool:
-    """Whether the bf16 kernels' 16-byte ``cp.async`` copies can
+    """Whether the tensor-core kernels' 16-byte ``cp.async`` copies can
     read ``t`` in place: a 16-byte-aligned base, a contiguous head dim and
-    (batch, head, row) strides that are whole 16-byte chunks.  The model's
-    q, k, v (strided views split from one qkv projection) qualify."""
+    (batch, head, row) strides that are whole 16-byte chunks (8 bf16 or 4
+    f32 elements).  The model's q, k, v (strided views split from one qkv
+    projection) qualify."""
     per_chunk = 16 // t.element_size()
     return (t.data_ptr() % 16 == 0 and t.stride(-1) == 1
             and all(st % per_chunk == 0 for st in t.stride()[:3]))
 
 
 def _aligned(*ts):
-    """The inputs as the bf16 kernels read them: each one that
+    """The inputs as the tensor-core kernels read them: each one that
     ``_cp_async_aligned`` refuses is copied into a fresh contiguous
     tensor (``clone``, not ``contiguous``: a contiguous view at an odd
     offset would come back from ``contiguous`` as it was)."""
@@ -331,9 +335,8 @@ def _launch(q, k, v, scale: float, causal: bool, need_lse: bool):
 
     _check(q, k, v)
     b, h, sq, d = q.shape
-    # f32 runs the scalar kernel, which needs only a contiguous head dim;
-    # bf16 runs the tensor-core kernel and its 16-byte copies
-    q, k, v = (_aligned if q.dtype == torch.bfloat16 else _row_major)(q, k, v)
+    # both dtypes run on the tensor cores, fed by 16-byte copies
+    q, k, v = _aligned(q, k, v)
     out = torch.empty((b, h, sq, d), dtype=q.dtype, device=q.device)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if need_lse else None)

@@ -224,6 +224,36 @@ def test_cp_async_alignment_helper():
     assert not port_flash._cp_async_aligned(wide)
 
 
+def test_cp_async_alignment_helper_f32():
+    # the f32 forward kernel's 16-byte copies take 4 f32 elements a chunk:
+    # a 16-byte base and strides in multiples of 4 elements pass as they are
+    b, s, h, hd = 2, 16, 2, 64
+    qkv = torch.arange(b * s * 3 * h * hd, dtype=torch.float32).reshape(
+        b, s, 3 * h * hd)
+    views = [t.reshape(b, s, h, hd).transpose(1, 2)
+             for t in qkv.split(h * hd, dim=-1)]
+    assert all(port_flash._cp_async_aligned(t) for t in views)
+    assert all(port_flash._aligned(*views)[i] is views[i] for i in range(3))
+    padded4 = torch.zeros((b, h, s, hd + 4))[..., :hd]
+    assert port_flash._cp_async_aligned(padded4)
+    # a 1-element offset is 4 bytes off: copied, and the copy equals it
+    flat = torch.arange(b * h * s * hd + 1, dtype=torch.float32)
+    shifted = flat[1:].view(b, h, s, hd)
+    assert shifted.is_contiguous()
+    assert not port_flash._cp_async_aligned(shifted)
+    copied = port_flash._aligned(shifted)[0]
+    assert copied is not shifted and port_flash._cp_async_aligned(copied)
+    assert torch.equal(copied, shifted)
+    # a row stride padded by 2 elements (8 bytes) is not whole chunks
+    wide = torch.arange(b * h * s * (hd + 2), dtype=torch.float32).reshape(
+        b, h, s, hd + 2)[..., :hd]
+    assert wide.stride(2) == hd + 2
+    assert not port_flash._cp_async_aligned(wide)
+    copied = port_flash._aligned(wide)[0]
+    assert port_flash._cp_async_aligned(copied)
+    assert torch.equal(copied, wide)
+
+
 def test_kernel_libraries_rebuild_when_the_shared_header_changes(
         tmp_path, monkeypatch):
     # both kernels include csrc/tc.cuh: a library named by its source's
