@@ -8,11 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. environment: a CUDA card must be present; prints the card's name and
    power limit, builds every Hopper kernel from ops/csrc (one nvcc per
    source, started together) and prints the build time and ptxas report;
-   the forward kernel in bf16 and in f32 (split TF32) and both bf16
-   backward kernels (the tensor-core routes) must hold HMMA instructions
-   at every head dim, and the f32 backward kernels (the scalar route)
-   none (cuobjdump -sass of the built libraries); the bf16 d = 64
-   instantiations of all three and the f32 forward's spill nothing;
+   all three kernels must hold HMMA instructions at every head dim, in
+   bf16 and, of the TF32 form, in f32 (the split: cuobjdump -sass of the
+   built libraries); the d = 64 instantiations of all three spill
+   nothing in either dtype;
 2. kernels against their plain versions on the card: the flash forward
    at the serving path's shape and at cross-length, ragged (kv 77 too),
    decode-like (q 1 / kv 1000), key-less-row (q 300 / kv 100: output 0,
@@ -29,12 +28,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
    versions on the card: f32 and bf16, causal and not, head dims 64, 128
    and 256, ragged (kv 77 too), cross-length, decode-like (q 1 / kv
    1000) and key-less rows, strided qkv views, a non-contiguous
-   cotangent and 1-element-offset views (which the bf16 route copies);
-   autograd through the flash op against autograd through plain
-   attention; times at the training shape [16, 12, 1024, 64] bf16 causal
-   and at BERT-base's [32, 12, 512, 64] bf16 non-causal (device time, and
-   time per call) beside the bound, the plain versions and SDPA's
-   backward;
+   cotangent and 1-element-offset views (which both routes copy), and in
+   f32 with q and k scaled by 4; autograd through the flash op against
+   autograd through plain attention; times at the training shape [16,
+   12, 1024, 64] bf16 causal and at BERT-base's [32, 12, 512, 64] bf16
+   non-causal, and in f32 at [16, 12, 1024, 64] and [2, 12, 1024, 64]
+   causal (device time, and time per call) beside the bound (in f32 the
+   split's, three TF32 products a multiply-add, with the CUDA cores'
+   figure), the plain versions and SDPA's backward (in f32 with TF32
+   off);
 4. the serving slice in f32: GPTServer at GPT-2 124M width from seeded
    random weights answers a cold 600-token prompt (full-width prefill on
    the flash kernel) and three short ones (two share a 48-token head);
@@ -67,7 +69,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    backward kernel 12 times, loss and grad_norm must be finite, the loss
    must fall, and step 1 must agree with the same step on plain
    attention; prints step time, tokens/s and MFU (bench.py's
-   flops-per-token over 989e12);
+   flops-per-token over 989e12).  Then the same widths in f32 (TF32
+   off), b2 s1024, remat "dots": three steps through the f32 routes of
+   all three kernels, 24 / 12 / 12 launches a step, finite and falling
+   loss, step 1 within rel 1e-5 (loss) and 1e-4 (grad_norm) of plain
+   attention; prints the step ms and the backward kernels' share of a
+   profiled step;
 8. mixture-of-experts serving: GPT-2 124M widths with 4 experts, top-2
    (``GPTConfig.gpt2_124m(n_experts=4, expert_top_k=2)``), at capacity
    factor 4.0 (capacity never binds).  In f32 (TF32 off) the paged
@@ -370,8 +377,8 @@ import torch
 CARD_RATES = [("H100 PCIe", 2.0e12, 756e12), ("H100 NVL", 3.9e12, 835e12),
               ("H200", 4.8e12, 989e12), ("H100", 3.35e12, 989e12)]
 # f32 on the card's CUDA cores, and dense TF32 on its tensor cores, where
-# an f32-accurate product costs three TF32 products (the flash forward's
-# f32 route); the 16-bit types on tensor cores at the card's rate
+# an f32-accurate product costs three TF32 products (the flash kernels'
+# f32 routes); the 16-bit types on tensor cores at the card's rate
 F32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 TF32_PRODUCTS = 3
@@ -474,12 +481,12 @@ def attention_work(b, h, sq, skv, d, causal, itemsize):
             4 * b * h * visible_pairs(sq, skv, causal) * d)
 
 
-def f32_forward_bounds(nbytes: float, nflop: float, bw: float) -> tuple:
-    """(bound ms, what bounds it, the CUDA cores' figure in ms) of the
-    flash forward's f32 work: the least time the card can take for it
+def f32_bounds(nbytes: float, nflop: float, bw: float) -> tuple:
+    """(bound ms, what bounds it, the CUDA cores' figure in ms) of a flash
+    kernel's f32 work: the least time the card can take for it
     f32-accurately is bytes over the memory rate or three TF32 products a
     multiply-add over the dense TF32 rate, whichever is larger; the same
-    FLOPs over the CUDA cores' f32 rate were the scalar kernel's
+    FLOPs over the CUDA cores' f32 rate were the scalar kernels'
     yardstick."""
     t_bytes = nbytes / bw * 1e3
     t_ops = TF32_PRODUCTS * nflop / TF32_FLOPS * 1e3
@@ -526,12 +533,14 @@ def phase_environment():
                 print(f"[env] {entry} ptxas: {ln.strip()}")
                 if "spill" in ln:
                     spills[entry] = ln.strip()
-    # the tensor-core kernels (all bf16 ones and the f32 forward): no
-    # spills on the path's head dim, and tensor-core products in every
-    # instantiation; the f32 backward stays scalar
+    # every kernel in both dtypes runs on the tensor cores: no spills on
+    # the path's head dim, and tensor-core products in every
+    # instantiation, of the TF32 form in f32 (the split)
     for entry in ("flash_fwd_kernel<bf16, 64>", "flash_fwd_kernel<f32, 64>",
                   "flash_bwd_kv_kernel<bf16, 64>",
-                  "flash_bwd_dq_kernel<bf16, 64>"):
+                  "flash_bwd_dq_kernel<bf16, 64>",
+                  "flash_bwd_kv_kernel<f32, 64>",
+                  "flash_bwd_dq_kernel<f32, 64>"):
         d64 = spills.get(entry, "not reported")
         check("0 bytes spill stores, 0 bytes spill loads" in d64,
               f"{entry} spills: {d64}")
@@ -545,15 +554,9 @@ def phase_environment():
             for d in (64, 128, 256):
                 check(hmma.get(f"{kern}_kernel<bf16, {d}>", 0) > 0,
                       f"{kern}_kernel<bf16, {d}> holds no HMMA instruction")
-                if lib_name == "flash_fwd":
-                    check(tf32.get(f"{kern}_kernel<f32, {d}>", 0) > 0,
-                          f"{kern}_kernel<f32, {d}> holds no TF32 HMMA "
-                          f"instruction")
-                else:
-                    check(hmma.get(f"{kern}_kernel<f32, {d}>") == 0,
-                          f"{kern}_kernel<f32, {d}>: "
-                          f"{hmma.get(f'{kern}_kernel<f32, {d}>')} HMMA "
-                          f"instructions, expected the scalar route's 0")
+                check(tf32.get(f"{kern}_kernel<f32, {d}>", 0) > 0,
+                      f"{kern}_kernel<f32, {d}> holds no TF32 HMMA "
+                      f"instruction")
     lib = importlib.import_module(
         "ray_tpu_torch.ops.flash_attention")._bwd_lib()
     for d in (64, 128, 256):
@@ -726,7 +729,7 @@ def phase_kernels(name: str, card: str) -> dict:
     lib32 = device_ms(lambda: F.scaled_dot_product_attention(
         q32, k32, v32, is_causal=True))
     b32, f32 = attention_work(1, 12, 1024, 1024, 64, True, 4)
-    bound32, by32, cores32 = f32_forward_bounds(b32, f32, bw)
+    bound32, by32, cores32 = f32_bounds(b32, f32, bw)
     print(f"[kernel] flash_fwd [1,12,1024,64] bf16 causal on {card}: "
           f"kernel {ms:.4f} ms ({nflop / ms / 1e9:.1f} TFLOP/s; per call "
           f"{call_ms:.4f} ms), plain {plain_ms:.4f} ms (per call "
@@ -1242,7 +1245,7 @@ def phase_backward_kernels(name: str, card: str) -> list:
         ("ragged kv77 non-causal", 2, 3, 40, 77, 64, False),
         ("BERT-base training shape", 32, 12, 512, 512, 64, False),
     ]
-    path_err, bert_err = {}, {}
+    errs = {}  # (label, dtype) -> {kernel: max abs error}
     for dtype in (torch.bfloat16, torch.float32):
         for label, b, h, sq, skv, d, causal in cases:
             q, do = (rand((b, h, sq, d), dtype) for _ in range(2))
@@ -1252,10 +1255,15 @@ def phase_backward_kernels(name: str, card: str) -> list:
                   f"non-finite backward output, {label} {dtype}")
             e_kv, e_dq = held(f"{label} [{b},{h},{sq}/{skv},{d}] "
                               f"causal={causal}", dtype, got, ref)
-            if label == "path" and dtype == torch.bfloat16:
-                path_err = {"flash_bwd_kv": e_kv, "flash_bwd_dq": e_dq}
-            if label.startswith("BERT") and dtype == torch.bfloat16:
-                bert_err = {"flash_bwd_kv": e_kv, "flash_bwd_dq": e_dq}
+            errs[label, dtype] = {"flash_bwd_kv": e_kv, "flash_bwd_dq": e_dq}
+
+    # f32 with q and k scaled by 4: logits far beyond +-30, where dp -
+    # delta and the exponents need every digit of the split products
+    q, k, v, do = (rand((1, 12, 1024, 64), torch.float32) for _ in range(4))
+    q, k = q * 4, k * 4
+    reach = (q @ k.transpose(-1, -2)).abs().max().item() * 64 ** -0.5
+    held(f"q, k scaled by 4 (|logits| up to {reach:.1f}) [1,12,1024/1024,64] "
+         f"causal=True", torch.float32, *grads(q, k, v, do, True))
 
     # as the model hands them over: q, k, v strided views of one qkv
     # projection; do a transposed view of a [b, s, h, d] gradient, and
@@ -1273,8 +1281,7 @@ def phase_backward_kernels(name: str, card: str) -> list:
             held(label, dtype, *grads(q, k, v, do, True))
 
     # q, k, v and do contiguous at a 1-element offset: not 16-byte
-    # aligned, so the bf16 route copies them (the f32 route reads them as
-    # they are); each kernel still launches once
+    # aligned, so both routes copy them; each kernel still launches once
     for dtype in (torch.bfloat16, torch.float32):
         shape = (1, 12, 200, 64)
         q, k, v, do = (rand((int(np.prod(shape)) + 1,), dtype)[1:].view(shape)
@@ -1302,9 +1309,17 @@ def phase_backward_kernels(name: str, card: str) -> list:
         check(ok, f"autograd d{nm} differs from plain attention by {err}")
 
     # times at the training shape, [16, 12, 1024, 64] bf16 causal, and at
-    # BERT-base's, [32, 12, 512, 64] bf16 non-causal
+    # BERT-base's, [32, 12, 512, 64] bf16 non-causal; in f32 at the
+    # training shape and at phase 7's f32 arm's, [2, 12, 1024, 64] causal
     times = backward_times(name, card, rand, 16, 12, 1024, 64, True)
     bert = backward_times(name, card, rand, *BERT_SHAPE, False)
+    f32 = backward_times(name, card, rand, 16, 12, 1024, 64, True,
+                         torch.float32)
+    f32_b2 = backward_times(name, card, rand, 2, 12, 1024, 64, True,
+                            torch.float32)
+    path_err = errs["path", torch.bfloat16]
+    bert_err = errs["BERT-base training shape", torch.bfloat16]
+    f32_err = errs["path", torch.float32]
     entries = []
     for kname, line in (("flash_bwd_kv", 192), ("flash_bwd_dq", 238)):
         t = times[kname]
@@ -1316,20 +1331,28 @@ def phase_backward_kernels(name: str, card: str) -> list:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
-            "bert_shape": {**bert[kname], "max_abs_err": bert_err[kname]}})
+            "bert_shape": {**bert[kname], "max_abs_err": bert_err[kname]},
+            "f32_shape": {**f32[kname], "max_abs_err": f32_err[kname]},
+            "f32_train_shape": f32_b2[kname]})
     return entries
 
 
-def backward_times(name, card, rand, b, h, s, d, causal) -> dict:
-    """Device ms of both backward kernels on one bf16 shape beside their
-    bound, their plain versions and SDPA's backward (its forward +
-    backward minus its forward), and the forward's against SDPA's:
-    {kernel: {"ms", "plain_ms", "library_ms", "bound_ms", "bound_by"}}."""
+def backward_times(name, card, rand, b, h, s, d, causal,
+                   dtype=torch.bfloat16) -> dict:
+    """Device ms of both backward kernels on one shape beside their bound,
+    their plain versions and SDPA's backward (its forward + backward
+    minus its forward; in f32 with TF32 off), and the forward's against
+    SDPA's: {kernel: {"ms", "plain_ms", "library_ms", "bound_ms",
+    "bound_by"}, and in f32 "cuda_core_bound_ms"}.  The f32 bound is the
+    split's, three TF32 products a multiply-add (``f32_bounds``)."""
     import torch.nn.functional as F
 
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
-    shape = f"[{b},{h},{s},{d}] bf16 {'causal' if causal else 'non-causal'}"
-    q, k, v, do = (rand((b, h, s, d), torch.bfloat16) for _ in range(4))
+    f32 = dtype == torch.float32
+    itemsize = 4 if f32 else 2
+    shape = (f"[{b},{h},{s},{d}] {'f32' if f32 else 'bf16'} "
+             f"{'causal' if causal else 'non-causal'}")
+    q, k, v, do = (rand((b, h, s, d), dtype) for _ in range(4))
     scale = d ** -0.5
     out, lse = fa.flash_attention_with_lse(q, k, v, causal=causal)
     delta = fa._delta(out, do)
@@ -1357,35 +1380,52 @@ def backward_times(name, card, rand, b, h, s, d, causal) -> dict:
     def sdpa():
         return F.scaled_dot_product_attention(*leaves, is_causal=causal)
 
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
     sdpa_call = time_ms(lambda: sdpa().detach(), reps=5, inner=3)
     sdpa_fwd = device_ms(lambda: sdpa().detach())
     sdpa_both = device_ms(lambda: torch.autograd.grad(sdpa(), leaves, do))
+    torch.backends.cuda.matmul.allow_tf32 = tf32
     lib_ms = sdpa_both - sdpa_fwd
     bw, flops = rates(name)
-    fb, ff = attention_work(b, h, s, s, d, causal, 2)
+
+    def bound(nbytes, nflop):
+        """(bound ms, what bounds it, text of its terms)"""
+        if f32:
+            t, by, cores = f32_bounds(nbytes, nflop, bw)
+            return t, by, (
+                f"{nbytes / 1e6:.2f} MB -> {nbytes / bw * 1e3:.5f} ms, "
+                f"{nflop / 1e9:.3f} GFLOP x {TF32_PRODUCTS} TF32 products "
+                f"-> {TF32_PRODUCTS * nflop / TF32_FLOPS * 1e3:.5f} ms; on "
+                f"the CUDA cores {cores:.5f} ms"), cores
+        t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                     "operations"), (
+            f"{nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
+            f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms"), None
+
+    fb, ff = attention_work(b, h, s, s, d, causal, itemsize)
+    fwd_bound, fwd_by, _, _ = bound(fb, ff)
     print(f"[kernel] flash_fwd {shape} on {card}: "
           f"kernel {fwd_ms:.4f} ms ({ff / fwd_ms / 1e9:.1f} TFLOP/s; per "
           f"call {fwd_call:.4f} ms), plain {fwd_plain_ms:.4f} ms, SDPA "
           f"{sdpa_fwd:.4f} ms (per call {sdpa_call:.4f}), bound "
-          f"{max(fb / bw, ff / flops) * 1e3:.5f} ms"
-          f" ({'bytes' if fb / bw >= ff / flops else 'operations'})")
+          f"{fwd_bound:.5f} ms ({fwd_by})")
     out = {}
     for kname in calls:
-        nbytes, nflop = backward_work(kname, b, h, s, s, d, causal, 2)
-        t_bytes, t_ops = nbytes / bw * 1e3, nflop / flops * 1e3
-        bound = max(t_bytes, t_ops)
+        nbytes, nflop = backward_work(kname, b, h, s, s, d, causal, itemsize)
+        t, by, terms, cores = bound(nbytes, nflop)
         print(f"[kernel] {kname} {shape} on {card}: "
               f"kernel {ms[kname]:.4f} ms ({nflop / ms[kname] / 1e9:.1f} "
               f"TFLOP/s; per call {call_ms[kname]:.4f} ms), plain "
               f"{plain_ms[kname]:.4f} ms (CUDA events),"
               f" SDPA backward {lib_ms:.4f} ms (device time, fwd+bwd "
-              f"{sdpa_both:.4f} - fwd {sdpa_fwd:.4f}), bound {bound:.5f} ms "
-              f"({nbytes / 1e6:.2f} MB -> {t_bytes:.5f} ms, "
-              f"{nflop / 1e9:.3f} GFLOP -> {t_ops:.5f} ms)")
+              f"{sdpa_both:.4f} - fwd {sdpa_fwd:.4f}), bound {t:.5f} ms "
+              f"({by}: {terms}); {ms[kname] / t:.2f}x the bound")
         out[kname] = {"ms": ms[kname], "plain_ms": plain_ms[kname],
-                      "library_ms": lib_ms, "bound_ms": bound,
-                      "bound_by": "bytes" if t_bytes >= t_ops
-                      else "operations"}
+                      "library_ms": lib_ms, "bound_ms": t, "bound_by": by}
+        if f32:
+            out[kname]["cuda_core_bound_ms"] = cores
     both = ms["flash_bwd_kv"] + ms["flash_bwd_dq"]
     print(f"[kernel] flash_bwd_kv + flash_bwd_dq {shape} {both:.4f} ms "
           f"against SDPA's backward {lib_ms:.4f} ms: {both / lib_ms:.2f}x")
@@ -1463,7 +1503,71 @@ def phase_training(name: str, card: str):
     n_params = count_params(params)
     print(f"[train] GPT-2 124M: {n_params} params")
     # bench.py's training flops per token: 6N + the attention term
-    return train_policies(name, card, base, params, n_params, "train")
+    launches, steady_ms = train_policies(name, card, base, params, n_params,
+                                         "train")
+    launches.update(f32_training(card))
+    return launches, steady_ms
+
+
+def f32_training(card: str) -> dict:
+    """GPT-2 124M widths in f32 with TF32 off, b2 s1024, remat "dots":
+    three make_train_step steps on one batch, each through the f32 routes
+    of all three flash kernels under autograd (the model's strided qkv
+    views, autograd's transposed cotangent), then two timed steps and one
+    profiled.  Gates: (24, 12, 12) launches a step, finite and falling
+    loss, step 1 within rel 1e-5 (loss) and 1e-4 (grad_norm) of plain
+    attention on the same params and batch.  Returns {path: launches over
+    the three steps}."""
+    from ray_tpu_torch.models import gpt
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt.GPTConfig.gpt2_124m(dtype=torch.float32, remat=True,
+                                  remat_policy="dots")
+    params = gpt.init_params(cfg, SEED)
+    L, b, seq, steps = cfg.n_layers, 2, 1024, 3
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, seq + 1),
+                                     generator=gen, device="cuda")}
+    losses, norms, step_ms, counts, kernel_ms = train_run(
+        cfg, params, batch, steps, timed=2, label="train f32")
+    steady = statistics.median(step_ms[steps:])
+    print(f"[train f32] b{b} s{seq} f32 (TF32 off) on {card}: losses "
+          f"{[round(x, 6) for x in losses]}, grad norms "
+          f"{[round(x, 6) for x in norms]}; step ms "
+          f"{[round(x, 3) for x in step_ms]}, steady {steady:.3f} ms")
+    if kernel_ms["all kernels"] > 0:
+        bwd = kernel_ms["flash_bwd_kv"] + kernel_ms["flash_bwd_dq"]
+        print(f"[train f32] one profiled step, device ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in kernel_ms.items())
+              + f"; the backward kernels {bwd:.3f} ms, "
+              f"{bwd / kernel_ms['all kernels']:.4f} of the kernels' time "
+              f"and {bwd / steady:.4f} of the steady step")
+    else:
+        print("[train f32] kernel share not measured (the profiler saw no "
+              "device time)")
+    print(f"[train f32] launches per step (flash_fwd, flash_bwd_kv, "
+          f"flash_bwd_dq): {counts}")
+    for c in counts:
+        check(c == (2 * L, L, L), f"train f32: a step launched {c}, "
+              f"expected ({2 * L}, {L}, {L})")
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          "train f32: non-finite loss or grad norm")
+    check(losses[-1] < losses[0], f"train f32: loss did not fall over "
+          f"{steps} steps on one batch: {losses}")
+    ref_cfg = dataclasses.replace(cfg, attn_impl="reference")
+    ref_losses, ref_norms, _, ref_counts, _ = train_run(ref_cfg, params,
+                                                        batch, 1)
+    check(ref_counts == [(0, 0, 0)], f"plain attention launched {ref_counts}")
+    dl = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    dn = abs(norms[0] - ref_norms[0]) / abs(ref_norms[0])
+    ok = dl <= 1e-5 and dn <= 1e-4
+    print(f"[train f32] step 1 vs plain attention: loss {losses[0]:.8f} vs "
+          f"{ref_losses[0]:.8f} (rel {dl:.2e}, bound 1e-5), grad_norm "
+          f"{norms[0]:.8f} vs {ref_norms[0]:.8f} (rel {dn:.2e}, bound 1e-4) "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, "train f32: step 1 disagrees with plain attention")
+    return {"train_f32_dots": [sum(c[i] for c in counts) for i in range(3)]}
 
 
 def count_params(params) -> int:
@@ -4390,7 +4494,7 @@ def forward_times(name: str, card: str, tag: str, q, k, v,
     nbytes, nflop = attention_work(b, h, s, s, d, causal, q.element_size())
     extra, cores = {}, ""
     if q.dtype == torch.float32:
-        bound, by, cores_ms = f32_forward_bounds(nbytes, nflop, bw)
+        bound, by, cores_ms = f32_bounds(nbytes, nflop, bw)
         extra = {"cuda_core_bound_ms": cores_ms}
         cores = f" ({by}), on the CUDA cores {cores_ms:.5f} ms"
     else:
@@ -5985,8 +6089,8 @@ def main() -> int:
     # phase 16's pipelined and expert-parallel steps and passes, the
     # trainer's fits on a mesh (18a's six steps at NCCL world size 1,
     # 18b's six a rank on four threaded ranks), the slot engine's
-    # admissions on tp (19a-c) and the elastic gang's 26 member-steps
-    # (22a)
+    # admissions on tp (19a-c), the elastic gang's 26 member-steps
+    # (22a) and phase 7's three f32 steps
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

@@ -21,8 +21,9 @@
 // mask (exp(-inf + inf) would be NaN).  q, k, v and do arrive with
 // arbitrary (batch, head, row) strides and a contiguous head dim.
 //
-// Two routes behind each entry point, chosen by the dtype code, both named
-// flash_bwd_kv_kernel<T, D> / flash_bwd_dq_kernel<T, D>:
+// Two routes behind each entry point, both on the tensor cores, chosen by
+// the dtype code, both named flash_bwd_kv_kernel<T, D> /
+// flash_bwd_dq_kernel<T, D>:
 //
 // bf16: tensor cores (tc:: below), the forward's machinery (tc.cuh):
 //   mma.sync m16n8k16 bf16 -> f32 with ldmatrix / ldmatrix.trans from
@@ -64,20 +65,10 @@
 //   The inputs must be 16-byte aligned with (batch, head, row) strides in
 //   multiples of 8 elements; the wrapper copies one that is not.
 //
-// f32: the original scalar kernels (scalar:: below), kept as they were.
-//   On f32 the tensor cores would run TF32, about three decimal digits,
-//   which the f32 route's 1e-4 bound does not allow.  Tiles are R rows with
-//   R * D = 4096 (R = 64, 32, 16 for D = 64, 128, 256), so every thread
-//   keeps 32 f32 accumulators per output whatever the head dim, and shared
-//   memory stays under 100 KB (f32 tiles, rows padded by one word against
-//   bank conflicts).  Thread t owns rows (t / 8) * R/16 + i of a tile and
-//   columns (t % 8) + 8 j.  flash_bwd_kv stages its K and V tiles once,
-//   then loops over q tiles from the first that reaches the causal
-//   diagonal (the Pallas kernel's `live` test), staging q, do, lse and
-//   delta for each; S = q K^T and dP = do V^T share one pass over d; p and
-//   ds go through shared memory to the dv / dk products.  flash_bwd_dq
-//   stages its q, do, lse and delta once and loops over K/V tiles up to the
-//   diagonal; ds goes through shared memory to the dq product.
+// f32: tensor cores too (tf32x3:: below), every f32 operand split into two
+//   TF32 values and each product taken as three TF32 products, which keeps
+//   f32's accuracy; the note at the top of tf32x3:: gives the design, its
+//   error, its bound and what held the scalar kernels it replaces back.
 //
 // Bound at the training shape [16, 12, 1024, 64] bf16 causal, per launch
 // (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16): flash_bwd_kv reads q, do, k, v
@@ -112,310 +103,12 @@
 
 namespace {
 
-constexpr int NT = 128;  // threads per CTA of the f32 route and of bf16 dq
+constexpr int NT = 128;  // threads per CTA of the bf16 flash_bwd_dq
 
 // (batch, head, row) element strides of q, k, v and do
 struct Strides {
   long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss;
 };
-
-// ---------------------------------------------------------------- f32 route
-
-namespace scalar {
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-
-// x rounded to T and back: the rounding point of p and ds
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
-template <int D> struct Shape {
-  static constexpr int R = 4096 / D;  // tile rows, q and kv alike
-  static constexpr int DP = D + 1;    // padded row stride of a [R, D] tile
-  static constexpr int PS = R + 1;    // padded row stride of a [R, R] tile
-  static constexpr int TR = R / 16;   // rows per thread
-  static constexpr int TC = R / 8;    // score columns per thread
-  static constexpr int DN = D / 8;    // head-dim columns per thread
-};
-
-// Stage rows [r0, r0 + R) of one head of x ([len, D] at row stride rs) into
-// the f32 tile dst; rows past len are zero.
-template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* x, long long rs,
-                                      int r0, int len) {
-  using S = Shape<D>;
-  for (int i = threadIdx.x; i < S::R * D; i += NT) {
-    const int r = i / D, c = i - (i / D) * D;
-    const int gr = r0 + r;
-    dst[r * S::DP + c] = gr < len ? to_f(x[gr * rs + c]) : 0.f;
-  }
-}
-
-// lse and delta of rows [r0, r0 + R) of head bh; rows past len are 0
-// (every score of theirs is masked).
-__device__ __forceinline__ void stage_rows(float* ls, float* dl,
-                                           const float* lse,
-                                           const float* delta, long long bh,
-                                           int r0, int len, int R) {
-  for (int i = threadIdx.x; i < R; i += NT) {
-    const int gr = r0 + i;
-    ls[i] = gr < len ? lse[bh * len + gr] : 0.f;
-    dl[i] = gr < len ? delta[bh * len + gr] : 0.f;
-  }
-}
-
-// S = Q K^T and dP = dO V^T on this thread's TR x TC scores, then p and
-// ds as above.  Qs/Os hold q rows q0.., Ks/Vs hold keys k0...
-template <int D>
-__device__ __forceinline__ void scores(const float* Qs, const float* Os,
-                                       const float* Ks, const float* Vs,
-                                       const float* Ls, const float* Dl,
-                                       int q0, int k0, int q_len, int kv_len,
-                                       float scale, int causal,
-                                       float (&p)[Shape<D>::TR][Shape<D>::TC],
-                                       float (&ds)[Shape<D>::TR][Shape<D>::TC]) {
-  using S = Shape<D>;
-  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
-  float s[S::TR][S::TC], dp[S::TR][S::TC];
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i)
-#pragma unroll
-    for (int j = 0; j < S::TC; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    float qv[S::TR], ov[S::TR], kv[S::TC], vv[S::TC];
-#pragma unroll
-    for (int i = 0; i < S::TR; ++i) {
-      qv[i] = Qs[(rg * S::TR + i) * S::DP + d];
-      ov[i] = Os[(rg * S::TR + i) * S::DP + d];
-    }
-#pragma unroll
-    for (int j = 0; j < S::TC; ++j) {
-      kv[j] = Ks[(cg + 8 * j) * S::DP + d];
-      vv[j] = Vs[(cg + 8 * j) * S::DP + d];
-    }
-#pragma unroll
-    for (int i = 0; i < S::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < S::TC; ++j) {
-        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-        dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-      }
-  }
-  const int off = kv_len - q_len;  // causal diagonal offset
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i) {
-    const int r = rg * S::TR + i;
-    const int row = q0 + r;
-#pragma unroll
-    for (int j = 0; j < S::TC; ++j) {
-      const int col = k0 + cg + 8 * j;
-      const bool ok = row < q_len && col < kv_len &&
-                      (!causal || col <= row + off);
-      p[i][j] = ok ? expf(s[i][j] * scale - Ls[r]) : 0.f;
-      ds[i][j] = (p[i][j] * (dp[i][j] - Dl[r])) * scale;
-    }
-  }
-}
-
-template <int D> constexpr size_t smem_kv() {
-  using S = Shape<D>;
-  return (size_t)(4 * S::R * S::DP + 2 * S::R * S::PS + 2 * S::R) * sizeof(float);
-}
-
-template <int D> constexpr size_t smem_dq() {
-  using S = Shape<D>;
-  return (size_t)(4 * S::R * S::DP + S::R * S::PS + 2 * S::R) * sizeof(float);
-}
-
-// q, do are [B, H, q_len, D] and k, v [B, H, kv_len, D], each with its own
-// (batch, head, row) strides in elements; lse and delta are contiguous
-// [B*H, q_len] f32; dk and dv contiguous [B*H, kv_len, D].
-template <typename T, int D>
-__device__ __forceinline__ void bwd_kv(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int H, int q_len, int kv_len,
-    long long qsb, long long qsh, long long qss, long long ksb, long long ksh,
-    long long kss, long long vsb, long long vsh, long long vss,
-    long long osb, long long osh, long long oss, float scale, int causal) {
-  using S = Shape<D>;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + S::R * S::DP;
-  float* Qs = Vs + S::R * S::DP;
-  float* Os = Qs + S::R * S::DP;
-  float* Ps = Os + S::R * S::DP;  // p rounded to T, [q row][key]
-  float* Ss = Ps + S::R * S::PS;  // ds rounded to T
-  float* Ls = Ss + S::R * S::PS;
-  float* Dl = Ls + S::R;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int k0 = blockIdx.x * S::R;
-  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
-
-  stage<T, D>(Ks, k + b * ksb + h * ksh, kss, k0, kv_len);
-  stage<T, D>(Vs, v + b * vsb + h * vsh, vss, k0, kv_len);
-
-  // causal: q tiles wholly above the diagonal see none of these keys
-  const int off = kv_len - q_len;
-  const int first = (causal && k0 - off > 0) ? (k0 - off) / S::R : 0;
-  const int nq = (q_len + S::R - 1) / S::R;
-
-  float ak[S::TR][S::DN], av[S::TR][S::DN];
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i)
-#pragma unroll
-    for (int n = 0; n < S::DN; ++n) ak[i][n] = av[i][n] = 0.f;
-
-  for (int t = first; t < nq; ++t) {
-    const int q0 = t * S::R;
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(Qs, q + b * qsb + h * qsh, qss, q0, q_len);
-    stage<T, D>(Os, dout + b * osb + h * osh, oss, q0, q_len);
-    stage_rows(Ls, Dl, lse, delta, bh, q0, q_len, S::R);
-    __syncthreads();
-
-    float p[S::TR][S::TC], ds[S::TR][S::TC];
-    scores<D>(Qs, Os, Ks, Vs, Ls, Dl, q0, k0, q_len, kv_len, scale, causal,
-              p, ds);
-#pragma unroll
-    for (int i = 0; i < S::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < S::TC; ++j) {
-        const int idx = (rg * S::TR + i) * S::PS + cg + 8 * j;
-        Ps[idx] = round_to<T>(p[i][j]);
-        Ss[idx] = round_to<T>(ds[i][j]);
-      }
-    __syncthreads();
-
-    // this thread's keys are rows rg * TR + i of the kv tile
-#pragma unroll 2
-    for (int r = 0; r < S::R; ++r) {
-      float pv[S::TR], sv[S::TR];
-#pragma unroll
-      for (int i = 0; i < S::TR; ++i) {
-        pv[i] = Ps[r * S::PS + rg * S::TR + i];
-        sv[i] = Ss[r * S::PS + rg * S::TR + i];
-      }
-#pragma unroll
-      for (int n = 0; n < S::DN; ++n) {
-        const float ov = Os[r * S::DP + cg + 8 * n];
-        const float qv = Qs[r * S::DP + cg + 8 * n];
-#pragma unroll
-        for (int i = 0; i < S::TR; ++i) {
-          av[i][n] = fmaf(pv[i], ov, av[i][n]);
-          ak[i][n] = fmaf(sv[i], qv, ak[i][n]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i) {
-    const int row = k0 + rg * S::TR + i;
-    if (row >= kv_len) continue;
-    const long long base = ((long long)bh * kv_len + row) * D;
-#pragma unroll
-    for (int n = 0; n < S::DN; ++n) {
-      dk[base + cg + 8 * n] = from_f<T>(ak[i][n]);
-      dv[base + cg + 8 * n] = from_f<T>(av[i][n]);
-    }
-  }
-}
-
-// Same layouts as bwd_kv; dq is contiguous [B*H, q_len, D].
-template <typename T, int D>
-__device__ __forceinline__ void bwd_dq(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int H, int q_len, int kv_len, long long qsb,
-    long long qsh, long long qss, long long ksb, long long ksh, long long kss,
-    long long vsb, long long vsh, long long vss, long long osb,
-    long long osh, long long oss, float scale, int causal) {
-  using S = Shape<D>;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Os = Qs + S::R * S::DP;
-  float* Ks = Os + S::R * S::DP;
-  float* Vs = Ks + S::R * S::DP;
-  float* Ss = Vs + S::R * S::DP;  // ds rounded to T, [q row][key]
-  float* Ls = Ss + S::R * S::PS;
-  float* Dl = Ls + S::R;
-
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh - (bh / H) * H;
-  const int q0 = blockIdx.x * S::R;
-  const int rg = threadIdx.x >> 3, cg = threadIdx.x & 7;
-
-  stage<T, D>(Qs, q + b * qsb + h * qsh, qss, q0, q_len);
-  stage<T, D>(Os, dout + b * osb + h * osh, oss, q0, q_len);
-  stage_rows(Ls, Dl, lse, delta, bh, q0, q_len, S::R);
-
-  // causal: kv tiles wholly above the diagonal contribute nothing
-  const int off = kv_len - q_len;
-  int n_tiles = (kv_len + S::R - 1) / S::R;
-  if (causal) {
-    const int last_col = min(q0 + S::R, q_len) - 1 + off;
-    n_tiles = min(n_tiles, last_col < 0 ? 0 : last_col / S::R + 1);
-  }
-
-  float aq[S::TR][S::DN];
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i)
-#pragma unroll
-    for (int n = 0; n < S::DN; ++n) aq[i][n] = 0.f;
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * S::R;
-    __syncthreads();  // the previous tile's readers are done
-    stage<T, D>(Ks, k + b * ksb + h * ksh, kss, k0, kv_len);
-    stage<T, D>(Vs, v + b * vsb + h * vsh, vss, k0, kv_len);
-    __syncthreads();
-
-    float p[S::TR][S::TC], ds[S::TR][S::TC];
-    scores<D>(Qs, Os, Ks, Vs, Ls, Dl, q0, k0, q_len, kv_len, scale, causal,
-              p, ds);
-#pragma unroll
-    for (int i = 0; i < S::TR; ++i)
-#pragma unroll
-      for (int j = 0; j < S::TC; ++j)
-        Ss[(rg * S::TR + i) * S::PS + cg + 8 * j] = round_to<T>(ds[i][j]);
-    __syncthreads();
-
-#pragma unroll 2
-    for (int c = 0; c < S::R; ++c) {
-      float sv[S::TR];
-#pragma unroll
-      for (int i = 0; i < S::TR; ++i) sv[i] = Ss[(rg * S::TR + i) * S::PS + c];
-#pragma unroll
-      for (int n = 0; n < S::DN; ++n) {
-        const float kv = Ks[c * S::DP + cg + 8 * n];
-#pragma unroll
-        for (int i = 0; i < S::TR; ++i) aq[i][n] = fmaf(sv[i], kv, aq[i][n]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < S::TR; ++i) {
-    const int row = q0 + rg * S::TR + i;
-    if (row >= q_len) continue;
-    const long long base = ((long long)bh * q_len + row) * D;
-#pragma unroll
-    for (int n = 0; n < S::DN; ++n) dq[base + cg + 8 * n] = from_f<T>(aq[i][n]);
-  }
-}
-
-}  // namespace scalar
 
 // ------------------------------------------------------- bf16 tensor cores
 
@@ -871,13 +564,641 @@ __device__ __forceinline__ void bwd_dq(
 
 }  // namespace tc
 
+// ------------------------------------------------ f32 on the tensor cores
+//
+// Replaces the f32 use of _bwd_kv_kernel and _bwd_dq_kernel, which keep
+// q, k, v, do, p and ds in f32 and accumulate in f32.  Same functions as
+// the bf16 route above, in f32 in and out, with p and ds kept in f32.
+//
+// The split (CUTLASS's 3xTF32), as in flash_fwd.cu's f32 route: each f32
+// operand x becomes hi = rna(x) and lo = rna(x - hi), and a product is
+// a_lo b_hi + a_hi b_lo + a_hi b_hi on mma.sync m16n8k8 TF32 -> f32, with
+// an error of a few f32 roundings a term.  Every product runs this way:
+// S^T and dP^T (or S and dP), and the gradient products with p and ds
+// split like any other operand.  dp - delta cancels, so one TF32 product
+// for S or dP (about 1e-3 of each operand) would put that error into
+// every ds; only the split keeps the 1e-4 bound.  The tensor core
+// truncates each sum it forms, so the products of S and dP go into fresh
+// accumulators, four k-steps (32 dims) each, added to the scores with
+// round-to-nearest, and each tile's gradient products into fresh ones
+// (a group of 4 or 8 n-tiles at a time) added to the running dK, dV or
+// dQ, which sum over up to a thousand q rows or keys.  Longer fresh sums
+// take fewer adds and err more; four k-steps keep the error of q and k
+// scaled by 4 (logits beyond +-90) a small part of the bound (PERF.md).
+// The exponent is (s scale - lse) log2(e), one rounding of a difference,
+// never s scale log2(e) - lse log2(e), whose rounding of lse log2(e)
+// grows with |lse|.
+//
+// Layout.  Both kernels run 8 warps; a warp owns 16 keys (kv) or 16 q rows
+// (dq) and 64 columns of the gradients it accumulates, the d / 64 warps
+// sharing 16 keys or rows each computing the scores whole.
+//   - The stationary operands (K and V in flash_bwd_kv, Q and dO in
+//     flash_bwd_dq: 8192 / d rows a CTA) are read from device memory and
+//     split once into shared memory; the streamed ones (Q, dO or K, V:
+//     2048 / d rows a tile) arrive raw through a 2-stage ring of 16-byte
+//     cp.async copies and are split once a tile, both tiles at once, half
+//     the CTA each.  No warp splits what it reads, except p and ds, which
+//     come out of its own accumulators.
+//   - Split tiles are laid out so that every fragment is one load a plane
+//     (hi and lo planes apart) straight into the registers mma.sync takes,
+//     with no bank conflict (see "Split tiles" below): the A-fragments of
+//     the score products in 16-byte loads, the B-fragments in 8-byte
+//     loads.  A fragment gathered from (hi, lo) pairs side by side cost a
+//     register move for each value.
+//   - The score product uses the fragments' own k order; the gradient
+//     products take p and ds from the score's C-fragments as they lie,
+//     under tc.cuh's relabelling of k (slot t4 <- row 2 t4, slot t4 + 4 <-
+//     2 t4 + 1), which the gradient layout's row pairs follow.
+//   - flash_bwd_kv: 8192 / d keys a CTA (128 at d = 64), q tiles of
+//     2048 / d rows from the first that reaches the causal diagonal:
+//     S^T = K Q^T, dP^T = V dO^T with the key as m, P^T =
+//     2^((S^T scale - lse) log2 e), dS^T = P^T (dP^T - delta) scale,
+//     dV += P^T dO, dK += dS^T Q.  Kv tiles run lowest keys first.
+//   - flash_bwd_dq: 8192 / d q rows a CTA, K and V tiles of 2048 / d keys
+//     up to the causal diagonal: S = Q K^T, dP = dO V^T, P and dS as
+//     above, dQ += dS K.  Causal q tiles run heaviest first.
+//   - Both mask only tiles that touch the diagonal or a ragged edge and
+//     choose p = 0 by a select (exp2 of a key-less row's +inf is never
+//     kept); a warp whose keys and rows do not meet in a tile skips it.
+//     Two __syncthreads a tile: the ring's stage has landed, the split is
+//     done.
+// Shared memory at d = 64, 128 and 256: flash_bwd_kv 230,144 / 229,760 /
+// 229,568 B, flash_bwd_dq 212,992 B, one CTA an SM.  The inputs must be
+// 16-byte aligned with (batch, head, row) strides in multiples of 4
+// elements; the wrapper copies one that is not.
+//
+// Bound.  f32-accurate products cost three TF32 products, so the least
+// time this card can take is max(bytes / 3.35 TB/s, 3 x FLOP / 495
+// TFLOP/s).  At [16, 12, 1024, 64] f32 causal: flash_bwd_kv 303.6 MB ->
+// 0.0906 ms, 51.59 GFLOP x 3 -> 0.3127 ms; flash_bwd_dq 253.2 MB ->
+// 0.0756 ms, 38.69 GFLOP x 3 -> 0.2345 ms; operations bound both (on the
+// CUDA cores' 67 TFLOP/s the same FLOPs would take 0.7700 / 0.5775 ms).
+// mma.sync does not reach the dense TF32 rate, which takes wgmma.
+//
+// What held the scalar kernels this replaces back, and what this design
+// does about each: f32 FMAs on the CUDA cores, which alone need 2.5x the
+// split's bound -> mma.sync TF32 products, three a multiply-add;
+// synchronous one-element copies with no copy in flight -> 16-byte
+// cp.async copies, the next tile's in flight during this one's math; p and
+// ds through shared memory between the products, three __syncthreads a
+// tile -> C-fragments reused in registers as A-fragments, two
+// __syncthreads; causal dq tiles lightest first -> heaviest first.
+
+namespace tf32x3 {
+
+using namespace tc;  // cp.async, the split, mma_tf32x3_n, ex2
+
+// Tiles.  Both kernels run 8 warps; a warp owns 16 keys (kv) or 16 q rows
+// (dq) and 64 columns of the gradients it accumulates, the warps sharing
+// 16 keys or rows (d / 64 of them) each computing the scores whole.  The
+// stationary operands (K and V in kv, Q and dO in dq) fill 128 KB split,
+// so a CTA takes 8192 / d of them; the streamed tiles take 2048 / d rows.
+constexpr int THREADS = 256;
+
+template <int D> struct Tile {
+  static constexpr int ROWS = 8192 / D;    // keys (kv) or q rows (dq) a CTA
+  static constexpr int BS = 2048 / D;      // rows a ring stage
+  static constexpr int RG = ROWS / 16;     // groups of 16 keys or rows
+  static constexpr int NS = BS / 8;        // n-tiles of the scores
+  static constexpr int KF = 4;             // k-steps a fresh score sum takes
+};
+
+// shared memory: the stationary operands split ([ROWS, D] hi and lo
+// planes each), the streamed ones split (kv: Q and dO, each in the score
+// and the gradient layouts; dq: K in both, V in the score layout), 2
+// stages of their raw [BS, D] rows, and in kv 2 stages of [BS] lse and
+// delta and this tile's
+template <int D> constexpr size_t smem_kv() {
+  using T = Tile<D>;
+  return (size_t)(2 * 2 * T::ROWS * D + 4 * 2 * T::BS * D +
+                  2 * 2 * T::BS * D + 6 * T::BS) * sizeof(float);
+}
+template <int D> constexpr size_t smem_dq() {
+  using T = Tile<D>;
+  return (size_t)(2 * 2 * T::ROWS * D + 3 * 2 * T::BS * D +
+                  2 * 2 * T::BS * D) * sizeof(float);
+}
+
+// Split tiles: a hi plane followed by a lo plane of R x D floats, each in
+// one of three layouts chosen so that every fragment is one load a plane
+// straight into the registers mma.sync takes, and the 16 lanes of each
+// half-warp (8 of each quarter-warp for 16-byte loads) hit distinct banks.
+//  - score layout (B of S^T, dP^T, S, dP: row 8 n + g, dims 8 ks + t4
+//    and + 4): columns c and c + 4 side by side, one 8-byte load; groups
+//    of 8 columns XOR-swizzled by the row's low 2 bits;
+//  - gradient layout (B of dV, dK, dQ: rows 8 kk + 2 t4 and + 1, column
+//    8 n + g): rows 2 m and 2 m + 1 side by side, one 8-byte load;
+//    columns' bits 2 and 3 flipped by m % 4;
+//  - A layout (K, V in kv; Q, dO in dq: rows g and g + 8 of a 16-row
+//    block, dims t4 and t4 + 4): those four side by side, one 16-byte
+//    load; groups of 8 columns swapped in pairs for odd g.
+template <int D> __device__ __forceinline__ int at_s(int r, int c) {
+  return r * D + 8 * ((c >> 3) ^ (r & 3)) + 2 * (c & 3) + ((c >> 2) & 1);
+}
+template <int D> __device__ __forceinline__ int at_g(int r, int c) {
+  return (r >> 1) * 2 * D + 2 * (c ^ (((r >> 1) & 3) << 2)) + (r & 1);
+}
+template <int D> __device__ __forceinline__ int at_a(int r, int c) {
+  const int g = r & 7;
+  return (((r >> 4) * 8 + g) * (D / 8) + ((c >> 3) ^ (g & 1))) * 16 +
+         4 * (c & 3) + 2 * ((c >> 2) & 1) + ((r >> 3) & 1);
+}
+
+// four f32 values split into four hi (h) and four lo (l) TF32 values
+__device__ __forceinline__ void split4(const float4& x, float4& h,
+                                       float4& l) {
+  uint32_t hi, lo;
+  split_tf32(x.x, hi, lo);
+  h.x = __uint_as_float(hi), l.x = __uint_as_float(lo);
+  split_tf32(x.y, hi, lo);
+  h.y = __uint_as_float(hi), l.y = __uint_as_float(lo);
+  split_tf32(x.z, hi, lo);
+  h.z = __uint_as_float(hi), l.z = __uint_as_float(lo);
+  split_tf32(x.w, hi, lo);
+  h.w = __uint_as_float(hi), l.w = __uint_as_float(lo);
+}
+
+// Split a raw [R, D] tile in shared memory (rows D floats apart) into the
+// score layout (if s) and the gradient layout (if gl), half the CTA's
+// threads (i their index among them) sharing units of rows 2 m and
+// 2 m + 1 by 8 columns: two 16-byte loads a row, two 16-byte stores a
+// plane and layout row (or row pair).  The two tiles of a stage are split
+// at once, one by each half.
+template <int D, int R>
+__device__ __forceinline__ void split_tile(float* s, float* gl,
+                                           const float* src, int i) {
+  constexpr int CG = D / 8, PLANE = R * D;
+#pragma unroll
+  for (; i < R / 2 * CG; i += THREADS / 2) {
+    const int m = i / CG, c = 8 * (i % CG);
+    float4 h[2][2], l[2][2];  // [row 2 m + k][columns c + 4 j ..]
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        split4(*reinterpret_cast<const float4*>(src + (2 * m + k) * D + c +
+                                                4 * j),
+               h[k][j], l[k][j]);
+    if (s != nullptr) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        float4* d = reinterpret_cast<float4*>(s + at_s<D>(2 * m + k, c));
+        d[0] = make_float4(h[k][0].x, h[k][1].x, h[k][0].y, h[k][1].y);
+        d[1] = make_float4(h[k][0].z, h[k][1].z, h[k][0].w, h[k][1].w);
+        d = reinterpret_cast<float4*>(s + PLANE + at_s<D>(2 * m + k, c));
+        d[0] = make_float4(l[k][0].x, l[k][1].x, l[k][0].y, l[k][1].y);
+        d[1] = make_float4(l[k][0].z, l[k][1].z, l[k][0].w, l[k][1].w);
+      }
+    }
+    if (gl != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float4* d = reinterpret_cast<float4*>(gl + at_g<D>(2 * m, c + 4 * j));
+        d[0] = make_float4(h[0][j].x, h[1][j].x, h[0][j].y, h[1][j].y);
+        d[1] = make_float4(h[0][j].z, h[1][j].z, h[0][j].w, h[1][j].w);
+        d = reinterpret_cast<float4*>(gl + PLANE + at_g<D>(2 * m, c + 4 * j));
+        d[0] = make_float4(l[0][j].x, l[1][j].x, l[0][j].y, l[1][j].y);
+        d[1] = make_float4(l[0][j].z, l[1][j].z, l[0][j].w, l[1][j].w);
+      }
+    }
+  }
+}
+
+// Split rows [row0, row0 + R) of one head (D floats each) from device
+// memory into the A layout; rows at or past limit are zero.  A unit is
+// rows g and g + 8 of a 16-row block by 8 columns: four 16-byte loads,
+// four 16-byte stores a plane.
+template <int D, int R>
+__device__ __forceinline__ void split_rows_a(float* a, const float* src,
+                                             long long row_stride, int row0,
+                                             int limit, int tid) {
+  constexpr int CG = D / 8, PLANE = R * D;
+#pragma unroll 2
+  for (int i = tid; i < R / 2 * CG; i += THREADS) {
+    const int u = i / CG, c = 8 * (i % CG);
+    const int r = 16 * (u >> 3) + (u & 7);  // rows r and r + 8
+    float4 h[2][2], l[2][2];                // [row r + 8 k][columns c + 4 j ..]
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row0 + r + 8 * k < limit)
+          x = *reinterpret_cast<const float4*>(
+              src + (row0 + r + 8 * k) * row_stride + c + 4 * j);
+        split4(x, h[k][j], l[k][j]);
+      }
+    float4* d = reinterpret_cast<float4*>(a + at_a<D>(r, c));
+    d[0] = make_float4(h[0][0].x, h[1][0].x, h[0][1].x, h[1][1].x);
+    d[1] = make_float4(h[0][0].y, h[1][0].y, h[0][1].y, h[1][1].y);
+    d[2] = make_float4(h[0][0].z, h[1][0].z, h[0][1].z, h[1][1].z);
+    d[3] = make_float4(h[0][0].w, h[1][0].w, h[0][1].w, h[1][1].w);
+    d = reinterpret_cast<float4*>(a + PLANE + at_a<D>(r, c));
+    d[0] = make_float4(l[0][0].x, l[1][0].x, l[0][1].x, l[1][1].x);
+    d[1] = make_float4(l[0][0].y, l[1][0].y, l[0][1].y, l[1][1].y);
+    d[2] = make_float4(l[0][0].z, l[1][0].z, l[0][1].z, l[1][1].z);
+    d[3] = make_float4(l[0][0].w, l[1][0].w, l[0][1].w, l[1][1].w);
+  }
+}
+
+// Where a lane's fragments lie, as offsets into a plane that leave only
+// compile-time constants to add: the swizzles depend on g and t4 and on
+// the low bits of the k-step or n-tile, so each layout needs a few.
+template <int D> struct Lanes {
+  int s[4];  // score layout, row g, dims 2 t4 .. of k-step ks: s[ks % 4]
+  int a[2];  // A layout, the warp's 16-row block: a[ks % 2]
+  int gr[2]; // gradient layout, rows 2 t4, 2 t4 + 1, column c0 + 8 n + g:
+             // gr[n % 2]
+  __device__ __forceinline__ Lanes(int g, int t4, int r0, int c0) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) s[b] = at_s<D>(g, 8 * b + t4);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) a[b] = at_a<D>(r0 + g, 8 * b + t4);
+#pragma unroll
+    for (int b = 0; b < 2; ++b) gr[b] = at_g<D>(2 * t4, c0 + 8 * b + g);
+  }
+  // offset of the score layout's pair for n-tile n, k-step ks
+  __device__ __forceinline__ int score(int n, int ks) const {
+    return 8 * n * D + 32 * (ks >> 2) + s[ks & 3];
+  }
+  __device__ __forceinline__ int afrag(int ks) const {
+    return 32 * (ks >> 1) + a[ks & 1];
+  }
+  // offset of the gradient layout's pair for k-step kk, n-tile n
+  __device__ __forceinline__ int grad(int kk, int n) const {
+    return 8 * kk * D + 32 * (n >> 1) + gr[n & 1];
+  }
+};
+
+template <typename T> __device__ __forceinline__ const T& ld(const float* p) {
+  return *reinterpret_cast<const T*>(p);
+}
+
+// acc[n] += A X^T over k-steps ks0 .. ks0 + KF - 1 for N n-tiles: A's
+// split fragments from the A layout tile Ax, X in the score layout.  The
+// products go into fresh accumulators added with round-to-nearest: the
+// tensor core truncates each sum it forms, which against the running
+// scores of large logits would cost several times f32's rounding
+template <int D, int N, int KF, int PA, int PX>
+__device__ __forceinline__ void score_step(float (&acc)[N][4],
+                                           const float* Ax, const float* X,
+                                           const Lanes<D>& ln, int ks0) {
+  float c[N][4] = {};
+#pragma unroll
+  for (int ks = ks0; ks < ks0 + KF; ++ks) {
+    const uint4 ah = ld<uint4>(Ax + ln.afrag(ks));
+    const uint4 al = ld<uint4>(Ax + PA + ln.afrag(ks));
+    const uint32_t a_hi[4] = {ah.x, ah.y, ah.z, ah.w};
+    const uint32_t a_lo[4] = {al.x, al.y, al.z, al.w};
+    uint32_t b_hi[N][2], b_lo[N][2];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const uint2 h = ld<uint2>(X + ln.score(n, ks));
+      const uint2 l = ld<uint2>(X + PX + ln.score(n, ks));
+      b_hi[n][0] = h.x, b_hi[n][1] = h.y;
+      b_lo[n][0] = l.x, b_lo[n][1] = l.y;
+    }
+    mma_tf32x3_n<N>(c, a_hi, a_lo, b_hi, b_lo);
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += c[n][e];
+}
+
+// acc[n] += C X over the N k-steps of 8 rows of C (N C-fragments, p or
+// ds, split here into A-fragments: slot t4 of k-step n takes column 2 t4
+// of C-tile n, slot t4 + 4 column 2 t4 + 1, which is where the gradient
+// layout puts X's rows) for 8 n-tiles (64 columns), DG n-tiles at a time
+// in fresh accumulators folded into acc with round-to-nearest
+template <int D, int N, int DG, int PX>
+__device__ __forceinline__ void grad_product(float (&acc)[8][4],
+                                             const float (&cf)[N][4],
+                                             const float* X,
+                                             const Lanes<D>& ln) {
+  uint32_t a_hi[N][4], a_lo[N][4];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    split_tf32(cf[n][0], a_hi[n][0], a_lo[n][0]);  // row g, column 2 t4
+    split_tf32(cf[n][2], a_hi[n][1], a_lo[n][1]);  // row g + 8
+    split_tf32(cf[n][1], a_hi[n][2], a_lo[n][2]);  // row g, column 2 t4 + 1
+    split_tf32(cf[n][3], a_hi[n][3], a_lo[n][3]);  // row g + 8
+  }
+#pragma unroll
+  for (int d0 = 0; d0 < 8; d0 += DG) {
+    float c[DG][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < N; ++kk) {
+      uint32_t b_hi[DG][2], b_lo[DG][2];
+#pragma unroll
+      for (int j = 0; j < DG; ++j) {
+        const uint2 h = ld<uint2>(X + ln.grad(kk, d0 + j));
+        const uint2 l = ld<uint2>(X + PX + ln.grad(kk, d0 + j));
+        b_hi[j][0] = h.x, b_hi[j][1] = h.y;
+        b_lo[j][0] = l.x, b_lo[j][1] = l.y;
+      }
+      mma_tf32x3_n<DG>(c, a_hi[kk], a_lo[kk], b_hi, b_lo);
+    }
+#pragma unroll
+    for (int j = 0; j < DG; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d0 + j][e] += c[j][e];
+  }
+}
+
+// P = 2^((s scale - lse) log2 e) in place for the C-fragments of N
+// n-tiles; lse(n, e) and visible(n, e) give each element's lse and
+// whether its pair is seen (asked only where full is false); a masked p
+// is chosen 0 by a select, as exp2 of a key-less row's +inf must not be
+// kept
+template <int N, typename L, typename V>
+__device__ __forceinline__ void probabilities(float (&s)[N][4], float scale,
+                                             bool full, L lse, V visible) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = fast_exp2(fmaf(s[n][e], scale, -lse(n, e)) * LOG2E);
+      s[n][e] = full || visible(n, e) ? pe : 0.f;
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void bwd_kv(
+    unsigned char* smem_raw, const float* __restrict__ q,
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk,
+    float* __restrict__ dv, int H, int q_len, int kv_len, const Strides& st,
+    float scale, int causal) {
+  using T = Tile<D>;
+  constexpr int BKV = T::ROWS, BQ = T::BS, NQ = T::NS;
+  constexpr int PA = BKV * D, PX = BQ * D;  // plane sizes
+  float* Ka = reinterpret_cast<float*>(smem_raw);  // A layout [BKV, D]
+  float* Va = Ka + 2 * PA;
+  float* Qs = Va + 2 * PA;      // score layout [BQ, D]
+  float* Os = Qs + 2 * PX;
+  float* Qg = Os + 2 * PX;      // gradient layout [BQ, D]
+  float* Og = Qg + 2 * PX;
+  float* Qr = Og + 2 * PX;      // 2 stages of raw [BQ, D]
+  float* Or = Qr + 2 * PX;
+  float* Lr = Or + 2 * PX;      // 2 stages of [BQ] lse
+  float* Dr = Lr + 2 * BQ;      // 2 stages of [BQ] delta
+  float* Lx = Dr + 2 * BQ;      // this tile's [BQ] lse and delta
+  float* Dx = Lx + BQ;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  const int k0 = blockIdx.x * BKV;
+  const float* qp = q + b * st.qsb + h * st.qsh;
+  const float* op = dout + b * st.osb + h * st.osh;
+  const float* lp = lse + (long long)bh * q_len;
+  const float* dp = delta + (long long)bh * q_len;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+  const int wk = 16 * (warp % T::RG);      // the warp's first key in the tile
+  const int key0 = k0 + wk;
+  const int dc = 64 * (warp / T::RG);      // its first dK / dV column
+  const Lanes<D> ln(g, t4, wk, dc);
+
+  // causal: q tiles wholly above the diagonal see none of these keys
+  const int off = kv_len - q_len;
+  const int first = (causal && k0 - off > 0) ? (k0 - off) / BQ : 0;
+  const int nq = (q_len + BQ - 1) / BQ;
+
+  // q tile t into ring stage s: Q and dO rows, lse and delta (4-byte
+  // copies: a head's rows need not start 16-byte aligned); rows at or past
+  // q_len are zero-filled
+  auto load_q = [&](int t, int s) {
+    const int q0 = t * BQ;
+    load_tile_f32<D, BQ, D, THREADS>(Qr + s * PX, qp, st.qss, q0, q_len, tid);
+    load_tile_f32<D, BQ, D, THREADS>(Or + s * PX, op, st.oss, q0, q_len, tid);
+    for (int i = tid; i < 2 * BQ; i += THREADS) {
+      const int r = i % BQ;
+      const bool ok = q0 + r < q_len;
+      const float* src = i < BQ ? lp : dp;
+      cp_async4((i < BQ ? Lr : Dr) + s * BQ + r, ok ? src + q0 + r : src,
+                ok ? 4 : 0);
+    }
+  };
+
+  // the first q tile's copy in flight while K and V are split
+  if (first < nq) load_q(first, 0);
+  cp_async_commit();
+  split_rows_a<D, BKV>(Ka, k + b * st.ksb + h * st.ksh, st.kss, k0, kv_len,
+                       tid);
+  split_rows_a<D, BKV>(Va, v + b * st.vsb + h * st.vsh, st.vss, k0, kv_len,
+                       tid);
+
+  float adk[8][4] = {}, adv[8][4] = {};
+
+  for (int t = first; t < nq; ++t) {
+    const int q0 = t * BQ;
+    const int stage = (t - first) & 1;
+    if (t + 1 < nq) load_q(t + 1, stage ^ 1);  // in flight during this tile
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();     // ... for every thread; the last tile's readers
+                         // are done with the split tiles, Lx and Dx
+    if (tid < THREADS / 2)
+      split_tile<D, BQ>(Qs, Qg, Qr + stage * PX, tid);
+    else
+      split_tile<D, BQ>(Os, Og, Or + stage * PX, tid - THREADS / 2);
+    for (int i = tid; i < BQ; i += THREADS) {
+      Lx[i] = Lr[stage * BQ + i];
+      Dx[i] = Dr[stage * BQ + i];
+    }
+    __syncthreads();
+
+    // a warp whose keys all lie past this tile's last row's diagonal
+    // skips it
+    if (causal && key0 > q0 + BQ - 1 + off) continue;
+
+    // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns q rows;
+    // element e of n-tile n is key key0 + g + 8 (e / 2) and q row
+    // q0 + 8 n + 2 t4 + e % 2
+    float s[NQ][4] = {}, p[NQ][4] = {};
+#pragma unroll 2
+    for (int ks = 0; ks < D / 8; ks += T::KF) {
+      score_step<D, NQ, T::KF, PA, PX>(s, Ka, Qs, ln, ks);
+      score_step<D, NQ, T::KF, PA, PX>(p, Va, Os, ln, ks);
+    }
+    // P^T into s; fully visible: every row exists and the tile's smallest
+    // row sees the warp's largest key
+    const bool full = q0 + BQ <= q_len && key0 + 16 <= kv_len &&
+                      (!causal || key0 + 15 <= q0 + off);
+    probabilities<NQ>(
+        s, scale, full,
+        [&](int n, int e) { return Lx[8 * n + 2 * t4 + (e & 1)]; },
+        [&](int n, int e) {
+          const int row = q0 + 8 * n + 2 * t4 + (e & 1);
+          const int key = key0 + g + 8 * (e >> 1);
+          return row < q_len && key < kv_len && (!causal || key <= row + off);
+        });
+    // dS^T = P^T (dP^T - delta) scale into p; dV += P^T dO, dK += dS^T Q
+#pragma unroll
+    for (int n = 0; n < NQ; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = (s[n][e] * (p[n][e] - Dx[8 * n + 2 * t4 + (e & 1)])) * scale;
+    grad_product<D, NQ, 4, PX>(adv, s, Og, ln);
+    grad_product<D, NQ, 4, PX>(adk, p, Qg, ln);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + g + 8 * i;
+    if (key >= kv_len) continue;
+    const long long base = ((long long)bh * kv_len + key) * D + dc + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      *reinterpret_cast<float2*>(dk + base + 8 * n) =
+          make_float2(adk[n][2 * i], adk[n][2 * i + 1]);
+      *reinterpret_cast<float2*>(dv + base + 8 * n) =
+          make_float2(adv[n][2 * i], adv[n][2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void bwd_dq(
+    unsigned char* smem_raw, const float* __restrict__ q,
+    const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq, int H,
+    int q_len, int kv_len, const Strides& st, float scale, int causal) {
+  using T = Tile<D>;
+  constexpr int ROWS = T::ROWS, BK = T::BS, NS = T::NS;
+  constexpr int PA = ROWS * D, PX = BK * D;  // plane sizes
+  float* Qa = reinterpret_cast<float*>(smem_raw);  // A layout [ROWS, D]
+  float* Oa = Qa + 2 * PA;
+  float* Ks = Oa + 2 * PA;      // score layout [BK, D]
+  float* Vs = Ks + 2 * PX;
+  float* Kg = Vs + 2 * PX;      // gradient layout [BK, D]
+  float* Kr = Kg + 2 * PX;      // 2 stages of raw [BK, D]
+  float* Vr = Kr + 2 * PX;
+
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh - (bh / H) * H;
+  // causal: heaviest q tile first
+  const int qt = causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * ROWS;
+  const float* kp = k + b * st.ksb + h * st.ksh;
+  const float* vp = v + b * st.vsb + h * st.vsh;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;  // accumulator row / column pair
+  const int wq = 16 * (warp % T::RG);      // the warp's first row in the tile
+  const int wr = q0 + wq;
+  const int dc = 64 * (warp / T::RG);      // its first dQ column
+  const Lanes<D> ln(g, t4, wq, dc);
+
+  // causal: kv tiles wholly above the diagonal contribute nothing
+  const int off = kv_len - q_len;
+  int n_tiles = (kv_len + BK - 1) / BK;
+  if (causal) {
+    const int last_col = min(q0 + ROWS, q_len) - 1 + off;
+    n_tiles = min(n_tiles, last_col < 0 ? 0 : last_col / BK + 1);
+  }
+
+  auto load_kv = [&](int t, int s) {
+    load_tile_f32<D, BK, D, THREADS>(Kr + s * PX, kp, st.kss, t * BK, kv_len,
+                                     tid);
+    load_tile_f32<D, BK, D, THREADS>(Vr + s * PX, vp, st.vss, t * BK, kv_len,
+                                     tid);
+  };
+  // the first kv tile's copy in flight while Q and dO are split
+  if (n_tiles > 0) load_kv(0, 0);
+  cp_async_commit();
+  split_rows_a<D, ROWS>(Qa, q + b * st.qsb + h * st.qsh, st.qss, q0, q_len,
+                        tid);
+  split_rows_a<D, ROWS>(Oa, dout + b * st.osb + h * st.osh, st.oss, q0,
+                        q_len, tid);
+
+  // rows g and g + 8: lse (-inf for a row without keys, whose pairs are
+  // all masked) and delta; rows past q_len get 0
+  float ls[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr + g + 8 * i;
+    const bool ok = row < q_len;
+    ls[i] = ok ? lse[(long long)bh * q_len + row] : 0.f;
+    dl[i] = ok ? delta[(long long)bh * q_len + row] : 0.f;
+  }
+
+  float acc[8][4] = {};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * BK;
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) load_kv(t + 1, stage ^ 1);  // in flight meanwhile
+    cp_async_commit();
+    cp_async_wait<1>();  // tile t has landed
+    __syncthreads();     // ... for every thread; the last tile's readers
+                         // are done with the split tiles
+    if (tid < THREADS / 2)
+      split_tile<D, BK>(Ks, Kg, Kr + stage * PX, tid);
+    else
+      split_tile<D, BK>(Vs, nullptr, Vr + stage * PX, tid - THREADS / 2);
+    __syncthreads();
+
+    // a warp whose rows all lie before this tile's first key skips it
+    if (causal && k0 > wr + 15 + off) continue;
+
+    // S = Q K^T and dP = dO V^T; element e of n-tile n is row
+    // wr + g + 8 (e / 2) and key k0 + 8 n + 2 t4 + e % 2
+    float s[NS][4] = {}, p[NS][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < D / 8; ks += T::KF) {
+      score_step<D, NS, T::KF, PA, PX>(s, Qa, Ks, ln, ks);
+      score_step<D, NS, T::KF, PA, PX>(p, Oa, Vs, ln, ks);
+    }
+    // P into s; fully visible: every row exists and the warp's smallest
+    // row sees the tile's largest key
+    const bool full = k0 + BK <= kv_len && wr + 16 <= q_len &&
+                      (!causal || k0 + BK - 1 <= wr + off);
+    probabilities<NS>(
+        s, scale, full, [&](int, int e) { return ls[e >> 1]; },
+        [&](int n, int e) {
+          const int row = wr + g + 8 * (e >> 1);
+          const int col = k0 + 8 * n + 2 * t4 + (e & 1);
+          return row < q_len && col < kv_len && (!causal || col <= row + off);
+        });
+    // dS = P (dP - delta) scale into p; dQ += dS K
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[n][e] = (s[n][e] * (p[n][e] - dl[e >> 1])) * scale;
+    grad_product<D, NS, 8, PX>(acc, p, Kg, ln);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = wr + g + 8 * i;
+    if (row >= q_len) continue;
+    float* drow = dq + ((long long)bh * q_len + row) * D + dc + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      *reinterpret_cast<float2*>(drow + 8 * n) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+}
+
+}  // namespace tf32x3
+
 template <typename T> constexpr bool is_f32 = std::is_same<T, float>::value;
 
-// threads per CTA of flash_bwd_kv at head dim d: the bf16 route splits
-// the head dim of dK and dV over more warps at d >= 128 (one template
+// threads per CTA of flash_bwd_kv at head dim d: both routes split the
+// head dim of dK and dV over more warps at d >= 128 (one template
 // argument, so the __launch_bounds__ macro sees no comma)
 template <typename T> __host__ __device__ constexpr int kv_threads(int d) {
-  return is_f32<T> ? NT : 4 * 32 * tc::kv_dsplit(d);
+  return is_f32<T> ? tf32x3::THREADS : 4 * 32 * tc::kv_dsplit(d);
 }
 
 // q, do are [B, H, q_len, D] and k, v [B, H, kv_len, D], each with its own
@@ -893,39 +1214,38 @@ __global__ void __launch_bounds__(kv_threads<T>(D)) flash_bwd_kv_kernel(
     long long ksb, long long ksh, long long kss, long long vsb, long long vsh,
     long long vss, long long osb, long long osh, long long oss, float scale,
     int causal) {
-  if constexpr (is_f32<T>) {
-    scalar::bwd_kv<T, D>(q, k, v, dout, lse, delta, dk, dv, H, q_len, kv_len,
-                         qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,
-                         osh, oss, scale, causal);
-  } else {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const Strides st{qsb, qsh, qss, ksb, ksh, kss,
-                     vsb, vsh, vss, osb, osh, oss};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
+  if constexpr (is_f32<T>)
+    tf32x3::bwd_kv<D>(smem_raw, q, k, v, dout, lse, delta, dk, dv, H, q_len,
+                      kv_len, st, scale, causal);
+  else
     tc::bwd_kv<D>(smem_raw, q, k, v, dout, lse, delta, dk, dv, H, q_len,
                   kv_len, st, scale, causal);
-  }
+}
+
+// threads per CTA of flash_bwd_dq at head dim d
+template <typename T> __host__ __device__ constexpr int dq_threads(int d) {
+  return is_f32<T> ? tf32x3::THREADS : NT;
 }
 
 // Same layouts as flash_bwd_kv_kernel; dq is contiguous [B*H, q_len, D].
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(
+__global__ void __launch_bounds__(dq_threads<T>(D)) flash_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta, T* __restrict__ dq, int H, int q_len,
     int kv_len, long long qsb, long long qsh, long long qss, long long ksb,
     long long ksh, long long kss, long long vsb, long long vsh, long long vss,
     long long osb, long long osh, long long oss, float scale, int causal) {
-  if constexpr (is_f32<T>) {
-    scalar::bwd_dq<T, D>(q, k, v, dout, lse, delta, dq, H, q_len, kv_len,
-                         qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb,
-                         osh, oss, scale, causal);
-  } else {
-    extern __shared__ __align__(16) unsigned char smem_raw[];
-    const Strides st{qsb, qsh, qss, ksb, ksh, kss,
-                     vsb, vsh, vss, osb, osh, oss};
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
+  if constexpr (is_f32<T>)
+    tf32x3::bwd_dq<D>(smem_raw, q, k, v, dout, lse, delta, dq, H, q_len,
+                      kv_len, st, scale, causal);
+  else
     tc::bwd_dq<D>(smem_raw, q, k, v, dout, lse, delta, dq, H, q_len, kv_len,
                   st, scale, causal);
-  }
 }
 
 struct Args {
@@ -939,11 +1259,11 @@ struct Args {
 };
 
 template <typename T, int D> constexpr size_t smem_kv() {
-  return is_f32<T> ? scalar::smem_kv<D>() : tc::smem_kv<D>();
+  return is_f32<T> ? tf32x3::smem_kv<D>() : tc::smem_kv<D>();
 }
 
 template <typename T, int D> constexpr size_t smem_dq() {
-  return is_f32<T> ? scalar::smem_dq<D>() : tc::smem_dq<D>();
+  return is_f32<T> ? tf32x3::smem_dq<D>() : tc::smem_dq<D>();
 }
 
 template <typename T, int D>
@@ -954,7 +1274,7 @@ int launch_kv(const Args& a, void* dk, void* dv) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long* st = a.st;
-  const int rows = is_f32<T> ? scalar::Shape<D>::R : tc::KvTile<D>::BKV;
+  const int rows = is_f32<T> ? tf32x3::Tile<D>::ROWS : tc::KvTile<D>::BKV;
   dim3 grid((a.kv_len + rows - 1) / rows, a.B * a.H);
   kern<<<grid, kv_threads<T>(D), smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
@@ -972,9 +1292,9 @@ int launch_dq(const Args& a, void* dq) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const long long* st = a.st;
-  const int rows = is_f32<T> ? scalar::Shape<D>::R : tc::DqTile<D>::ROWS;
+  const int rows = is_f32<T> ? tf32x3::Tile<D>::ROWS : tc::DqTile<D>::ROWS;
   dim3 grid((a.q_len + rows - 1) / rows, a.B * a.H);
-  kern<<<grid, NT, smem, a.stream>>>(
+  kern<<<grid, dq_threads<T>(D), smem, a.stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (const T*)a.dout, a.lse,
       a.delta, (T*)dq, a.H, a.q_len, a.kv_len, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], a.scale,
@@ -1013,10 +1333,11 @@ template <typename T> int smem_d(int kernel, int d) {
 
 }  // namespace
 
-// dtype: 0 = float32 (scalar route), 1 = bfloat16 (tensor cores; q, k, v,
-// do 16-byte aligned with strides in multiples of 8 elements).  strides:
-// 12 element strides (batch, head, row) of q, then k, v and do.  Returns
-// 0, a cudaError_t code, or -1 for an unsupported dtype / head dim.
+// dtype: 0 = float32, 1 = bfloat16, both on tensor cores; q, k, v and do
+// 16-byte aligned with strides in multiples of 16 bytes (4 f32 or 8 bf16
+// elements).  strides: 12 element strides (batch, head, row) of q, then
+// k, v and do.  Returns 0, a cudaError_t code, or -1 for an unsupported
+// dtype / head dim.
 extern "C" int flash_bwd_kv(int dtype, int d, const void* q, const void* k,
                             const void* v, const void* dout,
                             const float* lse, const float* delta, void* dk,

@@ -15,11 +15,10 @@ the Pallas ``_fwd_kernel``) and the backward launches
 ``csrc/flash_bwd.cu``: ``flash_bwd_kv`` (of ``_bwd_kv_kernel``) then
 ``flash_bwd_dq`` (of ``_bwd_dq_kernel``), after ``delta = rowsum(do * o)``
 as a torch reduction, which the JAX package also computes outside its
-kernels.  Each kernel runs bf16 on the tensor cores.  The forward runs
-f32 on them too, each operand split into two TF32 values and each
-product taken as three TF32 products, which keeps f32's accuracy by
-design (so no TF32 switch of torch's is read); the backward kernels run
-f32 on scalar kernels.  On CPU tensors the ops run the
+kernels.  Each kernel runs bf16 on the tensor cores, and f32 on them
+too, each operand split into two TF32 values and each product taken as
+three TF32 products, which keeps f32's accuracy by design (so no TF32
+switch of torch's is read).  On CPU tensors the ops run the
 plain versions, ``flash_attention_reference`` and
 ``flash_attention_backward_reference``: the same blocked recompute
 written in torch.  There is no route from one to the other: a CUDA
@@ -287,13 +286,6 @@ def _check_grad_inputs(q, do, lse, delta):
                              f"{t.dtype}")
 
 
-def _row_major(*ts):
-    """The kernels index rows by (batch, head, row) strides and need only
-    the head dim contiguous: q/k/v split out of one qkv projection, and
-    the cotangent autograd hands over, go in without a copy."""
-    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
-
-
 def _cp_async_aligned(t) -> bool:
     """Whether the tensor-core kernels' 16-byte ``cp.async`` copies can
     read ``t`` in place: a 16-byte-aligned base, a contiguous head dim and
@@ -365,13 +357,11 @@ def _bwd_lib():
 
 
 def _bwd_inputs(q, k, v, do):
-    """q, k, v and do as the backward kernels read them: bf16 runs the
-    tensor-core kernels and their 16-byte copies (``_aligned``), f32 the
-    scalar kernels, which need only a contiguous head dim (``_row_major``).
-    The model's qkv views and the cotangent autograd hands over (a
-    transposed view of ``[b, s, h, d]``) pass uncopied either way."""
-    return (_aligned if q.dtype == torch.bfloat16 else _row_major)(
-        q, k, v, do)
+    """q, k, v and do as the backward kernels read them: both dtypes run
+    on the tensor cores, fed by 16-byte copies (``_aligned``).  The
+    model's qkv views and the cotangent autograd hands over (a transposed
+    view of ``[b, s, h, d]``) pass uncopied."""
+    return _aligned(q, k, v, do)
 
 
 def _launch_bwd_kv(q, k, v, do, lse, delta, scale: float, causal: bool):

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_tf32 import rna_tf32, split, split_attention
+
 jax_flash = importlib.import_module("ray_tpu.ops.flash_attention")
 jax_attention = importlib.import_module("ray_tpu.ops.attention")
 
@@ -27,7 +29,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 ATOL = 1e-4
-LOG2E = 1.4426950408889634
 SERVING = (1, 12, 1024, 1024, 64)   # b, h, q_len, kv_len, d: the f32 prefill
 
 # (b, h, q_len, kv_len, d, block_q, block_k): tests/test_torch_port_ops.py's
@@ -41,68 +42,6 @@ PALLAS_CASES = [
     (1, 2, 128, 192, 128, 64, 64),
     (1, 1, 64, 100, 256, 32, 32),
 ]
-
-
-def rna_tf32(x: torch.Tensor) -> torch.Tensor:
-    """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
-    zero, as ``cvt.rna.tf32.f32`` rounds: on the int32 view, add half of
-    the dropped 13 bits' range to the magnitude and clear them."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def split(x: torch.Tensor):
-    """x = hi + lo + e: hi = rna(x), lo = rna(x - hi); x - hi is exact."""
-    hi = rna_tf32(x)
-    return hi, rna_tf32(x - hi)
-
-
-def tf32_matmul(a, b, products: int = 3):
-    """a @ b from TF32 operands with f32 accumulation: the split's three
-    products, small terms first, or one product of the rounded operands."""
-    a_hi, a_lo = split(a)
-    b_hi, b_lo = split(b)
-    if products == 1:
-        return a_hi @ b_hi
-    return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
-
-
-def split_attention(q, k, v, causal: bool, products: int = 3):
-    """The f32 route's forward on [b, h, s, d] f32 tensors: key tiles of
-    64 (d 64) or 32 (d 128, 256), an online softmax in base 2 on the raw
-    scores, weights 2^((s - m) scale log2 e), each tile's P V folded into
-    O as alpha O + P V, the probabilities split before P V and summed
-    unsplit into l.  Returns (out, lse); a row that sees no key gets out 0
-    and lse -inf.  torch's f32 matmuls round their sums to nearest; the
-    kernel's tensor core truncates them, which its fresh accumulators (one
-    per k-step of S, one per tile of P V) keep to a few f32 roundings."""
-    b, h, sq, d = q.shape
-    kv_len = k.shape[2]
-    scale = d ** -0.5
-    sl2 = scale * LOG2E
-    bk = 64 if d == 64 else 32
-    rows = torch.arange(sq)[:, None] + (kv_len - sq)
-    m = torch.full((b, h, sq), float("-inf"))
-    l = torch.zeros((b, h, sq))
-    acc = torch.zeros((b, h, sq, d))
-    for k0 in range(0, kv_len, bk):
-        kb, vb = k[:, :, k0:k0 + bk], v[:, :, k0:k0 + bk]
-        s = tf32_matmul(q, kb.transpose(-1, -2), products)
-        if causal:
-            cols = torch.arange(k0, k0 + kb.shape[2])[None, :]
-            s = s.masked_fill(cols > rows, float("-inf"))
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        m_safe = torch.where(m_new == float("-inf"), 0.0, m_new)
-        alpha = torch.exp2((m - m_safe) * sl2)
-        p = torch.exp2((s - m_safe[..., None]) * sl2)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + tf32_matmul(p, vb, products)
-        m = m_new
-    live = l > 0
-    safe = torch.where(live, l, 1.0)
-    out = torch.where(live[..., None], acc / safe[..., None], 0.0)
-    lse = torch.where(live, m * scale + torch.log(safe), float("-inf"))
-    return out, lse
 
 
 def _inputs(seed, b, h, sq, skv, d, qk_scale=1.0):

@@ -158,8 +158,8 @@ def test_backward_kernel_wrappers_refuse_cpu_tensors():
 
 
 def test_backward_kernel_inputs_copy_only_what_the_kernels_cannot_read():
-    """bf16 goes to the tensor-core kernels' 16-byte copies
-    (``_aligned``), f32 to the scalar kernels (``_row_major``)."""
+    """Both dtypes go to the tensor-core kernels' 16-byte copies
+    (``_aligned``)."""
     b, s, h, hd = 2, 16, 2, 64
     for dtype in (torch.bfloat16, torch.float32):
         # the model's q, k, v views of one qkv projection and the
@@ -181,12 +181,8 @@ def test_backward_kernel_inputs_copy_only_what_the_kernels_cannot_read():
             assert all(g is t for g, t in zip(got[:3], (q, k, v)))
             assert torch.equal(got[3], bad)
             assert got[3].stride(-1) == 1
-            if dtype == torch.bfloat16:
-                assert got[3] is not bad
-                assert port_flash._cp_async_aligned(got[3])
-            else:
-                # the scalar kernels read any row-major layout in place
-                assert (got[3] is bad) == (bad.stride(-1) == 1)
+            assert got[3] is not bad
+            assert port_flash._cp_async_aligned(got[3])
 
 
 # ------------------------------------------------------------- the model
