@@ -305,7 +305,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    host batches equal on the card and the CPU within 1e-4 (1 + scale),
    the card's ranks bit-equal; then the JAX test's learning run (best
    mean return above 90 within 25 iterations), both ranks bit-equal
-   after it, env steps/s printed, 0 / 0 / 0 flash launches.
+   after it, env steps/s printed, 0 / 0 / 0 flash launches, summed
+   over this process and every member process.  DD-PPO's workers are
+   member processes (``ProcessHost``) sharing the card over gloo,
+   reached through ``DDPPO.on_workers``.
 
 23. RLlib's actor arms (``phase_rllib_actors``), f32 with TF32 off, on the
    in-process stand-in ``core.actors``, its actors' and tasks' threads
@@ -344,8 +347,29 @@ Phases, each of which fails the run (non-zero exit, no result line):
    readmit, and each world's all-reduce time and bus rate.  0 / 0 / 0
    flash launches, summed over this process and every member process.
 
+25. the trainer on member processes (``phase_process_trainer``): 22a's
+   run (GPT-2 124M at full width and depth, b16 s1024 bf16 "dots", 18a's
+   six batches, a checkpoint every 3 steps) through
+   ``Trainer(num_hosts=4, mesh={"dp": -1})`` whose callables, data and
+   class are module-level here, so the trainer chooses ``ProcessHost``:
+   four member processes sharing the card on a gloo world over CUDA
+   tensors.  Ranks 1 and 3 SIGKILL their own processes at step 4 (a
+   marker file under the run directory makes each death happen once),
+   the gang shrinks to 2 and resumes at step 3; a data failure at step
+   5 re-admits two fresh processes, back to 4, which resume at step 3
+   and finish.  Gates: every attempt on "process", worlds [4, 2, 4] from
+   steps [0, 3, 3], recoveries shrink / readmit; the survivors' pids
+   kept, the two readmitted pids never seen before, the owner's pid
+   none of them; every member process counts its own launches, 24 / 12
+   / 12 every member-step at [4, 12, 1024, 64] (world 4) and [8, 12,
+   1024, 64] (world 2), 26 member-steps; losses and grad_norm at steps
+   2, 4 and 6 within rel 5e-3 and 5e-2 of phase 13's one-device fit; no
+   child process left after ``shutdown``.  Prints the fit's wall time,
+   the seconds spent spawning, how long until each death was named and
+   each member's peak device memory.
+
 ``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 23, 24, 17 and 19 before phase 7,
-and 15, 16, 18 and 22 after 9: no serving phase runs after the profiler.  The line
+and 15, 16, 18, 22 and 25 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
 """
@@ -371,6 +395,9 @@ import warnings
 
 import numpy as np
 import torch
+
+from ray_tpu_torch.parallel.gang import GangMemberDied, ProcessHost
+from ray_tpu_torch.train import Trainer
 
 # (substring of the card's name, memory bytes/s, dense bf16 FLOP/s), from
 # NVIDIA's data sheets; the first match wins
@@ -5923,62 +5950,49 @@ def elastic_trainer(name: str, card: str, one_device: list,
     return {"trainer_elastic_gang": total}
 
 
-def ddppo_parity(card: str) -> None:
+def ddppo_flash(worker, rank: int) -> tuple:
+    """A DD-PPO member process's flash launches (``DDPPO.on_workers``)."""
+    return flash_launches()
+
+
+def ddppo_parity(cpu, gpu) -> list:
     """22b's parity: DD-PPO at the lockstep test's settings on the card
-    and on the CPU, the card's restored from the CPU's initial params;
-    two updates on the same host batches (the CPU workers' rollouts)
-    equal within 1e-4 (1 + scale), the card's two ranks bit-equal after
-    each."""
-    from ray_tpu_torch.rllib import DDPPOConfig
-    from ray_tpu_torch.rllib.ddppo import _worker
+    (``gpu``) and on the CPU (``cpu``), the card's restored from the
+    CPU's initial params; two updates on the same host batches (the CPU
+    workers' rollouts) equal within 1e-4 (1 + scale), the card's two
+    ranks bit-equal after each.  Returns the card's member processes'
+    flash launches."""
+    from ray_tpu_torch.rllib.ddppo import (worker_learn, worker_sample,
+                                           worker_weights)
     from ray_tpu_torch.rllib.optim import tree_leaves
 
-    small = dict(env="CartPole-v1", num_rollout_workers=2,
-                 num_envs_per_worker=2, rollout_length=32,
-                 train_batch_size=128, minibatch_size=64, num_epochs=1,
-                 seed=3)
-    cpu = DDPPOConfig(**small, device="cpu").build()
-    gpu = DDPPOConfig(**small, device="cuda").build()
-    try:
-        gpu.load_checkpoint(cpu.save_checkpoint())
-        for k in range(2):
-            batches = [w.sample() for w in cpu.workers]
-
-            def learn(rank, batches):
-                return _worker().learn(batches[rank])
-
-            got, ref = gpu.gang.run(learn, batches), cpu.gang.run(
-                learn, batches)
-            pairs = [(torch.tensor([g[m] for m in sorted(g)]),
-                      torch.tensor([r[m] for m in sorted(r)]))
-                     for g, r in zip(got, ref)]
-            w_gpu = [w.get_weights() for w in gpu.workers]
-            w_cpu = [w.get_weights() for w in cpu.workers]
-            pairs += [(torch.from_numpy(a), torch.from_numpy(b))
-                      for r in (0, 1) for a, b in zip(
-                          tree_leaves(w_gpu[r]), tree_leaves(w_cpu[r]))]
-            check(len(pairs) == 2 + 2 * 8, f"22b: {len(pairs)} pairs")
-            held_f32(f"DD-PPO update {k + 1} (both ranks' params and "
-                     f"metrics)", pairs)
-            for a, b in zip(tree_leaves(w_gpu[0]), tree_leaves(w_gpu[1])):
-                check(np.array_equal(a, b),
-                      "22b: the card's ranks' params differ")
-    finally:
-        cpu.cleanup()
-        gpu.cleanup()
+    gpu.load_checkpoint(cpu.save_checkpoint())
+    for k in range(2):
+        batches = cpu.on_workers(worker_sample)
+        got = gpu.on_workers(worker_learn, batches)
+        ref = cpu.on_workers(worker_learn, batches)
+        pairs = [(torch.tensor([g[m] for m in sorted(g)]),
+                  torch.tensor([r[m] for m in sorted(r)]))
+                 for g, r in zip(got, ref)]
+        w_gpu = gpu.on_workers(worker_weights)
+        w_cpu = cpu.on_workers(worker_weights)
+        pairs += [(torch.from_numpy(a), torch.from_numpy(b))
+                  for r in (0, 1) for a, b in zip(
+                      tree_leaves(w_gpu[r]), tree_leaves(w_cpu[r]))]
+        check(len(pairs) == 2 + 2 * 8, f"22b: {len(pairs)} pairs")
+        held_f32(f"DD-PPO update {k + 1} (both ranks' params and "
+                 f"metrics)", pairs)
+        for a, b in zip(tree_leaves(w_gpu[0]), tree_leaves(w_gpu[1])):
+            check(np.array_equal(a, b),
+                  "22b: the card's ranks' params differ")
+    return gpu.on_workers(ddppo_flash)
 
 
 def phase_elastic(name: str, card: str, one_device: list,
                   one_grad_norm: dict) -> tuple:
-    """22a (``elastic_trainer``) and 22b, DD-PPO on two members sharing
-    the card: the parity of ``ddppo_parity``, then the learning run at
-    the JAX test's settings (best mean return above 90 within 25
-    iterations), both ranks bit-equal after it, no flash launch.  Also
-    the three kernels at ``ELASTIC_SHAPE`` bf16 causal.  Returns
-    (launches by path, the kernels' records at that shape)."""
-    from ray_tpu_torch.rllib import DDPPOConfig
-    from ray_tpu_torch.rllib.optim import tree_leaves
-
+    """22a (``elastic_trainer``), the three kernels at ``ELASTIC_SHAPE``
+    bf16 causal, and 22b (``ddppo_runs``).  Returns (launches by path,
+    the kernels' records at that shape)."""
     root = tempfile.mkdtemp(prefix="_chip_smoke_ckpt_",
                             dir=os.path.dirname(os.path.abspath(__file__)))
     try:
@@ -5992,21 +6006,54 @@ def phase_elastic(name: str, card: str, one_device: list,
                                "a world-2 member's rows", "elastic",
                                SEED + 22)
 
+    ddppo_runs(card)
+    return launches, records
+
+
+def ddppo_runs(card: str) -> None:
+    """22b: three DD-PPOs built together (their member processes spawn
+    at once): ``ddppo_parity`` on two of them, then DD-PPO's learning run
+    at the JAX test's settings on two member processes sharing the card:
+    best mean return above 90 within 25 iterations, both ranks bit-equal
+    after it, no flash launch in this process or in any member process;
+    prints the part's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ray_tpu_torch.rllib import DDPPOConfig
+    from ray_tpu_torch.rllib.ddppo import worker_weights
+    from ray_tpu_torch.rllib.optim import tree_leaves
+
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
     fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
-    ddppo_parity(card)
-    algo = DDPPOConfig(env="CartPole-v1", num_rollout_workers=2,
-                       num_envs_per_worker=4, rollout_length=64,
-                       train_batch_size=512, minibatch_size=128,
-                       num_epochs=2, lr=5e-3, seed=0).build()
+    small = dict(env="CartPole-v1", num_rollout_workers=2,
+                 num_envs_per_worker=2, rollout_length=32,
+                 train_batch_size=128, minibatch_size=64, num_epochs=1,
+                 seed=3)
+    configs = [DDPPOConfig(**small, device="cpu"),
+               DDPPOConfig(**small, device="cuda"),
+               DDPPOConfig(env="CartPole-v1", num_rollout_workers=2,
+                           num_envs_per_worker=4, rollout_length=64,
+                           train_batch_size=512, minibatch_size=128,
+                           num_epochs=2, lr=5e-3, seed=0)]
+    # the three algorithms' member processes spawn together
+    with ThreadPoolExecutor(len(configs)) as ex:
+        builds = [ex.submit(c.build) for c in configs]
+    built = [b.result() for b in builds if b.exception() is None]
     try:
-        results = rl_learn("DD-PPO, 2 members sharing the card", algo, 25,
-                           card, learner="", stop=best_above(90))
+        check(len(built) == 3, f"22b: DD-PPO builds failed: "
+              f"{[b.exception() for b in builds]}")
+        cpu, gpu, algo = built
+        print(f"[elastic 22b] three DD-PPOs of 2 member processes each "
+              f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+        members = ddppo_parity(cpu, gpu)
+        results = rl_learn("DD-PPO, 2 member processes sharing the card",
+                           algo, 25, card, learner="", stop=best_above(90))
         best = max(r.get("episode_reward_mean", 0.0) for r in results)
         bar_check("DD-PPO", best > 90, f"best mean return {best:.2f} above "
                   f"90 within 25 iterations")
-        w0, w1 = (tree_leaves(w.get_weights()) for w in algo.workers)
+        w0, w1 = (tree_leaves(w) for w in algo.on_workers(worker_weights))
         check(len(w0) == 8, f"22b: {len(w0)} params leaves")
         for a, b in zip(w0, w1):
             check(np.array_equal(a, b), "22b: the ranks' params differ "
@@ -6014,12 +6061,354 @@ def phase_elastic(name: str, card: str, one_device: list,
         print(f"[elastic 22b] DD-PPO: the two ranks' params bit-equal after "
               f"{len(results)} iterations; env steps/s "
               f"{[round(r['env_steps_per_sec'], 1) for r in results]}")
+        members += algo.on_workers(ddppo_flash)
     finally:
-        algo.cleanup()
-    seen = flash_launches()
-    print(f"[elastic 22b] flash launches {seen[0]} / {seen[1]} / {seen[2]}")
+        for a in built:
+            a.cleanup()
+    own = flash_launches()
+    seen = tuple(own[k] + sum(m[k] for m in members) for k in range(3))
+    print(f"[elastic 22b] flash launches {seen[0]} / {seen[1]} / {seen[2]} "
+          f"(this process and the {len(members)} card member processes)")
+    check(len(members) == 4, f"22b: flash counts from {len(members)} "
+          f"member processes")
     check(seen == (0, 0, 0), f"22b: DD-PPO launched {seen}")
-    return launches, records
+    print(f"[elastic 22b] {time.perf_counter() - t0:.1f} s on {card}")
+
+
+# ------------------------------------------------ the trainer on processes
+
+# phase 25's run, by what it exercises: deaths at (world, step) by rank,
+# data failures at (world, step)
+PROC_DEATHS = {(4, 4): {1, 3}}
+PROC_FAILURES = {(2, 5): 1}
+
+
+def claim_once(path: str) -> bool:
+    """True for the first caller, across processes, to create ``path``."""
+    try:
+        os.close(os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        return True
+    except FileExistsError:
+        return False
+
+
+class ProcBatches:
+    """Phase 25's data: ``batches`` on every pass, scripted by the member
+    process reading them.  ``deaths[(world, step)]`` names the ranks of a
+    world of that size that die instead of giving that step's batch
+    (``MemberKilled``, which the feed defers to the step it was read for
+    and a member process answers by SIGKILLing itself);
+    ``failures[(world, step)]`` counts host-data failures there.  The
+    object is pickled afresh for every attempt, so each event happens
+    once by a marker file under ``root``."""
+
+    def __init__(self, batches, root: str, deaths: dict, failures: dict):
+        self.batches, self.root = batches, root
+        self.deaths = {k: set(v) for k, v in deaths.items()}
+        self.failures = dict(failures)
+
+    def __iter__(self):
+        from ray_tpu_torch.parallel.gang import MemberKilled, current_member
+
+        me = current_member()
+        for i, b in enumerate(self.batches):
+            w, step = me.world, i + 1
+            if me.rank in self.deaths.get((w, step), ()) and claim_once(
+                    os.path.join(self.root, f"death_w{w}_s{step}_r{me.rank}")):
+                raise MemberKilled(f"rank {me.rank} of {w} dies at step "
+                                   f"{step}")
+            if any(claim_once(os.path.join(self.root,
+                                           f"failure_w{w}_s{step}_{n}"))
+                   for n in range(self.failures.get((w, step), 0))):
+                raise RuntimeError(f"injected data failure at step {step}")
+            yield b
+
+
+def proc_loss(p, batch, mesh=None, rules=None, *, cfg):
+    from ray_tpu_torch.models import gpt
+
+    return gpt.loss_fn(p, batch, cfg, mesh=mesh,
+                       **({} if rules is None else {"rules": rules}))
+
+
+def proc_init(seed: int, *, cfg):
+    from ray_tpu_torch.models import gpt
+
+    return gpt.init_params(cfg, seed)
+
+
+class CountingTrainer(Trainer):
+    """Phase 25's trainer (module-level, so that a member process builds
+    it by reference): after each report a member appends to
+    ``<storage_path>/launches/member_<id>`` (world, step, its thread's
+    flash launches by kernel and shape since the last report, its
+    process's launches of each kernel since then, its pid, its peak
+    device memory, the time).  The member process is the member's own,
+    so its counters are the member's (the backward kernels launch on
+    autograd's device thread, not on the member's)."""
+
+    def train_loop(self, report, get_checkpoint):
+        import pickle
+
+        from ray_tpu_torch.parallel.gang import current_member
+
+        fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+        me = current_member()
+        path = os.path.join(self.storage_path, "launches",
+                            f"member_{me.member_id}")
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        fa.reset_thread_launches()
+        last = [flash_launches()]
+        with open(path, "ab") as log:
+            def counted(metrics, *, checkpoint=None):
+                report(metrics, checkpoint=checkpoint)
+                now = flash_launches()
+                pickle.dump((me.world, metrics["step"],
+                             dict(fa.thread_launches()),
+                             tuple(a - b for a, b in zip(now, last[0])),
+                             os.getpid(), torch.cuda.max_memory_allocated(),
+                             time.monotonic()), log)
+                log.flush()
+                fa.reset_thread_launches()
+                last[0] = now
+
+            super().train_loop(counted, get_checkpoint)
+
+
+def read_launch_logs(root: str) -> dict:
+    """member id -> [(world, step, thread launches, process launches,
+    pid, peak bytes, time)] from ``CountingTrainer``'s logs (a record cut
+    short by a death ends one)."""
+    import pickle
+
+    out = {}
+    for name in sorted(os.listdir(root)):
+        recs = out.setdefault(int(name.split("_")[1]), [])
+        with open(os.path.join(root, name), "rb") as f:
+            while True:
+                try:
+                    recs.append(pickle.load(f))
+                except Exception:
+                    break
+    return out
+
+
+class TimedProcessHost(ProcessHost):
+    """Phase 25's ``ProcessHost``: also keeps, for each spawned member,
+    the seconds until it answered a ping (its process started, imported
+    torch, this script and the port), and for each member that died, the
+    seconds from its process's end (its pipe closing) until the gang
+    named it (the failed call that raised, or a probe that found it
+    gone)."""
+
+    spawned: dict = {}      # member id -> seconds until it answered
+    named: dict = {}        # member id -> seconds from its end to naming
+    _started: dict = {}     # member id -> when its spawn began
+
+    def spawn(self, member_cls, rank, world, **kw):
+        t = time.perf_counter()
+        m = super().spawn(member_cls, rank, world, **kw)
+        self._started[m.member_id] = t
+        return m
+
+    def _wait_up(self, members) -> None:
+        """Every member spawned and not yet timed answers a ping (the
+        spawns run together; this waits on each in turn)."""
+        for m in members:
+            t = self._started.pop(m.member_id, None)
+            if t is None:
+                continue
+            while not super().probe(m, 5.0):
+                check(m.alive and time.perf_counter() < t + 120,
+                      f"25: member {m.member_id} did not come up")
+            self.spawned[m.member_id] = time.perf_counter() - t
+
+    def _name(self, members) -> None:
+        now = time.monotonic()
+        for m in members:
+            if m.gone_at is not None and m.member_id not in self.named:
+                self.named[m.member_id] = now - m.gone_at
+
+    def call(self, members, coordinator, method, args, what, timeout):
+        self._wait_up(members)
+        try:
+            return super().call(members, coordinator, method, args, what,
+                                timeout)
+        except GangMemberDied:
+            self._name(members)
+            raise
+
+    def probe(self, member, timeout):
+        alive = super().probe(member, timeout)
+        if not alive:
+            self._name([member])
+        return alive
+
+
+def phase_process_trainer(name: str, card: str, one_device: list,
+                          one_grad_norm: dict) -> dict:
+    """Phase 25 (module note): 22a's run on four member processes that
+    ``Trainer(num_hosts=4)`` chose itself, two of them SIGKILLed by their
+    own code at step 4 and two fresh ones re-admitted at step 5.  The
+    trainer's ``ProcessHost`` is ``TimedProcessHost`` for the phase (the
+    same host, timed).  Returns the run's launches."""
+    import logging
+    import multiprocessing
+
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.train import adamw
+    from ray_tpu_torch.train import trainer as trainer_mod
+
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    logging.getLogger("ray_tpu_torch.train").setLevel(logging.ERROR)
+    cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L = cfg.n_layers
+    root = tempfile.mkdtemp(prefix="_chip_smoke_ckpt_",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    batches = HostBatches(6, 16, 1024, 4096, SEED + 20).batches
+    TimedProcessHost.spawned, TimedProcessHost.named = {}, {}
+    TimedProcessHost._started = {}
+    trainer_mod.ProcessHost = TimedProcessHost
+    tr = None
+    try:
+        tr = CountingTrainer(
+            loss_fn=functools.partial(proc_loss, cfg=cfg),
+            init_params=functools.partial(proc_init, cfg=cfg),
+            optimizer=adamw(3e-4, weight_decay=0.1),
+            train_data=ProcBatches(batches, root, PROC_DEATHS,
+                                   PROC_FAILURES),
+            num_steps=6, report_every=1, checkpoint_every=3, seed=SEED,
+            storage_path=root, max_failures=2, num_hosts=4,
+            mesh={"dp": -1}, params_logical=gpt.param_logical_axes(cfg))
+        t0 = time.perf_counter()
+        pids = tr.gang.member_pids()
+        form_s = time.perf_counter() - t0
+        check(isinstance(tr.gang.host, ProcessHost) and len(set(pids)) == 4
+              and os.getpid() not in pids,
+              f"25: the trainer's gang {type(tr.gang.host).__name__}, "
+              f"member pids {pids}")
+        t0, m0 = time.perf_counter(), time.monotonic()
+        res = tr.fit()
+        wall = time.perf_counter() - t0
+        final = tr.gang.member_pids()
+        logs = read_launch_logs(os.path.join(root, "launches"))
+        r0 = logs.get(tr.attempts[0]["member_ids"][0], [])
+        print(f"[proc trainer 25] fit {wall:.1f} s wall on {card}; rank "
+              f"0's reports, (seconds after fit() began, world, step): "
+              f"{[(round(r[6] - m0, 2), r[0], r[1]) for r in r0]}",
+              flush=True)
+        ckpts = sorted(os.listdir(os.path.join(root, "checkpoints")))
+        last_step = res.checkpoint.to_dict()["step"]
+    finally:
+        trainer_mod.ProcessHost = ProcessHost
+        if tr is not None and tr._gang is not None:
+            tr._gang.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    left = multiprocessing.active_children()
+    check(left == [], f"25: child processes left after shutdown: {left}")
+
+    hosts = [a["host"] for a in tr.attempts]
+    worlds = [a["world"] for a in tr.attempts]
+    starts = [a["start_step"] for a in tr.attempts]
+    recov = [a.get("recovery") for a in tr.attempts]
+    check(hosts == ["process"] * 3 and worlds == [4, 2, 4]
+          and starts == [0, 3, 3] and recov == ["shrink", "readmit", None],
+          f"25: attempts on {hosts} at worlds {worlds} from steps {starts}, "
+          f"recoveries {recov}")
+    check(tr.attempts[0]["error"].rank in (1, 3)
+          and "exit code -9" in str(tr.attempts[0]["error"]),
+          f"25: the first attempt failed with {tr.attempts[0]['error']}")
+    check(final[:2] == [pids[0], pids[2]] and not set(final[2:]) & set(pids)
+          and len(set(final)) == 4 and os.getpid() not in final,
+          f"25: pids {pids} -> {final}: the survivors' kept, two new")
+    ids = [a["member_ids"] for a in tr.attempts]
+    want_steps = [[1, 2, 3], [4], [4, 5, 6]]
+    for a, steps in zip(tr.attempts, want_steps):
+        reps = [[(m["step"], m["loss"], m["grad_norm"]) for m in r]
+                for r in a["reports"].values()]
+        check(len(reps) == a["world"] and all(r == reps[0] for r in reps)
+              and [st for st, _, _ in reps[0]] == steps,
+              f"25: world {a['world']} members reported {reps}")
+    hist = [(m["step"], m["loss"], m["grad_norm"])
+            for m in res.metrics_history]
+    check([st for st, _, _ in hist] == [1, 2, 3, 4, 4, 5, 6],
+          f"25: reported steps {[st for st, _, _ in hist]}")
+    check(ckpts == ["checkpoint_000000", "checkpoint_000001"]
+          and last_step == 6, f"25: checkpoints {ckpts}, last {last_step}")
+    # each member process's own launches: 24 / 12 / 12 every member-step
+    b, s1 = batches[0]["tokens"].shape
+    shapes = {w: (b // w, cfg.n_heads, s1 - 1, cfg.d_model // cfg.n_heads)
+              for w in (4, 2)}
+    check(shapes[2] == ELASTIC_SHAPE, f"25: a world-2 member's shape "
+          f"{shapes[2]}")
+    counted, total, peak = 0, [0, 0, 0], {}
+    for a, steps in zip(tr.attempts, want_steps):
+        for mid in a["member_ids"]:
+            seen = [r for r in logs.get(mid, []) if r[0] == a["world"]
+                    and r[1] in steps]
+            logs[mid] = [r for r in logs.get(mid, []) if r not in seen]
+            # every launch of the member's thread at its rows (on the
+            # card autograd's device thread launches the recomputed
+            # forwards and the backward kernels), and the step's 24 / 12
+            # / 12 in its process, which hosts no other member
+            check([r[1] for r in seen] == steps
+                  and all({k[1] for k in r[2]} == {shapes[a["world"]]}
+                          and r[3] == (2 * L, L, L) for r in seen),
+                  f"25: member {mid} in world {a['world']} launched "
+                  f"{[(r[1], r[2], r[3]) for r in seen]}, expected "
+                  f"{(2 * L, L, L)} in its process at "
+                  f"{shapes[a['world']]} at each of steps {steps}")
+            counted += len(seen)
+            for r in seen:
+                total = [t + n for t, n in zip(total, r[3])]
+                peak[r[4]] = max(peak.get(r[4], 0), r[5])
+    check(counted == 4 * 3 + 2 * 1 + 4 * 3,
+          f"25: {counted} member-steps counted, expected 26")
+    check(sorted(peak) == sorted(set(pids) | set(final)),
+          f"25: launch logs from pids {sorted(peak)}")
+    want = dict(one_device)
+    rel = []
+    for st, lo, gn in hist:
+        if st in (2, 4, 6):
+            dl = abs(lo - want[st]) / abs(want[st])
+            dn = abs(gn - one_grad_norm[st]) / abs(one_grad_norm[st])
+            rel.append((st, dl, dn))
+            check(np.isfinite(lo) and dl <= 5e-3 and dn <= 5e-2,
+                  f"25 step {st}: loss {lo} vs {want[st]}, grad_norm {gn} "
+                  f"vs {one_grad_norm[st]}")
+    check(sorted({st for st, _, _ in rel}) == [2, 4, 6],
+          f"25: compared steps {rel}")
+    spawned = TimedProcessHost.spawned
+    named = TimedProcessHost.named
+    dead = [m for m in ids[0] if m not in ids[1]]
+    check(sorted(named) == sorted(dead),
+          f"25: deaths named for members {sorted(named)}, died {dead}")
+    print(f"[proc trainer 25] GPT-2 124M b16 s1024 bf16 \"dots\", "
+          f"Trainer(num_hosts=4) on four member processes sharing {card} "
+          f"(gloo over CUDA tensors), {{\"dp\": -1}}: attempts on {hosts} "
+          f"at worlds {worlds} from steps {starts} (recoveries {recov[:2]});"
+          f" pids {pids} -> {final}; per member-step launches {2 * L} / {L}"
+          f" / {L} at {list(shapes[4])} (world 4) and {list(ELASTIC_SHAPE)} "
+          f"(world 2), {counted} member-steps, counted in each member "
+          f"process; reported (step, loss) "
+          f"{[(st, round(lo, 5)) for st, lo, _ in hist]}; vs phase 13's "
+          f"one-device fit at steps 2/4/6: largest rel loss "
+          f"{max(d for _, d, _ in rel):.2e} (bound 5e-3), grad_norm "
+          f"{max(d for _, _, d in rel):.2e} (bound 5e-2)")
+    print(f"[proc trainer 25] fit {wall:.1f} s wall (three attempts, two "
+          f"checkpoints written, four processes share one card and a "
+          f"gloo world: not a throughput); the gang formed in "
+          f"{form_s:.2f} s before it; "
+          f"spawning (each member until it answered): "
+          f"{[round(spawned[m], 2) for m in sorted(spawned)]} s; each death "
+          f"named {[round(named[m], 3) for m in sorted(named)]} s after "
+          f"its process ended (members {sorted(named)}); peak device "
+          f"memory by member process "
+          f"{[round(peak[p] / 2**30, 2) for p in sorted(peak)]} GiB; on "
+          f"{card}")
+    return {"trainer_process_gang": total}
+
 
 
 def main() -> int:
@@ -6078,6 +6467,8 @@ def main() -> int:
     train_launches.update(elastic_launches)
     for k in kernels:
         k["elastic_shape"] = elastic_records[k["name"]]
+    train_launches.update(run(phase_process_trainer, name, card,
+                              trainer["history"], trainer["grad_norm"]))
     train_launches.update(model_launches)
     train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
@@ -6090,7 +6481,8 @@ def main() -> int:
     # trainer's fits on a mesh (18a's six steps at NCCL world size 1,
     # 18b's six a rank on four threaded ranks), the slot engine's
     # admissions on tp (19a-c), the elastic gang's 26 member-steps
-    # (22a) and phase 7's three f32 steps
+    # (22a), the same run's 26 member-steps on member processes (25) and
+    # phase 7's three f32 steps
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

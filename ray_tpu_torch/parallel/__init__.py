@@ -5,8 +5,9 @@ running a mesh in one process, and the pipeline schedules over pp
 (``parallel.pipeline``: GPipe; ``parallel.pipeline_1f1b``: 1F1B).  Ring
 attention is ``ops.ring_attention``.  The single-host gang
 (``TpuGang``, ``form_gang``) and the elastic multi-host gang
-(``MultiHostGang``, ``GangMember``, in-process members) are
-``parallel.gang``; a member's world is ``parallel.distributed``."""
+(``MultiHostGang``, ``GangMember``; members in this process or in
+processes of their own) are ``parallel.gang``; a member's world is
+``parallel.distributed``."""
 
 from ray_tpu_torch.parallel import collectives
 from ray_tpu_torch.parallel.gang import (GangConfig, GangMember,

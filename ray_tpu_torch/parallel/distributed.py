@@ -33,6 +33,18 @@ Backends are named by where the members live:
     collective of such a world.  A member process whose call failed
     ``leave``s its world: its connections close, so peers blocked in a
     collective with it raise at once instead of at the timeout.
+
+Gloo over CUDA tensors: torch's gloo backend takes a CUDA tensor itself,
+copying it to a host buffer, reducing or exchanging it there over TCP and
+copying the result back (its CUDA work); the port stages no collective
+of its own.  On the H100 with torch 2.11 gloo took every collective the
+port's paths issue on CUDA tensors (``all_reduce`` in f32, bf16 and
+int64, ``broadcast``, ``all_gather``, ``all_gather_into_tensor``,
+``reduce_scatter_tensor``, ``barrier``).  A ``{"dp": -1}`` train step
+of a process-hosted ``Trainer`` issues only all-reduces (the flat
+gradient, the global norm's sum, the loss's and the host-error flags')
+and the checkpoint manager's barriers (``tests/
+test_torch_port_proc_trainer_host.py`` pins that list on the CPU).
 """
 
 from __future__ import annotations

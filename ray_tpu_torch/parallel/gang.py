@@ -40,13 +40,19 @@ probe one, kill one), with two hosts:
   ``state`` live in the child; the parent holds a ``ProcessMember``
   handle.  Functions reach the child by reference with the standard
   ``pickle``: a module-level function or a ``functools.partial`` of one,
-  never a lambda or a closure.
+  never a lambda or a closure (``cannot_travel`` says why an object
+  cannot).
+
+The callers choose the host from what they run, never from an option:
+``Trainer(num_hosts > 1)`` takes ``ProcessHost`` when its attempt's spec
+travels and the in-process host when it does not (a lambda, a closure);
+DD-PPO always takes ``ProcessHost``.
 
 A member's identity (``member_id``, process-wide, never reused) lasts
 across re-forms as a process id does in the JAX package
 (``member_ids()``; ``member_pids()`` the processes hosting them).
 ``current_member()`` is the member whose thread calls it (None
-elsewhere).
+elsewhere), in a member process the member that process hosts.
 """
 
 from __future__ import annotations
@@ -314,6 +320,23 @@ class InProcessHost:
 # ---------------------------------------------------------------------------
 # members as processes
 
+def _pickled(obj) -> tuple:
+    """(``obj`` pickled with the standard pickle, None), or (None, why it
+    cannot be): a lambda, a closure, a local class, a generator."""
+    try:
+        return pickle.dumps(obj), None
+    except (pickle.PicklingError, AttributeError, TypeError) as e:
+        return None, f"{type(e).__name__}: {e}"
+
+
+def cannot_travel(obj) -> Optional[str]:
+    """Why ``obj`` cannot reach a process member (``ProcessHost``), or
+    None when it can: it must pickle with the standard pickle, every
+    function and class in it by reference (module-level, or a
+    ``functools.partial`` of such)."""
+    return _pickled(obj)[1]
+
+
 # after a member's first error, how long the others' answers and exits are
 # awaited before one is blamed (a peer's "connection closed" error can
 # come before the death that caused it is seen)
@@ -346,6 +369,7 @@ def _serve_member(conn, member_cls: type, rank: int, world: int,
     calls: queue.SimpleQueue = queue.SimpleQueue()
 
     def work() -> None:
+        _local.member = member
         while True:
             seq, where, blob = calls.get()
             try:
@@ -505,13 +529,12 @@ class ProcessHost:
         member whose failure came first is named (its peers' "connection
         closed" errors come after it).  A failure spends the world: the
         next call's members join a fresh one, with no re-form needed."""
-        try:
-            blob = pickle.dumps((method, args))
-        except (pickle.PicklingError, AttributeError, TypeError) as e:
+        blob, why = _pickled((method, args))
+        if why is not None:
             raise TypeError(
                 f"a process member runs a module-level function or a "
                 f"functools.partial of one, sent by reference with the "
-                f"standard pickle; {method}{args!r} cannot be: {e}") from e
+                f"standard pickle; {method}{args!r} cannot be: {why}")
         world = len(members)
         address = self._address.get(coordinator, coordinator)
         if address in self._spent:
@@ -743,4 +766,5 @@ class MultiHostGang:
 
 __all__ = ["GangConfig", "TpuGang", "form_gang", "GangMemberDied",
            "MemberKilled", "GangMember", "InProcessHost", "ProcessHost",
-           "ProcessMember", "MultiHostGang", "current_member"]
+           "ProcessMember", "MultiHostGang", "cannot_travel",
+           "current_member"]

@@ -2,16 +2,21 @@
 ``ray_tpu/rllib/ddppo.py``.  Workers learn locally and average their
 gradients among themselves; there is no central learner.
 
-The workers are the members of an in-process ``MultiHostGang``
-(``parallel.gang``): a learner-less gang.  Each member holds a
-``_DDPPOWorker`` in its state across worlds: its own ``RolloutWorker``
+The workers are the members of a ``MultiHostGang`` on ``ProcessHost``
+(``parallel.gang``): a learner-less gang of processes, as the JAX
+package's workers are actors; they share the card (or the CPU), over
+gloo.  Each member process holds a ``_DDPPOWorker`` in its state across
+worlds: its own ``RolloutWorker``
 (seed ``seed + 1000 * rank``), its own numpy permutation stream (seed
 ``seed + 31 * rank``) and the same initial params on every rank (from
 ``seed``).  Each minibatch's gradients are flattened in JAX's leaf order
 and averaged over the world in ONE all-reduce, then Adam steps on every
 rank, so the ranks stay in lockstep with no weight sync.  Where the JAX
 package needs its core runtime for the worker gang, the port's gang is
-its runtime.  ``train_batch_size`` is per worker.
+its runtime.  ``train_batch_size`` is per worker.  The owner reaches
+the workers only through the gang's ``run`` (``on_workers``, given a
+module-level function of the worker such as ``worker_weights``): the
+config goes out, numpy comes back.
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ import torch.distributed as dist
 
 from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data.feed import to_device
-from ray_tpu_torch.parallel.gang import MultiHostGang, current_member
+from ray_tpu_torch.parallel.gang import (MultiHostGang, ProcessHost,
+                                         current_member)
 from ray_tpu_torch.rllib import sample_batch as SB
 from ray_tpu_torch.rllib.algorithm import Algorithm
 from ray_tpu_torch.rllib.optim import Adam, params_on, to_numpy, tree_leaves
@@ -146,6 +152,40 @@ def _worker() -> _DDPPOWorker:
     return current_member().state["ddppo"]
 
 
+def _build_worker(rank: int, cfg: DDPPOConfig, world: int) -> None:
+    me = current_member()
+    me.state["ddppo"] = _DDPPOWorker(cfg, rank, world, me.device)
+
+
+def _on_worker(rank: int, fn, *args):
+    return fn(_worker(), rank, *args)
+
+
+# what ``DDPPO.on_workers`` runs on a worker: fn(worker, rank, *args)
+
+def worker_train_once(w: _DDPPOWorker, rank: int) -> dict:
+    return w.train_once()
+
+
+def worker_weights(w: _DDPPOWorker, rank: int):
+    """The worker's params as numpy."""
+    return w.get_weights()
+
+
+def worker_set_weights(w: _DDPPOWorker, rank: int, weights) -> None:
+    w.set_weights(weights)
+
+
+def worker_sample(w: _DDPPOWorker, rank: int) -> SampleBatch:
+    return w.sample()
+
+
+def worker_learn(w: _DDPPOWorker, rank: int, batches: list) -> dict:
+    """The local SGD on ``batches[rank]`` (every rank's host batch is
+    sent to every rank; each learns on its own)."""
+    return w.learn(batches[rank])
+
+
 class DDPPO(Algorithm):
     _default_config = DDPPOConfig
 
@@ -159,25 +199,24 @@ class DDPPO(Algorithm):
         self.device = resolve_device(cfg.device)
         world = cfg.num_rollout_workers
         self.gang: Optional[MultiHostGang] = MultiHostGang(
-            world, device=self.device)
-
-        def build(rank):
-            current_member().state["ddppo"] = _DDPPOWorker(
-                cfg, rank, world, self.device)
-
+            world, device=self.device, host=ProcessHost())
         try:
-            self.gang.run(build)
+            self.gang.run(_build_worker, cfg, world)
         except BaseException:
             self.gang.shutdown()
             raise
 
-    @property
-    def workers(self) -> list:
-        """The workers, in rank order (objects of this process)."""
-        return [m.state["ddppo"] for m in self.gang.members]
+    def on_workers(self, fn, *args) -> list:
+        """``fn(worker, rank, *args)`` on every worker, in its member's
+        process, all in one world -> the results in rank order.  ``fn``
+        is module-level (or a ``functools.partial`` of such) and the
+        arguments and results travel with the standard pickle (numpy,
+        not tensors): ``worker_weights``, ``worker_sample``,
+        ``worker_learn`` and the like."""
+        return self.gang.run(_on_worker, fn, *args)
 
     def training_step(self) -> dict:
-        results = self.gang.run(lambda rank: _worker().train_once())
+        results = self.on_workers(worker_train_once)
         for r in results:
             self._ep_returns.extend(r.pop("episode_returns", []))
         steps = sum(r.pop("count") for r in results)
@@ -188,11 +227,11 @@ class DDPPO(Algorithm):
         return out
 
     def save_checkpoint(self) -> dict:
-        return {"params": self.workers[0].get_weights(),
+        return {"params": self.on_workers(worker_weights)[0],
                 "timesteps": self._timesteps}
 
     def load_checkpoint(self, ck):
-        self.gang.run(lambda rank: _worker().set_weights(ck["params"]))
+        self.on_workers(worker_set_weights, ck["params"])
         self._timesteps = ck.get("timesteps", 0)
 
     def cleanup(self):

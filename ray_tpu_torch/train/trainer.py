@@ -40,15 +40,30 @@ what the multi-host arm recovers from.
 The multi-host arm (``num_hosts > 1``, the port of the JAX
 ``DataParallelTrainer``'s): ``fit()`` is called once, by the process
 that owns the gang, not on its members.  It forms a
-``parallel.gang.MultiHostGang`` of ``num_hosts`` members (threads of this
-process sharing ``device``) and each attempt runs the same ``train_loop``
-on every member, over a mesh of the axes given (default ``{"dp": -1}``,
-which fills each world).  Every member feeds its rows of each global
-batch, so a change of world reshards the stream at the resume step with
-no data movement; rank 0's manager writes the checkpoints and the owner's
-manager, over the same root, finds them.  The reports are rank 0's (kept from failed attempts too, as on one
-device); ``attempts`` records each attempt's world, member ids, resume
-step and every member's reports.  After an attempt fails, recovery is
+``parallel.gang.MultiHostGang`` of ``num_hosts`` members sharing
+``device``, and each attempt sends every member a ``MemberSpec`` (plain
+values: the trainer's class and config, the mesh axes, the checkpoint
+root, the path of the checkpoint to restore, the world and the attempt's
+number); the gang's handles never travel.  Each member builds its own
+``Trainer`` from it over a mesh of the axes given (default ``{"dp":
+-1}``, which fills each world) and runs ``train_loop``
+(``_member_attempt``).  The members are processes of their own
+(``ProcessHost``, gloo; a SIGKILL ends one) when the spec travels by
+reference with the standard pickle (module-level callables and classes,
+or ``functools.partial``s of them; picklable data), and threads of this
+process (the in-process host) when it does not (a lambda, a closure, a
+generator), with one warning naming what could not travel; the choice is
+made once, on the gang's first use, and every attempt records it
+(``"host"``: ``"process"`` or ``"in-process"``).  Every member feeds its
+rows of each global batch, so a change of world reshards the stream at
+the resume step with no data movement; rank 0's manager writes the
+checkpoints and the owner's manager, over the same root, finds them.
+Each member appends every report, as it makes it, to a log of its own
+(``<storage_path>/reports/attempt_<n>/member_<id>``); after the attempt,
+failed or not, the owner reads the logs back, so the reports are rank
+0's, kept from failed attempts too, as on one device.  ``attempts``
+records each attempt's world, member ids, host, resume step and every
+member's reports.  After an attempt fails, recovery is
 ``_elastic_recover``'s, as in the JAX package: members dead, shrink to
 the survivors (the resume attempt runs at the smaller world, from the
 latest checkpoint); every member alive and the gang below target,
@@ -57,16 +72,25 @@ alive, or re-forming failed, tear the gang down and form a fresh one.  A
 fresh attempt at a re-gang boundary re-admits first, and carries on at
 the smaller world when that fails.  The final state is the last
 checkpoint's (``Result.checkpoint``; ``final_state`` stays None: the
-members' tensors belong to a world that has ended).
+members' tensors belong to a world that has ended).  Process members
+stay alive after ``fit()``: ``gang.shutdown()`` ends them.
+
+On a world of processes the collectives run on gloo, also over CUDA
+tensors on a card the members share.  A ``{"dp": -1}`` step issues only
+all-reduces there (``_sum_grads``' flat gradient, ``_global_norm``'s
+squared sum, the loss's and ``_next_batch``'s flags) and barriers (the
+checkpoint manager's); its params are replicated, so ``state_to_host``
+gathers nothing (``full_tensor`` of a replicated leaf is local).
 """
 
 from __future__ import annotations
 
-import copy
 import functools
 import inspect
 import logging
 import os
+import pickle
+import shutil
 import time
 import traceback
 from dataclasses import dataclass, field
@@ -80,7 +104,8 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.data.feed import device_batches
 from ray_tpu_torch.models.convert import _map
 from ray_tpu_torch.parallel.gang import (GangConfig, MultiHostGang,
-                                         TpuGang, current_member, form_gang)
+                                         ProcessHost, TpuGang, cannot_travel,
+                                         current_member, form_gang)
 from ray_tpu_torch.parallel.sharding import DEFAULT_LLM_RULES, Rules
 from ray_tpu_torch.train import session as _session
 from ray_tpu_torch.train.checkpoint import Checkpoint, CheckpointManager
@@ -123,7 +148,9 @@ class Trainer:
 
     ``num_hosts > 1``: the multi-host arm (``ScalingConfig``'s
     ``num_hosts``, ``elastic`` and ``min_hosts``); ``mesh`` is then the
-    axes each world lays over its members."""
+    axes each world lays over its members, which are processes when this
+    trainer's class and config travel by reference with the standard
+    pickle (the module note)."""
 
     def __init__(self, *, loss_fn: Callable,
                  init_params: Callable[[int], Any],
@@ -184,6 +211,7 @@ class Trainer:
         self.start_step = 0          # where the last attempt began
         self.feed_wait_s: list = []  # host seconds in the feed, per step
         self._gang: Optional[MultiHostGang] = None
+        self._host: Optional[str] = None   # the gang's, chosen on first use
         # set by an elastic shrink, so the resume attempt right after it
         # runs at the smaller world (replacements wait for the next
         # boundary)
@@ -377,10 +405,43 @@ class Trainer:
     @property
     def gang(self) -> MultiHostGang:
         """The multi-host arm's gang, formed on first use (again after a
-        teardown)."""
+        teardown): its members are processes (``ProcessHost``) when an
+        attempt's ``MemberSpec`` can travel to one, else threads of this
+        process (the module note)."""
         if self._gang is None:
-            self._gang = MultiHostGang(self.num_hosts, device=self.device)
+            if self._host is None:
+                self._host = self._choose_host()
+            host = ProcessHost() if self._host == "process" else None
+            self._gang = MultiHostGang(self.num_hosts, device=self.device,
+                                       host=host)
         return self._gang
+
+    def _member_config(self) -> dict:
+        """The keyword arguments each member's ``Trainer`` is built with
+        (beside its world's mesh)."""
+        return dict(loss_fn=self.loss_fn, init_params=self.init_params,
+                    optimizer=self.optimizer, train_data=self.train_data,
+                    num_steps=self.num_steps, eval_fn=self.eval_fn,
+                    eval_every=self.eval_every,
+                    report_every=self.report_every,
+                    checkpoint_every=self.checkpoint_every, seed=self.seed,
+                    storage_path=self.storage_path,
+                    params_logical=self.params_logical, rules=self.rules)
+
+    def _choose_host(self) -> str:
+        """"process" when this trainer's class and every value of its
+        member config travel by reference with the standard pickle, else
+        "in-process", with one warning naming what cannot travel."""
+        for name, value in (("the trainer's class", type(self)),
+                            *self._member_config().items()):
+            why = cannot_travel(value)
+            if why is not None:
+                logger.warning(
+                    "the multi-host gang's members are threads of this "
+                    "process, not processes: %s (%r) cannot travel to a "
+                    "member process (%s)", name, value, why)
+                return "in-process"
+        return "process"
 
     def _fit_gang(self) -> Result:
         """``fit()`` of the gang's owner: every failed attempt on the gang
@@ -436,10 +497,10 @@ class Trainer:
     def _attempt_gang(self, restore: Optional[Checkpoint],
                       results: list) -> None:
         """One attempt on every member of the gang: each runs
-        ``train_loop`` on a copy of this trainer over the world's mesh
-        (``TpuGang`` of ``num_hosts=world``), with a checkpoint manager
-        over the run's root (rank 0 writes) and the checkpoint
-        ``restore`` names.  Rank 0's reports go to ``results``."""
+        ``_member_attempt`` on this attempt's ``MemberSpec`` (the
+        gang's handles stay here).  Afterwards, failed or not, every
+        member's reports are read back from its log, and rank 0's go to
+        ``results``."""
         gang = self.gang
         if (self.elastic and not self._elastic_shrunk
                 and gang.num_members < gang.target_members):
@@ -452,45 +513,25 @@ class Trainer:
                                "continuing at world=%d", gang.num_members,
                                exc_info=True)
         self._elastic_shrunk = False
-        world = gang.num_members
         # what the attempt ran on and saw; "error" and "recovery" (shrink,
         # readmit, reform or fresh) when it failed
-        record = {"world": world, "member_ids": gang.member_ids(),
-                  "start_step": None, "reports": {}}
+        record = {"world": gang.num_members, "member_ids": gang.member_ids(),
+                  "host": self._host, "start_step": None, "reports": {}}
         self.attempts.append(record)
-        ckpt_dir = os.path.join(self.storage_path, "checkpoints")
-        restore_path = restore.path if restore is not None else None
-
-        def member_attempt(rank):
-            tr = copy.copy(self)
-            tr.mesh = TpuGang(GangConfig(self.mesh_axes, num_hosts=world,
-                                         device=self.device.type)).mesh
-            tr.device = (torch.device("cuda", torch.cuda.current_device())
-                         if self.device.type == "cuda" else self.device)
-            mgr = CheckpointManager(ckpt_dir, num_to_keep=self.num_to_keep,
-                                    writer=rank == 0, barrier=dist.barrier)
-            st = _session._start(
-                checkpoint_cb=mgr.save, world_rank=rank, world_size=world,
-                latest_checkpoint=(Checkpoint(restore_path)
-                                   if restore_path else None))
-            st.results = record["reports"].setdefault(
-                current_member().member_id, [])
-            try:
-                tr.train_loop(_session.report, _session.get_checkpoint)
-            except StopIteration:    # the data ran out: the run ends
-                pass
-            finally:
-                # the writer's last save lands before the world ends;
-                # no barrier: a peer may be dead
-                mgr.flush(sync=False)
-                _session._end()
-                if rank == 0:
-                    record["start_step"] = tr.start_step
-                    results.extend(st.results)
-            return tr.start_step
-
+        reports_dir = os.path.join(self.storage_path, "reports",
+                                   f"attempt_{len(self.attempts)}")
+        shutil.rmtree(reports_dir, ignore_errors=True)
+        os.makedirs(reports_dir)
+        spec = MemberSpec(
+            trainer_cls=type(self), config=self._member_config(),
+            mesh_axes=self.mesh_axes, device_type=self.device.type,
+            ckpt_dir=os.path.join(self.storage_path, "checkpoints"),
+            num_to_keep=self.num_to_keep,
+            restore_path=restore.path if restore is not None else None,
+            reports_dir=reports_dir, world=gang.num_members,
+            attempt=len(self.attempts))
         try:
-            gang.run(member_attempt)
+            starts = gang.run(_member_attempt, spec)
         except Exception as e:
             record["error"] = e
             record["recovery"] = self._elastic_recover(gang)
@@ -501,5 +542,96 @@ class Trainer:
                 gang.shutdown()
                 self._gang = None
             raise
+        finally:
+            for mid in record["member_ids"]:
+                start, reports = _read_reports(
+                    os.path.join(reports_dir, f"member_{mid}"))
+                record["reports"][mid] = reports
+                if mid == record["member_ids"][0]:
+                    record["start_step"] = start
+                    results.extend(reports)
         self._gang = gang
-        self.start_step = record["start_step"]
+        self.start_step = starts[0]
+
+
+@dataclass
+class MemberSpec:
+    """What one attempt of the multi-host arm sends every member: the
+    trainer's class and config, the world's mesh axes and device type,
+    the checkpoint root and the checkpoint to restore (a path: members
+    read it themselves), the directory of the members' report logs, the
+    world's size and the attempt's number.  Plain values, so that it
+    travels to a process member by reference with the standard pickle
+    when the config's callables and data do."""
+    trainer_cls: type
+    config: dict
+    mesh_axes: dict
+    device_type: str
+    ckpt_dir: str
+    num_to_keep: Optional[int]
+    restore_path: Optional[str]
+    reports_dir: str
+    world: int
+    attempt: int
+
+
+def _member_attempt(rank: int, spec: MemberSpec) -> int:
+    """One attempt on one gang member, in the owner's process or in the
+    member's own: a ``Trainer`` of ``spec``'s class and config over the
+    world's mesh (``TpuGang`` of ``num_hosts=world``) runs ``train_loop``
+    under a session whose checkpoint manager is over the run's root (rank
+    0 writes) and whose restore is ``spec.restore_path``.  Each report is
+    appended, as it is made, to this member's log under
+    ``spec.reports_dir`` with the step the attempt resumed from, so the
+    owner reads it even when this member dies.  Returns that step."""
+    world = spec.world
+    mesh = TpuGang(GangConfig(spec.mesh_axes, num_hosts=world,
+                              device=spec.device_type)).mesh
+    tr = spec.trainer_cls(**spec.config, mesh=mesh)
+    mgr = CheckpointManager(spec.ckpt_dir, num_to_keep=spec.num_to_keep,
+                            writer=rank == 0, barrier=dist.barrier)
+    st = _session._start(
+        checkpoint_cb=mgr.save, world_rank=rank, world_size=world,
+        latest_checkpoint=(Checkpoint(spec.restore_path)
+                           if spec.restore_path else None))
+    log_path = os.path.join(spec.reports_dir,
+                            f"member_{current_member().member_id}")
+    with open(log_path, "ab") as log:
+        def note(entry) -> None:
+            pickle.dump((tr.start_step, entry), log)
+            log.flush()
+
+        def report(metrics, *, checkpoint=None) -> None:
+            _session.report(metrics, checkpoint=checkpoint)
+            note(st.results[-1])
+
+        try:
+            tr.train_loop(report, _session.get_checkpoint)
+        except StopIteration:    # the data ran out: the run ends
+            pass
+        finally:
+            # the writer's last save lands before the world ends; no
+            # barrier: a peer may be dead
+            mgr.flush(sync=False)
+            _session._end()
+            note(None)
+    return tr.start_step
+
+
+def _read_reports(path: str) -> tuple:
+    """(the step the attempt resumed from, or None; the reports) of one
+    member's log; a record cut short by the member's death ends it."""
+    start, reports = None, []
+    try:
+        log = open(path, "rb")
+    except FileNotFoundError:
+        return start, reports
+    with log:
+        while True:
+            try:
+                start, entry = pickle.load(log)
+            except Exception:       # EOF, or a record cut short
+                break
+            if entry is not None:
+                reports.append(entry)
+    return start, reports

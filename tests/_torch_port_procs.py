@@ -72,3 +72,22 @@ class FailingSetupMember(GangMember):
         if self.rank == 1:
             raise RuntimeError("injected setup failure (rank 1)")
         super().formed()
+
+
+class NoiseStream:
+    """Gumbel noise drawn in the test process (numpy), handed out in
+    order: a member's policy ``gumbel_fn``."""
+
+    def __init__(self, draws):
+        self.draws, self.used = list(draws), 0
+
+    def __call__(self):
+        g = self.draws[self.used]
+        self.used += 1
+        return g
+
+
+def set_noise(worker, rank: int, draws: list) -> None:
+    """A DD-PPO worker's rollout policy takes ``draws[rank]`` in order
+    (``DDPPO.on_workers``)."""
+    worker.worker.policy.gumbel_fn = NoiseStream(draws[rank])

@@ -1,12 +1,15 @@
-"""The port's DD-PPO (``rllib/ddppo.py``: workers as the members of an
-in-process gang) against the JAX package's own ``_DDPPOWorker``,
+"""The port's DD-PPO (``rllib/ddppo.py``: workers as the member
+processes of a gang) against the JAX package's own ``_DDPPOWorker``,
 unchanged, run on two threads with ``CollectiveGroup`` replaced by an
 in-test stub whose ``allreduce(flat, op="mean")`` averages the two
 threads' vectors (``monkeypatch`` edits no file).
 
 Both start from JAX's ``init_policy_params(PRNGKey(seed))``; the port's
 rollout policies are fed the Gumbel noise of each JAX worker's key
-stream, so both sample the same actions.  After one and after two
+stream, drawn here and sent to the member processes as numpy
+(``tests/_torch_port_procs.py`` ``set_noise``; a member imports no JAX),
+so both sample the same actions.  The test reaches the port's workers
+only through ``DDPPO.on_workers``.  After one and after two
 ``train()`` iterations of ``DDPPOConfig(env="CartPole-v1",
 num_rollout_workers=2, num_envs_per_worker=2, rollout_length=32,
 train_batch_size=128, minibatch_size=64, num_epochs=1, seed=3)``: each
@@ -24,16 +27,21 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_port_procs import set_noise
 from _torch_port_rl import assert_trees_close, assert_trees_equal, np_tree
 from ray_tpu.parallel import collectives as jcollectives
 from ray_tpu.rllib import ddppo as jddppo
 from ray_tpu.rllib import policy as jpolicy
 from ray_tpu_torch.rllib import DDPPO, DDPPOConfig
+from ray_tpu_torch.rllib.ddppo import worker_weights
 
 CFG = dict(env="CartPole-v1", num_rollout_workers=2, num_envs_per_worker=2,
            rollout_length=32, train_batch_size=128, minibatch_size=64,
            num_epochs=1, seed=3)
 ITERS = 2
+# the Gumbel draws each port worker is sent: a rollout step takes one,
+# an iteration 64 (two samples of 32 steps), and some to spare
+DRAWS = 160
 
 
 class StubGroup:
@@ -114,32 +122,40 @@ def iterated():
     params = np_tree(jpolicy.init_policy_params(
         pcfg, jax.random.PRNGKey(CFG["seed"])))
     mp = pytest.MonkeyPatch()
-    # the JAX workers compile and run on their own threads meanwhile
-    ex = ThreadPoolExecutor(1)
+    # each member process one thread: processes of all the cores'
+    # threads each ran 10x slower
+    mp.setenv("OMP_NUM_THREADS", "1")
+    # the JAX workers compile and run on their own threads meanwhile,
+    # and the save-and-restore test's algorithm is built (its processes
+    # spawned) on another
+    ex = ThreadPoolExecutor(2)
     jax_run = ex.submit(jax_iterations, mp, params)
+    fresh = ex.submit(DDPPOConfig(**CFG, device="cpu").build)
     algo = DDPPOConfig(**CFG, device="cpu").build()
-    algo.load_checkpoint({"params": params})
-    for r, w in enumerate(algo.workers):
-        w.worker.policy.gumbel_fn = JaxKeys(
-            CFG["seed"] + 1000 * r + 1, (CFG["num_envs_per_worker"], 2))
-    got = []
-    for _ in range(ITERS):
-        n = len(algo._ep_returns)
-        res = algo.train()
-        got.append((res, list(algo._ep_returns[n:]),
-                    [w.get_weights() for w in algo.workers]))
     try:
+        algo.load_checkpoint({"params": params})
+        keys = [JaxKeys(CFG["seed"] + 1000 * r + 1,
+                        (CFG["num_envs_per_worker"], 2)) for r in (0, 1)]
+        algo.on_workers(set_noise, [[k() for _ in range(DRAWS)]
+                                    for k in keys])
+        got = []
+        for _ in range(ITERS):
+            n = len(algo._ep_returns)
+            res = algo.train()
+            got.append((res, list(algo._ep_returns[n:]),
+                        algo.on_workers(worker_weights)))
         want = jax_run.result()
+        yield want, got, fresh.result()
     finally:
         mp.undo()
         ex.shutdown()
-    yield want, got
-    algo.cleanup()
+        algo.cleanup()
+        fresh.result().cleanup()
 
 
 @pytest.mark.parametrize("it", range(ITERS))
 def test_each_rank_matches_the_jax_worker(iterated, it):
-    want, got = iterated
+    want, got, _ = iterated
     res, returns, weights = got[it]
     for r in (0, 1):
         assert_trees_close(weights[r], want[it][r][1], atol=1e-5,
@@ -154,26 +170,23 @@ def test_each_rank_matches_the_jax_worker(iterated, it):
 
 @pytest.mark.parametrize("it", range(ITERS))
 def test_ranks_stay_in_lockstep(iterated, it):
-    _, got = iterated
+    _, got, _ = iterated
     w0, w1 = got[it][2]
     assert_trees_equal(w0, w1, err=f"iteration {it + 1}")
 
 
 def test_save_and_restore_keep_the_layout(iterated):
-    _, got = iterated
-    algo = DDPPOConfig(**CFG, device="cpu").build()
-    try:
-        saved = {"params": got[-1][2][0], "timesteps": 512}
-        algo.restore({"_iteration": 2, "payload": saved})
-        ck = algo.save()
-        assert ck["_iteration"] == 2 and set(ck["payload"]) == \
-            {"params", "timesteps"}
-        assert ck["payload"]["timesteps"] == 512
-        for w in algo.workers:
-            assert_trees_equal(w.get_weights(), saved["params"])
-        assert algo.train()["steps_this_iter"] == 256
-    finally:
-        algo.cleanup()
+    """On a DD-PPO built apart (the fixture's ``fresh``, never trained)."""
+    _, got, algo = iterated
+    saved = {"params": got[-1][2][0], "timesteps": 512}
+    algo.restore({"_iteration": 2, "payload": saved})
+    ck = algo.save()
+    assert ck["_iteration"] == 2 and set(ck["payload"]) == \
+        {"params", "timesteps"}
+    assert ck["payload"]["timesteps"] == 512
+    for w in algo.on_workers(worker_weights):
+        assert_trees_equal(w, saved["params"])
+    assert algo.train()["steps_this_iter"] == 256
 
 
 def test_one_worker_raises_and_device_none_needs_a_card(monkeypatch):
