@@ -368,8 +368,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the seconds spent spawning, how long until each death was named and
    each member's peak device memory.
 
+26. tune trials (``phase_tune_trials``), the contract that the JAX
+   package's tuner drives, run here without the tuner.  26a: two GPT-2
+   124M trials (full width and depth, bf16 "dots", b4 s1024 of phase
+   13's batches, AdamW with weight decay 0.1) resident at once, A at lr
+   3e-4 and B at 1e-4, stepping in turns two steps each; then three PBT
+   exploits as the tuner makes them: A's ``state_to_host`` snapshot, B
+   cleaned up (its state, optimizer and step dropped), B rebuilt at 1.2
+   x A's lr and ``load_state`` of the snapshot.  Gates: B's params and
+   Adam moments read back equal the snapshot bit for bit, its lr is 3.6e-4,
+   its loss on the next batch equals A's within rel 1e-6, its params
+   differ from A's after that step, 24 / 12 / 12 launches every step of
+   every trial, finite losses, and the device memory with both trials
+   resident within 64 MiB of its level after the first exploit (no
+   trial leaks on rebuild).  26b: PPO at phase 14's settings, two
+   trials (lr 3e-3, 3e-4) built from config dicts, two iterations each,
+   three exploits through ``save``, ``cleanup`` and ``restore`` into a
+   PPO built at 1.2 x the source's lr: params and moments equal the
+   save, the new lr in Adam, the workers act with the restored weights,
+   ``cleanup`` lets go of every worker, the device memory back within
+   64 MiB, no flash launch.  Prints the step ms with two trials
+   resident beside phase 13's, the snapshot's ms and GB/s, the rebuild
+   and load ms, the memory before a rebuild and after a cleanup, and the
+   peak with two trials.
+
 ``main`` runs phases 8, 10, 11, 12, 13, 14, 20, 21, 23, 24, 17 and 19 before phase 7,
-and 15, 16, 18, 22 and 25 after 9: no serving phase runs after the profiler.  The line
+and 15, 16, 18, 22, 25 and 26 after 9: no serving phase runs after the profiler.  The line
 before the last is the kernels' JSON record; the last is ``{"ok": true,
 "device": {...}}``.
 """
@@ -6411,6 +6435,281 @@ def phase_process_trainer(name: str, card: str, one_device: list,
 
 
 
+# ------------------------------------------------------------- tune trials
+
+TUNE_LRS = (3e-4, 1e-4)             # 26a: trials A and B
+TUNE_PPO_LRS = (3e-3, 3e-4)         # 26b
+TUNE_EXPLOITS = 3
+TUNE_MEM_SLACK = 64 << 20           # bytes
+
+
+class GPTTrial:
+    """One GPT trial as the tuner drives a function trainable: built at
+    an lr from the seed's weights, stepped on its own batches, saved
+    (``state_to_host``), restored (``load_state``) and cleaned up."""
+
+    def __init__(self, cfg, lr: float):
+        from ray_tpu_torch.models import gpt
+        from ray_tpu_torch.train import adamw, make_train_step
+
+        init_fn, self._step = make_train_step(
+            lambda p, bt: gpt.loss_fn(p, bt, cfg),
+            adamw(lr, weight_decay=0.1))
+        self.state = init_fn(gpt.init_params(cfg, SEED))
+        self.steps = 0
+
+    def train(self, batches) -> tuple:
+        """One step on batch ``steps``: (loss, launches, wall ms)."""
+        from ray_tpu_torch.train import device_batch
+
+        batch = device_batch(batches[self.steps])
+        n0 = flash_launches()
+        t0 = time.perf_counter()
+        self.state, m = self._step(self.state, batch)
+        loss = m["loss"].item()
+        ms = (time.perf_counter() - t0) * 1e3
+        self.steps += 1
+        return loss, tuple(a - c for a, c in zip(flash_launches(), n0)), ms
+
+    def save(self) -> dict:
+        from ray_tpu_torch.train import state_to_host
+
+        return state_to_host(self.state)
+
+    def restore(self, payload: dict) -> None:
+        from ray_tpu_torch.train import load_state
+
+        load_state(self.state, payload)
+        self.steps = payload["step"]
+
+    def cleanup(self) -> None:
+        del self.state, self._step
+        gc.collect()
+
+
+def host_equal(got, want) -> bool:
+    """Two payloads (nested dicts of numpy, bf16 leaves tagged) equal bit
+    for bit, with the same keys."""
+    if isinstance(want, dict):
+        return (isinstance(got, dict) and set(got) == set(want)
+                and all(host_equal(got[k], want[k]) for k in want))
+    if isinstance(want, np.ndarray):
+        return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and np.array_equal(got, want))
+    return got == want
+
+
+def gpt_trials(card: str, trainer: dict) -> list:
+    """26a (module note): returns the launches of every step."""
+    from ray_tpu_torch.models import gpt
+    from ray_tpu_torch.models.convert import _leaves
+
+    cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
+    L, b, s = cfg.n_layers, 4, 1024
+    batches = HostBatches(2 + TUNE_EXPLOITS, b, s, 4096, SEED + 20).batches
+    want = (2 * L, L, L)
+    launches, step_ms, losses = [], [], []
+
+    def step(trial, label):
+        loss, n, ms = trial.train(batches)
+        check(n == want, f"26a {label}: a step launched {n}, expected "
+              f"{want}")
+        check(np.isfinite(loss), f"26a {label}: loss {loss}")
+        launches.append(n)
+        step_ms.append(ms)
+        losses.append(loss)
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    a = GPTTrial(cfg, TUNE_LRS[0])
+    torch.cuda.synchronize()
+    mem_one = torch.cuda.memory_allocated()
+    trial_b = GPTTrial(cfg, TUNE_LRS[1])
+    for _ in range(2):          # in turns, as Tuner.fit round-robins
+        step(a, "A")
+        step(trial_b, "B")
+    nbytes = 3 * sum(t.numel() * t.element_size()
+                     for t in _leaves(a.state.params))
+    new_lr = 1.2 * TUNE_LRS[0]
+    cycles = []
+    for cycle in range(TUNE_EXPLOITS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        payload = a.save()
+        snap = time.perf_counter() - t0
+        before = torch.cuda.memory_allocated()
+        trial_b.cleanup()
+        trial_b = None
+        after = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        trial_b = GPTTrial(cfg, new_lr)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        trial_b.restore(payload)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        check(host_equal(trial_b.save(), payload),
+              f"26a exploit {cycle + 1}: B's params and moments differ "
+              f"from A's snapshot")
+        lr = trial_b.state.opt_state.param_groups[0]["lr"]
+        check(lr == new_lr, f"26a exploit {cycle + 1}: B's lr {lr}, "
+              f"expected {new_lr}")
+        la, lb = step(a, "A"), step(trial_b, "B")
+        rel = abs(lb - la) / abs(la)
+        check(rel <= 1e-6, f"26a exploit {cycle + 1}: B's loss {lb} vs A's "
+              f"{la} on the same batch (rel {rel:.3e}, bound 1e-6)")
+        moved = any(not torch.equal(x, y) for x, y in zip(
+            _leaves(a.state.params), _leaves(trial_b.state.params)))
+        check(moved, f"26a exploit {cycle + 1}: B's params equal A's after "
+              f"a step at another lr")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        cycles.append(dict(snap=snap, before=before, after=after,
+                           build=t1 - t0, load=t2 - t1, resident=resident,
+                           rel=rel, la=la, lb=lb))
+        del payload
+    peak = torch.cuda.max_memory_allocated()
+    first = cycles[0]["resident"]
+    drift = [c["resident"] - first for c in cycles]
+    check(all(abs(d) <= TUNE_MEM_SLACK for d in drift),
+          f"26a: memory with both trials resident moved {drift} bytes over "
+          f"the exploits (bound {TUNE_MEM_SLACK})")
+    drop = [c["before"] - c["after"] for c in cycles]
+    check(all(abs(d - nbytes) <= TUNE_MEM_SLACK for d in drop),
+          f"26a: B's cleanup freed {drop} bytes, its state holds {nbytes}")
+    a.cleanup()
+    trial_b.cleanup()
+
+    gib = 1 << 30
+    print(f"[tune 26a] GPT-2 124M, two trials resident (A lr {TUNE_LRS[0]}, "
+          f"B lr {TUNE_LRS[1]}, then {new_lr:.6g} after each exploit), b{b} "
+          f"s{s} bf16 \"dots\": {len(launches)} steps, each "
+          f"{' / '.join(map(str, want))} launches; losses "
+          f"{[round(x, 6) for x in losses]}")
+    for i, c in enumerate(cycles):
+        print(f"[tune 26a] exploit {i + 1}: snapshot of A "
+              f"{c['snap'] * 1e3:.1f} ms ({nbytes / c['snap'] / 1e9:.2f} GB/s, {nbytes} bytes of "
+              f"params and moments); device memory {c['before'] / gib:.3f} "
+              f"GiB before B's cleanup, {c['after'] / gib:.3f} GiB after "
+              f"(freed {(c['before'] - c['after']) / gib:.3f}); rebuild "
+              f"{c['build'] * 1e3:.1f} ms, load_state {c['load'] * 1e3:.1f} "
+              f"ms; params and moments bit-equal, lr {new_lr:.6g}; next "
+              f"loss A {c['la']:.6f} B {c['lb']:.6f} (rel {c['rel']:.3e}); "
+              f"both resident {c['resident'] / gib:.3f} GiB")
+    steady = step_ms[2:]
+    two_ms = statistics.median(steady)
+    tps_two = b * s / (two_ms / 1e3)
+    tps_one = 16 * s / (trainer["step_ms"] / 1e3)
+    print(f"[tune 26a] step with two trials resident: median "
+          f"{two_ms:.3f} ms at b{b} ({tps_two:.1f} tokens/s; steps "
+          f"{', '.join(f'{x:.1f}' for x in step_ms)} ms, the first two "
+          f"warm-up) vs phase 13's one-trial step {trainer['step_ms']:.3f} "
+          f"ms at b16 ({tps_one:.1f} tokens/s); memory with one trial "
+          f"{mem_one / gib:.3f} GiB, both resident {first / gib:.3f} GiB, "
+          f"peak {peak / gib:.3f} GiB, drift over the exploits "
+          f"{[round(d / 2**20, 3) for d in drift]} MiB; on {card}")
+    return launches
+
+
+def ppo_trials(card: str) -> None:
+    """26b (module note)."""
+    from ray_tpu_torch.models.convert import params_to_numpy
+    from ray_tpu_torch.rllib import ppo
+    from ray_tpu_torch.rllib.policy import policy_forward
+
+    settings = dict(env="CartPole-v1", num_rollout_workers=0,
+                    num_envs_per_worker=8, rollout_length=64,
+                    train_batch_size=512, minibatch_size=128, num_epochs=6,
+                    entropy_coeff=0.01, seed=SEED)
+    n0 = flash_launches()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+
+    def build(lr):
+        # a config dict as the tuner gives it, with a key PPO ignores
+        return ppo.PPO({**settings, "lr": lr,
+                        "trial_resources": {"CPU": 1}})
+
+    a, trial_b = (build(lr) for lr in TUNE_PPO_LRS)
+    for _ in range(2):
+        for t in (a, trial_b):
+            r = t.train()
+            check(np.isfinite(r["total_loss"]), f"26b loss {r['total_loss']}")
+    new_lr = 1.2 * TUNE_PPO_LRS[0]
+    obs = torch.from_numpy(np.random.default_rng(SEED + 70).standard_normal(
+        (16, 4)).astype(np.float32)).to("cuda")
+    resident, times = [], []
+    for cycle in range(TUNE_EXPLOITS):
+        label = f"26b exploit {cycle + 1}"
+        check(trial_b.reset_config({"lr": new_lr}) is False,
+              f"{label}: reset_config did not refuse")
+        t0 = time.perf_counter()
+        saved = a.save()
+        workers = trial_b.workers
+        trial_b.cleanup()
+        check(workers.workers == [] and workers._probe is None,
+              f"{label}: cleanup kept its workers")
+        trial_b = None
+        gc.collect()
+        trial_b = build(new_lr)
+        trial_b.restore(saved)
+        times.append(time.perf_counter() - t0)
+        got = trial_b.save()
+        check(got["_iteration"] == saved["_iteration"] == a.iteration
+              and host_equal(got["payload"], saved["payload"]),
+              f"{label}: params and moments differ from the save")
+        lr = trial_b.opt_state.param_groups[0]["lr"]
+        check(lr == new_lr, f"{label}: Adam lr {lr}, expected {new_lr}")
+        params = saved["payload"]["params"]
+        for w in trial_b.workers.workers:
+            check(host_equal(params_to_numpy(w.policy.params), params),
+                  f"{label}: a worker's weights differ from the save")
+        with torch.no_grad():
+            mine = policy_forward(trial_b.workers.workers[0].policy.params,
+                                  obs)
+            theirs = policy_forward(a.workers.workers[0].policy.params, obs)
+        check(all(torch.equal(x, y) for x, y in zip(mine, theirs)),
+              f"{label}: the restored workers act unlike the source's")
+        for t in (a, trial_b):
+            check(np.isfinite(t.train()["total_loss"]), f"{label}: loss")
+        torch.cuda.synchronize()
+        resident.append(torch.cuda.memory_allocated())
+    for t in (a, trial_b):
+        t.cleanup()
+        check(t.workers.workers == [] and not hasattr(t, "params")
+              and not hasattr(t, "opt_state"),
+              "26b: cleanup kept its workers, params or optimizer")
+    gc.collect()
+    end = torch.cuda.memory_allocated()
+    drift = [r - resident[0] for r in resident]
+    check(all(abs(d) <= TUNE_MEM_SLACK for d in drift)
+          and abs(end - base) <= TUNE_MEM_SLACK,
+          f"26b: memory moved {drift} over the exploits, {end - base} after "
+          f"cleanup")
+    check(flash_launches() == n0, "26b: PPO launched a flash kernel")
+    print(f"[tune 26b] PPO at phase 14's settings, trials at lr "
+          f"{TUNE_PPO_LRS}, {TUNE_EXPLOITS} exploits (save, cleanup, build at "
+          f"lr {new_lr:.6g}, restore) in "
+          f"{', '.join(f'{x * 1e3:.1f}' for x in times)} ms: params and "
+          f"moments equal the save, the new lr in Adam, the workers act "
+          f"with the restored weights; device memory with both resident "
+          f"{[r - base for r in resident]} bytes over the level before, "
+          f"{end - base} after both cleanups; no flash launch; on {card}")
+
+
+def phase_tune_trials(name: str, card: str, trainer: dict) -> dict:
+    """Phase 26 (module note).  Returns {"tune_trials": [fwd, kv, dq]}."""
+    fa = importlib.import_module("ray_tpu_torch.ops.flash_attention")
+    fa.launches = fa.bwd_kv_launches = fa.bwd_dq_launches = 0
+    try:
+        launches = gpt_trials(card, trainer)
+        ppo_trials(card)
+    finally:
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"tune_trials": [sum(n[i] for n in launches) for i in range(3)]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -6469,6 +6768,7 @@ def main() -> int:
         k["elastic_shape"] = elastic_records[k["name"]]
     train_launches.update(run(phase_process_trainer, name, card,
                               trainer["history"], trainer["grad_norm"]))
+    train_launches.update(run(phase_tune_trials, name, card, trainer))
     train_launches.update(model_launches)
     train_launches.update(trainer["launches"])
     # launches on each main path's run: the bf16 serving requests, the
@@ -6481,8 +6781,8 @@ def main() -> int:
     # trainer's fits on a mesh (18a's six steps at NCCL world size 1,
     # 18b's six a rank on four threaded ranks), the slot engine's
     # admissions on tp (19a-c), the elastic gang's 26 member-steps
-    # (22a), the same run's 26 member-steps on member processes (25) and
-    # phase 7's three f32 steps
+    # (22a), the same run's 26 member-steps on member processes (25), the
+    # tune trials' 10 steps (26a) and phase 7's three f32 steps
     for i, k in enumerate(kernels):
         paths = {p: n[i] for p, n in train_launches.items()}
         if k["name"] == "flash_fwd":

@@ -3,8 +3,16 @@
 
 ``Algorithm`` carries its own copy of the Trainable API that the JAX
 package's ``Algorithm`` inherits from ``ray_tpu/tune/trainable.py``
-(``train``, ``save``, ``restore``, ``iteration``), because the port does
-not import ``ray_tpu.tune``.  ``training_step`` is the override point.
+(``train``, ``save``, ``restore``, ``iteration``, ``reset_config``,
+``cleanup``), because the port does not import ``ray_tpu.tune``; a test's
+glue wraps it in a ``Trainable`` to run it under the JAX package's tuner.
+``training_step`` is the override point.  A config dict's keys that the
+algorithm's config does not know (Tune adds ``trial_resources``) are
+ignored.  ``save`` hands out host copies (numpy), never live tensors, so
+PBT may give one trial's save to another; ``cleanup`` stops the workers
+and drops every reference to the algorithm's tensors, so a trial's device
+memory comes back when it is cleaned up even while the tuner keeps the
+trial's runner.
 
 ``WorkerSet`` samples inline, or with its rollout workers as actors of
 the in-process stand-in ``core.actors`` (where the JAX package spawns
@@ -147,10 +155,15 @@ class WorkerSet:
                 w.set_weights(weights)
 
     def stop(self) -> None:
-        """Kill the actors (nothing to release inline)."""
+        """Kill the actors (their handles stay, closed) and let go of the
+        inline workers and the local probe, whose policies hold params on
+        the device."""
         if self.use_actors:
             for w in self.workers:
                 actors.kill(w)
+        else:
+            self.workers = []
+        self._probe = None
 
 
 class Algorithm:
@@ -159,6 +172,10 @@ class Algorithm:
     Trainable has them."""
 
     _default_config: Callable[[], AlgorithmConfig] = AlgorithmConfig
+    # what ``cleanup`` keeps: the config, the counters and the (stopped)
+    # worker set
+    _kept_by_cleanup = ("config", "_iteration", "_timesteps", "_ep_returns",
+                        "workers")
 
     def __init__(self, config: Optional[dict] = None):
         self.config = config or {}
@@ -189,12 +206,22 @@ class Algorithm:
     def load_checkpoint(self, checkpoint: dict):
         pass
 
+    def reset_config(self, new_config: dict) -> bool:
+        """Tune's explore hook: False, as the Trainable's default, so PBT
+        builds the algorithm anew at the new config and restores into
+        it."""
+        return False
+
     def cleanup(self):
         """Stop the rollout workers of an algorithm that has a
-        ``WorkerSet`` (its actors; nothing to release inline)."""
+        ``WorkerSet``, then drop every attribute but the config, the
+        counters and the stopped worker set: the params, the optimizer,
+        the update closures and the buffers go with them."""
         workers = getattr(self, "workers", None)
         if isinstance(workers, WorkerSet):
             workers.stop()
+        for name in [k for k in vars(self) if k not in self._kept_by_cleanup]:
+            delattr(self, name)
 
     def step(self) -> dict:
         t0 = time.perf_counter()

@@ -201,7 +201,9 @@ class AlphaStar(Algorithm):
         return metrics
 
     def save_checkpoint(self) -> dict:
-        return {"players": {pid: (p.kind, p.logits, p.frozen, p.parent)
+        """Copies of the league (a save may go to another live trial)."""
+        return {"players": {pid: (p.kind, p.logits.copy(), p.frozen,
+                                  p.parent)
                             for pid, p in self.league.players.items()},
                 "payoff": dict(self.league.payoff),
                 "iter": self._iter,

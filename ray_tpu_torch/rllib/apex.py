@@ -243,10 +243,12 @@ class ApexDQN(Algorithm):
 
     def cleanup(self):
         """Kill every collector and shard; one kill that raises (a thread
-        still running past the join bound) does not spare the rest."""
-        if self._distributed:
+        still running past the join bound) does not spare the rest; then
+        the base cleanup drops the learner's state."""
+        if getattr(self, "_distributed", False):
             for o in self.collectors + self.shards:
                 try:
                     actors.kill(o)
                 except RuntimeError:
                     pass
+        super().cleanup()

@@ -235,4 +235,6 @@ class DDPPO(Algorithm):
         self._timesteps = ck.get("timesteps", 0)
 
     def cleanup(self):
-        self.gang.shutdown()
+        if getattr(self, "gang", None) is not None:
+            self.gang.shutdown()
+        super().cleanup()
