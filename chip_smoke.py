@@ -4561,12 +4561,30 @@ def forward_times(name: str, card: str, tag: str, q, k, v,
             "bound_ms": bound, "bound_by": by, **extra}
 
 
-def free_port() -> int:
-    import socket
+def nccl_world_of_one() -> str:
+    """Join an NCCL world of one rank in this process -> its coordinator,
+    whose port this process holds from its choice until
+    ``leave_world_of_one`` (``distributed.new_coordinator``)."""
+    from ray_tpu_torch.parallel import distributed
 
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        return sock.getsockname()[1]
+    coordinator = distributed.new_coordinator("nccl")
+    try:
+        distributed.initialize(coordinator, 1, 0, "nccl")
+    except BaseException:
+        distributed.release_coordinator(coordinator)
+        raise
+    return coordinator
+
+
+def leave_world_of_one(coordinator: str) -> None:
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import distributed
+
+    try:
+        dist.destroy_process_group()
+    finally:
+        distributed.release_coordinator(coordinator)
 
 
 def sharded_steps(mesh, cfg, params, tokens, steps, *, on_step=None,
@@ -4616,8 +4634,6 @@ def phase_sharded_training(name: str, card: str) -> dict:
     kernels' records at the tp-local shape."""
     import logging
 
-    import torch.distributed as dist
-
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.parallel import create_mesh, run_ranks
 
@@ -4636,8 +4652,7 @@ def phase_sharded_training(name: str, card: str) -> dict:
     # 15a: NCCL at world size 1, b16 s1024
     tokens = rng.integers(0, cfg.vocab_size, (16, 1025)).astype(np.int64)
     single, single_ms = sharded_steps(None, cfg, params, tokens, 13)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", world_size=1, rank=0)
+    coordinator = nccl_world_of_one()
     try:
         mesh = create_mesh({"dp": 1})
         counts = []
@@ -4653,7 +4668,7 @@ def phase_sharded_training(name: str, card: str) -> dict:
         sharded, sharded_ms = sharded_steps(mesh, cfg, params, tokens, 13,
                                             on_step=count)
     finally:
-        dist.destroy_process_group()
+        leave_world_of_one(coordinator)
     launches["sharded_nccl_dp1"] = [sum(c[i] for c in counts)
                                     for i in range(3)]
     for i in range(3):
@@ -5293,7 +5308,6 @@ def phase_tp_serving(name: str, card: str) -> tuple:
     0.125 of plain attention.  Then the forward at both rank shapes in
     bf16 and f32 against its plain version, timed.  Returns ({path: flash
     launches in its run}, {record key: flash_fwd record})."""
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from ray_tpu_torch.inference import EngineConfig, InferenceEngine
@@ -5314,8 +5328,7 @@ def phase_tp_serving(name: str, card: str) -> tuple:
         one, _, one_itl, _, _, _, _ = counted_serve(eng, prompts, False, warm)
     finally:
         eng.shutdown()
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", world_size=1, rank=0)
+    coordinator = nccl_world_of_one()
     try:
         mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
         eng = InferenceEngine(params, cfg, EngineConfig(), mesh=mesh)
@@ -5326,7 +5339,7 @@ def phase_tp_serving(name: str, card: str) -> tuple:
         finally:
             eng.shutdown()
     finally:
-        dist.destroy_process_group()
+        leave_world_of_one(coordinator)
     launches["serve_tp1_nccl"] = n
     check(got == one, f"17a: tp1 replies {got} differ from one device's "
           f"{one}")
@@ -5528,8 +5541,6 @@ def phase_mesh_trainer(card: str, one_device: list) -> dict:
     run}."""
     import logging
 
-    import torch.distributed as dist
-
     from ray_tpu_torch.models import gpt
     from ray_tpu_torch.parallel import run_ranks
 
@@ -5545,8 +5556,7 @@ def phase_mesh_trainer(card: str, one_device: list) -> dict:
         cfg = gpt.GPTConfig.gpt2_124m(remat=True, remat_policy="dots")
         L = cfg.n_layers
         data = HostBatches(6, 16, 1024, 4096, SEED + 20, fail_at=4)
-        dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                                f"{free_port()}", world_size=1, rank=0)
+        coordinator = nccl_world_of_one()
         try:
             marks = []
             torch.cuda.synchronize()
@@ -5563,7 +5573,7 @@ def phase_mesh_trainer(card: str, one_device: list) -> dict:
                                                    "checkpoints")))
             del tr
         finally:
-            dist.destroy_process_group()
+            leave_world_of_one(coordinator)
         hist = [(m["step"], m["loss"]) for m in res.metrics_history]
         check(data.passes == 2 and [st for st, _ in hist]
               == [1, 2, 3, 4, 5, 6], f"18a: {data.passes} passes, "
@@ -5668,7 +5678,6 @@ def phase_slot_tp(card: str) -> dict:
     device's), and the prefill's last-position logits at the rank shape
     within 0.125 of plain attention.  Returns {path: flash launches in
     its run}."""
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
 
     from ray_tpu_torch.inference import EngineConfig, InferenceEngine
@@ -5689,8 +5698,7 @@ def phase_slot_tp(card: str) -> dict:
         one, _, one_itl, _, _, _, _ = counted_serve(eng, prompts, False, warm)
     finally:
         eng.shutdown()
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
-                            f"{free_port()}", world_size=1, rank=0)
+    coordinator = nccl_world_of_one()
     try:
         mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("tp",))
         eng = InferenceEngine(params, cfg, EngineConfig(paged=False),
@@ -5702,7 +5710,7 @@ def phase_slot_tp(card: str) -> dict:
         finally:
             eng.shutdown()
     finally:
-        dist.destroy_process_group()
+        leave_world_of_one(coordinator)
     launches["slot_tp1_nccl"] = n
     check(got == one, f"19a: tp1 slot replies {got} differ from one "
           f"device's {one}")
@@ -6220,13 +6228,15 @@ def read_launch_logs(root: str) -> dict:
 class TimedProcessHost(ProcessHost):
     """Phase 25's ``ProcessHost``: also keeps, for each spawned member,
     the seconds until it answered a ping (its process started, imported
-    torch, this script and the port), and for each member that died, the
+    torch, this script and the port), for each member that died, the
     seconds from its process's end (its pipe closing) until the gang
     named it (the failed call that raised, or a probe that found it
-    gone)."""
+    gone), and for each world formed (formation, re-form, readmission)
+    the seconds of its forming call once every member was up."""
 
     spawned: dict = {}      # member id -> seconds until it answered
     named: dict = {}        # member id -> seconds from its end to naming
+    formed: list = []       # (what, seconds) of each world's forming call
     _started: dict = {}     # member id -> when its spawn began
 
     def spawn(self, member_cls, rank, world, **kw):
@@ -6255,12 +6265,16 @@ class TimedProcessHost(ProcessHost):
 
     def call(self, members, coordinator, method, args, what, timeout):
         self._wait_up(members)
+        t = time.perf_counter()
         try:
             return super().call(members, coordinator, method, args, what,
                                 timeout)
         except GangMemberDied:
             self._name(members)
             raise
+        finally:
+            if method == "formed":
+                self.formed.append((what, time.perf_counter() - t))
 
     def probe(self, member, timeout):
         alive = super().probe(member, timeout)
@@ -6292,7 +6306,7 @@ def phase_process_trainer(name: str, card: str, one_device: list,
                             dir=os.path.dirname(os.path.abspath(__file__)))
     batches = HostBatches(6, 16, 1024, 4096, SEED + 20).batches
     TimedProcessHost.spawned, TimedProcessHost.named = {}, {}
-    TimedProcessHost._started = {}
+    TimedProcessHost.formed, TimedProcessHost._started = [], {}
     trainer_mod.ProcessHost = TimedProcessHost
     tr = None
     try:
@@ -6423,7 +6437,9 @@ def phase_process_trainer(name: str, card: str, one_device: list,
     print(f"[proc trainer 25] fit {wall:.1f} s wall (three attempts, two "
           f"checkpoints written, four processes share one card and a "
           f"gloo world: not a throughput); the gang formed in "
-          f"{form_s:.2f} s before it; "
+          f"{form_s:.2f} s before it; worlds formed (each forming call "
+          f"once its members were up, on a rendezvous the owner holds) "
+          f"{[(w, round(t, 3)) for w, t in TimedProcessHost.formed]}; "
           f"spawning (each member until it answered): "
           f"{[round(spawned[m], 2) for m in sorted(spawned)]} s; each death "
           f"named {[round(named[m], 3) for m in sorted(named)]} s after "

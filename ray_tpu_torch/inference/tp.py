@@ -35,7 +35,11 @@ that call and the ranks serve on; the engine then fails its in-flight
 requests and resets every rank's pool.  A rank that dies, or that
 raises while the others wait for it in a collective, stops every rank
 (threaded ranks are woken from their collectives): every call then
-raises ``TPRanksDead`` and the engine fails closed, never hung.
+raises ``TPRanksDead`` and the engine fails closed, never hung.  Only
+rank threads wake the others: a dead rank's thread as it ends
+(``run_ranks``), or a rank that reads the stop sentinel ``_WAKE``.  A
+caller's thread waking them, as the ranks unwound, corrupted the heap
+under load (a segfault in the garbage collector).
 
 The paged engine and the slot engine run here alike: the slot engine's
 ranks hold its slot cache split over heads (``cache.SlotShard``), write a
@@ -82,6 +86,9 @@ from ray_tpu_torch.serve.qos import ReplicaDeadError
 # raised; after it the ranks are stopped (they would wait in a
 # collective the failed rank never joins)
 FAILURE_GRACE_S = 30.0
+# the stop sentinel on which a threaded rank first wakes the ranks waiting
+# in a collective (``TPExecutor._died``)
+_WAKE = object()
 
 
 class TPRanksDead(ReplicaDeadError):
@@ -387,18 +394,17 @@ class TPExecutor:
 
     def _died(self, error: BaseException, wake: bool = True) -> None:
         """The ranks stop: record why (the first reason), wake every
-        waiting caller, send every rank still reading its queue the stop
-        sentinel, and (``wake``) stop threaded ranks waiting in a
-        collective."""
+        waiting caller and send every rank still reading its queue the stop
+        sentinel; with ``wake``, ``_WAKE``, on which a threaded rank stops
+        the ranks waiting in a collective (for one that will never join
+        them) from its own thread."""
         with self._cond:
             if self._error is None:
                 self._error = error
             self._cond.notify_all()
+        stop = _WAKE if wake and self.threaded else None
         for box in self._inboxes:
-            box.put(None)
-        if wake and self.threaded:
-            # a rank waiting in a collective for a dead one never returns
-            wake_collectives()
+            box.put(stop)
 
     @property
     def alive(self) -> bool:
@@ -541,13 +547,17 @@ class EngineRanks:
 
 def _rank_loop(ctx: RankContext, recv: Callable, post: Callable,
                died: Callable) -> None:
-    """A rank's life: run each operation it receives until the stop
-    sentinel (None).  An operation's error is posted to its caller and
-    the rank reads on; anything that ends the loop otherwise stops every
-    rank (``died``)."""
+    """A rank's life: run each operation it receives until a stop
+    sentinel (None, or ``_WAKE``: wake the ranks waiting in a collective
+    first).  An operation's error is posted to its caller and the rank
+    reads on; anything that ends the loop otherwise stops every rank
+    (``died``)."""
     try:
         while True:
             cmd = recv()
+            if cmd is _WAKE:
+                wake_collectives()
+                return
             if cmd is None:
                 return
             call, name, op, args = cmd

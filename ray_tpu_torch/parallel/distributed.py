@@ -26,7 +26,12 @@ Backends are named by where the members live:
     ends; ``abandon`` has nothing to park.
   * ``"nccl"`` (CUDA) and ``"gloo"`` (CPU), by the device
     (``backend_for``): one member per process, the coordinator a
-    ``tcp://host:port`` address.  This is the route for members hosted
+    ``tcp://host:port`` address whose master ``TCPStore`` the process
+    that picked it holds from ``new_coordinator`` to
+    ``release_coordinator``, so no other socket can take the port in
+    between (a port found free and closed again could be taken before a
+    rank bound it).  Every rank joins it as a client, each entry under a
+    fresh prefix as above.  This is the route for members hosted
     as processes (``gang.ProcessHost``), which takes gloo, also over CUDA
     tensors on a card the members share (NCCL runs no two ranks on one
     card).  ``WORLD_TIMEOUT_S`` bounds the formation and every
@@ -50,16 +55,17 @@ test_torch_port_proc_trainer_host.py`` pins that list on the CPU).
 from __future__ import annotations
 
 import datetime
-import socket
 import threading
 import uuid
+from urllib.parse import urlsplit
 
 import torch
 import torch.distributed as dist
 
 THREADED = "threaded://"
 
-# in-process rendezvous by coordinator name
+# the rendezvous this process holds, by coordinator: an in-process
+# ``HashStore`` (threaded) or the master ``TCPStore`` of a tcp address
 _stores: dict = {}
 _stores_lock = threading.Lock()
 # worlds left by abandon(): never shut down, never destroyed
@@ -75,28 +81,40 @@ def backend_for(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _timeout() -> datetime.timedelta:
+    return datetime.timedelta(seconds=WORLD_TIMEOUT_S)
 
 
 def new_coordinator(backend: str, host: str = "127.0.0.1") -> str:
-    """A fresh rendezvous for a world of ``backend``, chosen by its rank
-    0: a new in-process store (``threaded://<name>``), or a free port on
-    ``host`` (``tcp://host:port``)."""
+    """A fresh rendezvous for a world of ``backend``, held by this
+    process until ``release_coordinator``: a new in-process store
+    (``threaded://<name>``), or the master ``TCPStore`` of a port the
+    system picks on ``host`` (``tcp://host:port``)."""
     if backend == "threaded":
-        name = THREADED + uuid.uuid4().hex
-        with _stores_lock:
-            _stores[name] = dist.HashStore()
-        return name
-    return f"tcp://{host}:{_free_port()}"
+        name, store = THREADED + uuid.uuid4().hex, dist.HashStore()
+    else:
+        store = dist.TCPStore(host, 0, is_master=True,
+                              wait_for_workers=False, timeout=_timeout())
+        name = f"tcp://{host}:{store.port}"
+    with _stores_lock:
+        _stores[name] = store
+    return name
 
 
 def release_coordinator(coordinator: str) -> None:
-    """Forget an in-process rendezvous no world will enter again."""
+    """Drop a rendezvous no world will enter again; a tcp address's port
+    is closed with its master store."""
     with _stores_lock:
         _stores.pop(coordinator, None)
+
+
+def _entry_store(base, rank: int):
+    """``base`` under a fresh prefix for this entry into its world:
+    every rank enters each world of a coordinator once, in order, so its
+    own count names the entry without a handshake, and no key of an
+    earlier world is seen by a later one."""
+    entry = base.add(f"entries/{rank}", 1)
+    return dist.PrefixStore(f"world{entry}/", base)
 
 
 def initialize(coordinator: str, world: int, rank: int,
@@ -104,22 +122,22 @@ def initialize(coordinator: str, world: int, rank: int,
     """Join the world of ``world`` ranks at ``coordinator`` as ``rank``:
     ``dist.init_process_group`` on this thread (threaded) or process,
     whose collectives (a process world's) wait at most
-    ``WORLD_TIMEOUT_S``.  Returns the backend."""
+    ``WORLD_TIMEOUT_S``.  A tcp address is joined as a client of its
+    holder's store, rank 0 too.  Returns the backend."""
     if backend == "threaded":
         with _stores_lock:
             base = _stores.get(coordinator)
         if base is None:
             raise RuntimeError(f"no in-process rendezvous {coordinator!r}")
-        # every rank enters each world of this coordinator once, in
-        # order, so its own count names the entry without a handshake
-        entry = base.add(f"entries/{rank}", 1)
-        store = dist.PrefixStore(f"world{entry}/", base)
         dist.init_process_group("threaded", rank=rank, world_size=world,
-                                store=store)
+                                store=_entry_store(base, rank))
     else:
-        dist.init_process_group(
-            backend, init_method=coordinator, world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=WORLD_TIMEOUT_S))
+        url = urlsplit(coordinator)
+        base = dist.TCPStore(url.hostname, url.port, is_master=False,
+                             timeout=_timeout())
+        dist.init_process_group(backend, store=_entry_store(base, rank),
+                                world_size=world, rank=rank,
+                                timeout=_timeout())
     return backend
 
 

@@ -35,8 +35,9 @@ probe one, kill one), with two hosts:
 - ``ProcessHost``: each member is a process of its own (spawned, never
   forked), the JAX package's member actor; a SIGKILL ends it, from
   outside or from its own code.  Its world is gloo over a
-  ``tcp://127.0.0.1`` coordinator, on the CPU or on a card the members
-  share (NCCL runs no two ranks on one card).  The member object and its
+  ``tcp://127.0.0.1`` coordinator whose port the owner holds from its
+  choice until the world is spent or the gang shuts down, on the CPU or
+  on a card the members share (NCCL runs no two ranks on one card).  The member object and its
   ``state`` live in the child; the parent holds a ``ProcessMember``
   handle.  Functions reach the child by reference with the standard
   ``pickle``: a module-level function or a ``functools.partial`` of one,
@@ -274,6 +275,10 @@ class InProcessHost:
     def new_coordinator(self, members: list) -> str:
         """The next world's rendezvous, picked by its rank 0."""
         return members[0].choose_coordinator()
+
+    def release(self, coordinator: str) -> None:
+        """Drop a rendezvous no world will enter again."""
+        distributed.release_coordinator(coordinator)
 
     def call(self, members: list, coordinator: str, method: str,
              args: tuple, what: str, timeout: Optional[float]) -> list:
@@ -513,8 +518,23 @@ class ProcessHost:
                              self._cond)
 
     def new_coordinator(self, members: list) -> str:
-        """A free port on 127.0.0.1, chosen by the owner."""
-        return distributed.new_coordinator("gloo")
+        """A rendezvous on 127.0.0.1 whose port the owner holds until it
+        is released (``distributed.new_coordinator``)."""
+        address = distributed.new_coordinator("gloo")
+        self._spent.discard(address)    # a port released before, reused
+        return address
+
+    def release(self, coordinator: str) -> None:
+        """Close a gang's rendezvous and the address its members were
+        last moved to."""
+        distributed.release_coordinator(
+            self._address.pop(coordinator, coordinator))
+        distributed.release_coordinator(coordinator)
+
+    def _spend(self, address: str) -> None:
+        """No world enters ``address`` again: its port is closed."""
+        self._spent.add(address)
+        distributed.release_coordinator(address)
 
     def call(self, members: list, coordinator: str, method: str,
              args: tuple, what: str, timeout: Optional[float]) -> list:
@@ -543,13 +563,13 @@ class ProcessHost:
         seqs = []
         for rank, m in enumerate(members):
             if m.address not in (None, address):
-                self._spent.add(m.address)      # m leaves it to join this
+                self._spend(m.address)          # m leaves it to join this
             m.rank, m.world, m.address = rank, world, address
             seqs.append(m.submit("call", (address, world, rank), blob))
         try:
             return self._collect(members, seqs, what, timeout)
         except BaseException:
-            self._spent.add(address)
+            self._spend(address)
             raise
         finally:
             for m, seq in zip(members, seqs):
@@ -582,8 +602,15 @@ class ProcessHost:
                 left = min(deadline, window_end) - now
                 # no bound yet (run's default): wait for any answer or exit
                 self._cond.wait(None if math.isinf(left) else left)
+            if not dead:
+                # a member whose process has ended is dead even where its
+                # reader (starved of the GIL, say) has not filed the EOF
+                # yet: its peers' "connection closed" errors came after it
+                dead = [i for i, (m, a) in enumerate(zip(members, answers))
+                        if a is None and not m.proc.is_alive()]
         if dead:
-            r = min(dead, key=lambda i: members[i].gone_at)
+            r = min(dead, key=lambda i: (members[i].gone_at is None,
+                                         members[i].gone_at or 0.0, i))
             raise GangMemberDied(
                 r, f"gang member rank {r}/{world} died during {what} "
                    f"(pid {members[r].pid}, exit code "
@@ -665,10 +692,10 @@ class MultiHostGang:
             self.host.call(members, coordinator, "formed", (), what,
                            SETUP_TIMEOUT_S)
         except BaseException:
-            distributed.release_coordinator(coordinator)
+            self.host.release(coordinator)
             raise
         if self.coordinator is not None:
-            distributed.release_coordinator(self.coordinator)
+            self.host.release(self.coordinator)
         self.coordinator = coordinator
         self.members = members
         self.num_members = len(members)
@@ -761,7 +788,7 @@ class MultiHostGang:
         for m in self.members:
             self.host.kill(m)
         if self.coordinator is not None:
-            distributed.release_coordinator(self.coordinator)
+            self.host.release(self.coordinator)
 
 
 __all__ = ["GangConfig", "TpuGang", "form_gang", "GangMemberDied",

@@ -173,7 +173,8 @@ def waiting_outside_collectives():
 def wake_collectives() -> None:
     """Stop every rank waiting in a collective of the threaded group
     (they raise ``SystemExit`` there), for a caller that knows a rank
-    will never join them."""
+    will never join them.  Call it on a rank's thread: from another
+    thread, while the ranks unwound, it corrupted the heap under load."""
     from torch.testing._internal.distributed import multi_threaded_pg as mtp
 
     _wake_all(mtp.ProcessLocalGroup)

@@ -25,11 +25,13 @@ import torch
 
 from ray_tpu_torch.models import convert
 from ray_tpu_torch.models import gpt as tgpt
+from ray_tpu_torch.parallel.distributed import WORLD_TIMEOUT_S
 from ray_tpu_torch.parallel.gang import MemberKilled, current_member
 from ray_tpu_torch.train import Trainer, adam, shard_batch
 
-# how long a held member waits for the owner's marker
-HOLD_S = 30.0
+# the bound on a held member's wait for the owner's marker: a peer's
+# collective would wait as long
+HOLD_S = WORLD_TIMEOUT_S
 
 
 def loss(p, b, mesh=None, rules=None, *, cfg):
@@ -83,11 +85,13 @@ class ProcBatches:
 
 class HoldingTrainer(Trainer):
     """Every member, after its report of step ``HOLD_AFTER`` (the step
-    whose checkpoint rank 0 has written), waits until the owner has
-    written ``<storage_path>/killed`` (bounded by ``HOLD_S``), so that a
-    death from outside lands before step ``HOLD_AFTER + 1`` every time.
-    The feed reads two batches ahead, so a wait in the data at that step
-    would hold the members before the checkpoint."""
+    whose checkpoint rank 0 has written), writes
+    ``<storage_path>/held_<rank>`` and waits until the owner has written
+    ``<storage_path>/killed`` (bounded by ``HOLD_S``), so that a death
+    from outside lands before step ``HOLD_AFTER + 1`` every time, however
+    long the steps before took.  The feed reads two batches ahead, so a
+    wait in the data at that step would hold the members before the
+    checkpoint."""
 
     HOLD_AFTER = 3
 
@@ -97,6 +101,10 @@ class HoldingTrainer(Trainer):
         def held(metrics, *, checkpoint=None):
             report(metrics, checkpoint=checkpoint)
             if metrics["step"] == self.HOLD_AFTER:
+                rank = current_member().rank
+                with open(os.path.join(self.storage_path, f"held_{rank}"),
+                          "w"):
+                    pass
                 deadline = time.monotonic() + HOLD_S
                 while (not os.path.exists(marker)
                        and time.monotonic() < deadline):

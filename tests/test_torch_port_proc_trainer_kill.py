@@ -3,16 +3,19 @@ test_jax_trainer_multihost_kill_and_restore``: ``Trainer(num_hosts=2,
 elastic=False)`` on member processes (``ProcessHost``, gloo on the CPU),
 one of them SIGKILLed from outside mid-fit.
 
-The owner forms ``trainer.gang`` first, waits for rank 0's step-3
-checkpoint to land, then SIGKILLs rank 1's pid.  The members wait after
-their step-3 report until the owner has written a marker after the kill
+The owner forms ``trainer.gang`` first, waits until both members have
+written their marker of reaching the hold after their step-3 report and
+rank 0's step-3 checkpoint has landed, then SIGKILLs rank 1's pid.  The
+members hold until the owner has written a marker after the kill
 (``tests/_torch_port_proc_trainer.py`` ``HoldingTrainer``), so the death
-lands before step 4 every time.  With no elastic recovery the gang is
+lands before step 4 every time, whatever the load: no clock races
+another.  With no elastic recovery the gang is
 torn down and a fresh gang of two new processes resumes at step 3 from
 that checkpoint.  Held to ``JaxTrainer`` on one device whose data fails
 once at step 4 (``tests/_torch_port_elastic.py``): loss, grad_norm and
 eval at every step within rel 1e-4, params within atol 1e-4, the same
-checkpoint steps.  Every wait is bounded (30 s)."""
+checkpoint steps.  Every wait is bounded (``WORLD_TIMEOUT_S``, 120 s,
+the bound of a world's collectives)."""
 
 import multiprocessing
 import os
@@ -27,17 +30,22 @@ import _torch_port_mesh_train as mt
 import _torch_port_proc_trainer as pt
 from _torch_port_mesh_train import case  # noqa: F401 (the fixture)
 from _torch_port_procs import whoami
+from ray_tpu_torch.parallel.distributed import WORLD_TIMEOUT_S
 
-WAIT_S = 30.0
+WAIT_S = WORLD_TIMEOUT_S
 
 
 def kill_after_checkpoint(tr, pid: int, seen: dict) -> None:
-    """Wait for checkpoint_000000 (bounded), SIGKILL ``pid``, then write
-    the marker that lets the members go on."""
+    """Wait (bounded) until both members hold after step 3 and
+    checkpoint_000000 has landed, SIGKILL ``pid``, then write the marker
+    that lets the members go on."""
     payload = os.path.join(tr.storage_path, "checkpoints",
                            "checkpoint_000000", "payload.pkl")
+    wanted = [payload] + [os.path.join(tr.storage_path, f"held_{r}")
+                          for r in range(2)]
     deadline = time.monotonic() + WAIT_S
-    while not os.path.exists(payload) and time.monotonic() < deadline:
+    while (not all(map(os.path.exists, wanted))
+           and time.monotonic() < deadline):
         time.sleep(0.02)
     seen["checkpoint"] = os.path.exists(payload)
     os.kill(pid, signal.SIGKILL)
